@@ -1,0 +1,85 @@
+"""Build the port's CUDA kernels from ``csrc/`` at first use.
+
+Each source under ``csrc/`` has a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
+``ctypes``.  Libraries land in ``build/prdisagg_torch/`` beside the package,
+named by a hash of the source and flags, so an edited source rebuilds and an
+unchanged one loads straight away.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+SOURCES = {"upsample_conv": _PKG / "csrc" / "upsample_conv.cu"}
+BUILD_DIR = _PKG.parent / "build" / "prdisagg_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict = {}
+#: ptxas report (registers, shared memory, spills) of each library built by
+#: this process
+build_logs: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): the port's "
+                           "kernels are compiled by nvcc at first use")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=None) -> float:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Returns the wall seconds; raises with the compiler's output
+    if any build fails."""
+    names = list(SOURCES if names is None else names)
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp-{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        jobs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent process never loads half
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_library_path(name)))
+            _loaded[name] = lib
+        return lib

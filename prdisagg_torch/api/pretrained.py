@@ -1,0 +1,342 @@
+"""Inference API on a trained generator — the reference's importable surface
+(raindisagg_gan_pretrained.py:52-90):
+
+  generate_scenarios(cond, n_scenarios) : (nd, nd, 1) daily sums in mm
+      -> (n_scenarios, 24, nd, nd) hourly mm scenarios whose per-gridpoint
+      time-sum equals the input daily sum (softmax conservation).
+
+Semantics: condition divided by norm_scale=127.4 before the network,
+latents ~ N(0,1), fractions rescaled by cond * norm_scale back to mm/h.
+
+The forward runs on ``device`` ("cuda" by default) under
+``torch.inference_mode()``; on a CUDA device the generator's three
+upsample-conv stages run through the hand-written kernel
+(ops/upsample_conv.py).  Asking for "cuda" without a card raises.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from prdisagg_torch.core.config import ModelConfig
+from prdisagg_torch.models.generator import Generator
+from prdisagg_torch.models.io import (
+    infer_generator_config,
+    load_keras_generator_h5,
+    load_params_npz,
+    params_from_jax,
+)
+
+NORM_SCALE = 127.4
+
+#: Default per-forward batch cap at 16x16.  chip_smoke.py measures the peak
+#: device memory of a float32 generate_scenarios call at 4.72 MB per
+#: scenario on an 80 GB H100 (PERF.md): 8192 scenarios take 38.7 GB, which
+#: leaves half the card as headroom.
+MAX_BATCH_16 = 8192
+
+
+def _bucket(n: int) -> int:
+    """Smallest b >= n with b in {2^k, 1.5*2^k}: bounds the set of fused
+    batch shapes; padding stays under 50% (worst case is just above a power
+    of two: 2^k + 1 -> 1.5 * 2^k)."""
+    p = 1
+    while p < n:
+        p <<= 1
+    if p > 1 and 3 * p // 4 >= n:
+        return 3 * p // 4
+    return p
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device, refusing "cuda" when no card is present (the
+    port never falls back to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was requested but torch finds "
+                           "no CUDA device; pass device='cpu' to run on the "
+                           "CPU")
+    return device
+
+
+class PretrainedGenerator:
+    """A trained generator on one device, loadable from the JAX package's
+    ``.npz`` or the reference's Keras ``.h5`` checkpoints."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 cfg: Optional[ModelConfig] = None,
+                 norm_scale: float = NORM_SCALE, seed: int = 0,
+                 max_batch: Optional[int] = None, device="cuda"):
+        """`params` is a ``Generator`` state_dict (models/io.py
+        ``params_from_jax`` makes one from a JAX/Keras tree).
+
+        `max_batch` caps the per-forward batch: larger requests are served
+        in chunks.  The default scales :data:`MAX_BATCH_16` with the
+        domain's activation footprint (~ndomain^2); bfloat16 activations
+        take less memory than the float32 ones it was measured on.
+
+        Precision: inference defaults to float32 — the reference's predict
+        path is implicit f32 and published weights expect it.  Pass a cfg
+        with compute_dtype="bfloat16" for throughput-first serving."""
+        self.cfg = cfg or ModelConfig(compute_dtype="float32")
+        self.device = resolve_device(device)
+        self.norm_scale = norm_scale
+        if max_batch is None:
+            max_batch = max(32, int(MAX_BATCH_16
+                                    * (16 / self.cfg.ndomain) ** 2))
+        self.max_batch = max_batch
+        self._gen = self._build(params)
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _build(self, params) -> Generator:
+        with torch.device("meta"):
+            gen = Generator(self.cfg)
+        gen.load_state_dict({k: torch.as_tensor(v).to(self.device)
+                             for k, v in params.items()},
+                            strict=True, assign=True)
+        return gen.requires_grad_(False).eval()
+
+    # -- constructors --------------------------------------------------------
+    @classmethod
+    def from_npz(cls, path: str, cfg: Optional[ModelConfig] = None,
+                 n_cond_channels: int = 1, **kw):
+        """cfg=None infers the architecture from the stored weight shapes."""
+        tree = load_params_npz(path)
+        cfg = cfg or infer_generator_config(tree, n_cond_channels)
+        return cls(params_from_jax(tree), cfg, **kw)
+
+    @classmethod
+    def from_keras_h5(cls, path: str, cfg: Optional[ModelConfig] = None,
+                      n_cond_channels: int = 1, **kw):
+        """cfg=None infers the architecture from the stored weight shapes."""
+        tree = load_keras_generator_h5(path, cfg, n_cond_channels)
+        cfg = cfg or infer_generator_config(tree, n_cond_channels)
+        return cls(params_from_jax(tree), cfg, **kw)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The served weights (state_dict of the current generator)."""
+        return self._gen.state_dict()
+
+    # -- hot reload --------------------------------------------------------------
+    def load_weights_file(self, path: str) -> Dict[str, torch.Tensor]:
+        """Read a weight file (.h5 Keras or .npz) into a host state_dict for
+        THIS generator's architecture — the load half of a hot reload, safe
+        to run off the compute path (pure disk/CPU work)."""
+        if path.endswith((".h5", ".hdf5")):
+            return params_from_jax(load_keras_generator_h5(path, self.cfg))
+        return params_from_jax(load_params_npz(path))
+
+    def reload_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Swap in new weights of the same architecture.
+
+        Validates names, shapes and dtypes BEFORE touching the served
+        generator: a mismatch raises and the old weights keep serving.  The
+        swap itself is one attribute assignment — an in-flight forward uses
+        whichever generator it already grabbed, never a mix."""
+        cur = self.params
+        new = {k: torch.as_tensor(v) for k, v in params.items()}
+        if set(cur) != set(new):
+            raise ValueError(
+                f"param names mismatch: serving {sorted(cur)}, got "
+                f"{sorted(new)} — reload requires the same architecture")
+        bad = [
+            f"{k}: serving {tuple(cur[k].shape)}/{cur[k].dtype}, got "
+            f"{tuple(new[k].shape)}/{new[k].dtype}"
+            for k in sorted(cur)
+            if new[k].shape != cur[k].shape or new[k].dtype != cur[k].dtype
+        ]
+        if bad:
+            raise ValueError("param mismatch (reload requires identical "
+                             "shapes/dtypes):\n  " + "\n  ".join(bad))
+        self._gen = self._build(new)
+
+    # -- warmup ----------------------------------------------------------------
+    def warm(self, batch_sizes=("max",)) -> float:
+        """Run the forward once at the given request sizes BEFORE serving
+        traffic, so that kernel builds, cuDNN algorithm choice and the
+        caching allocator's first growth happen outside any request.
+
+        Each entry is ``"max"`` (the `max_batch` chunk shape), ``"buckets:N"``
+        (every micro-batching bucket size {2^k, 1.5*2^k} up to N), or an int
+        n (capped at `max_batch`).  Returns the total warm seconds.  Uses
+        zero inputs; the generator's random stream is not consumed."""
+        sizes = []
+        for b in batch_sizes:
+            if b == "max":
+                sizes.append(self.max_batch)
+            elif isinstance(b, str) and b.startswith("buckets"):
+                _, _, lim = b.partition(":")
+                lim = min(int(lim) if lim else 16, self.max_batch)
+                p = 1
+                while p <= lim:
+                    sizes.append(p)
+                    if 3 * p // 2 <= lim and p > 1:
+                        sizes.append(3 * p // 2)
+                    p <<= 1
+            else:
+                sizes.append(min(int(b), self.max_batch))
+        t0 = time.perf_counter()
+        for n in sorted(set(max(1, n) for n in sizes)):
+            cfg = self.cfg
+            lat = torch.zeros((n, cfg.latent_dim), device=self.device)
+            cnd = torch.zeros((n, cfg.ndomain, cfg.ndomain,
+                               cfg.n_cond_channels), device=self.device)
+            self._device_forward(lat, cnd, self._gen)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    # -- inference ------------------------------------------------------------
+    def _normalize_cond(self, cond: np.ndarray) -> np.ndarray:
+        """Channel-aware conditioning normalization.
+
+        Channel 0 is the daily precipitation sum in mm, divided by
+        norm_scale; any extra variant channels — doy sin/cos, normalized lon
+        index — arrive already in their natural ranges and pass through
+        untouched.  Accepts any leading dims; a missing channel axis is
+        added for the base 1-channel case."""
+        if cond.ndim == 2 or (cond.ndim == 3
+                              and self.cfg.n_cond_channels == 1
+                              and cond.shape[-1] != 1):
+            # (nd, nd) map or (K, nd, nd) stack of base maps
+            cond = cond[..., None]
+        if cond.shape[-1] != self.cfg.n_cond_channels:
+            raise ValueError(
+                f"cond has {cond.shape[-1]} channels where this generator "
+                f"needs {self.cfg.n_cond_channels} (channel 0 = daily sums "
+                f"in mm; extra channels per the variant's scheme, "
+                "data/sampler.py)")
+        nd = self.cfg.ndomain
+        if cond.shape[-3:-1] != (nd, nd):
+            # catches e.g. a (nd, nd, 3) array fed to a 1-channel generator,
+            # which the heuristic above would otherwise expand into a
+            # nonsense (nd, nd, 3, 1) "stack" that fails far downstream
+            raise ValueError(
+                f"cond shape {cond.shape} does not end in "
+                f"({nd}, {nd}, {self.cfg.n_cond_channels}) — expected one "
+                f"conditioning map or a (K, ...) stack of them")
+        norm = cond.astype(np.float32).copy()
+        norm[..., 0] /= self.norm_scale
+        return norm
+
+    def _latent(self, n: int) -> torch.Tensor:
+        return torch.randn((n, self.cfg.latent_dim), generator=self._rng,
+                           device=self.device)
+
+    def _device_forward(self, lat, cnd, gen: Generator) -> torch.Tensor:
+        with torch.inference_mode():
+            return gen(lat, cnd)
+
+    def predict_fractions(self, latent, cond_batch) -> torch.Tensor:
+        """Raw generator output on the device: (B, nhours, nd, nd, 1)
+        fractions.  Batches above `max_batch` run in chunks of `max_batch`,
+        all with ONE weight snapshot: a concurrent hot reload swaps the
+        generator atomically, and a chunked request must not mix versions."""
+        latent = torch.as_tensor(latent, dtype=torch.float32,
+                                 device=self.device)
+        cond_batch = torch.as_tensor(cond_batch, dtype=torch.float32,
+                                     device=self.device)
+        gen = self._gen
+        n, mb = latent.shape[0], self.max_batch
+        if n <= mb:
+            return self._device_forward(latent, cond_batch, gen)
+        return torch.cat([
+            self._device_forward(latent[i0:i0 + mb], cond_batch[i0:i0 + mb],
+                                 gen)
+            for i0 in range(0, n, mb)])
+
+    def _to_mm(self, fractions: torch.Tensor, cond0: np.ndarray) -> np.ndarray:
+        """fractions (..., nhours, nd, nd) times the unnormalized daily sum
+        cond0 (..., nd, nd), broadcast over the hour axis, on the device."""
+        c = torch.as_tensor(cond0, device=fractions.device)
+        return (fractions * c.unsqueeze(-3) * self.norm_scale).cpu().numpy()
+
+    def generate_scenarios(
+        self, cond: np.ndarray, n_scenarios: int,
+        latent: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Reference semantics (raindisagg_gan_pretrained.py:52-65).
+
+        cond: (nd, nd) or (nd, nd, C) daily precipitation sums in mm
+        (channel 0; variant generators take their extra conditioning
+        channels after it).  Returns (n_scenarios, nhours, nd, nd) hourly
+        precipitation in mm.
+        """
+        cond_norm = self._normalize_cond(np.asarray(cond, dtype=np.float32))
+        if latent is None:
+            latent = self._latent(n_scenarios)
+        cond_batch = torch.as_tensor(cond_norm, device=self.device)[None]
+        cond_batch = cond_batch.expand(n_scenarios, *cond_norm.shape)
+        fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
+        return self._to_mm(fractions, cond_norm[..., 0])
+
+    def generate_scenarios_batch(
+        self, conds: np.ndarray, n_scenarios: int,
+        latent: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Serve MANY conditions in one fused forward.
+
+        conds: (K, nd, nd) or (K, nd, nd, C) daily precipitation sums in mm.
+        Returns (K, n_scenarios, nhours, nd, nd) hourly precipitation in mm
+        — row k equals ``generate_scenarios(conds[k], n_scenarios)`` up to
+        the latent draw.  `max_batch` chunking bounds device memory for
+        any K."""
+        cond_norm = self._normalize_cond(
+            np.asarray(conds, dtype=np.float32))   # (K, nd, nd, C)
+        k = cond_norm.shape[0]
+        if latent is None:
+            latent = self._latent(k * n_scenarios)
+        cond_batch = torch.as_tensor(cond_norm, device=self.device)
+        cond_batch = cond_batch.repeat_interleave(n_scenarios, dim=0)
+        fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
+        fractions = fractions.reshape(k, n_scenarios, *fractions.shape[1:])
+        return self._to_mm(fractions, cond_norm[:, None, ..., 0])
+
+    def generate_scenarios_multi(
+        self, conds: list, n_list: list,
+    ) -> list:
+        """Serve HETEROGENEOUS requests in one fused forward.
+
+        conds: list of daily-sum maps, each (nd, nd) or (nd, nd, 1) in mm;
+        n_list: per-request scenario counts.  Returns a list of
+        (n_i, nhours, nd, nd) arrays — request i's scenarios.
+
+        This is the device side of the serving daemon's dynamic
+        micro-batching: K concurrent small requests cost one forward and
+        fill the batch dimension.  One latent draw covers the fused batch,
+        so each request still gets independent N(0,1) latents, but the exact
+        values depend on how requests were batched together.  Fused totals
+        under `max_batch` are zero-padded up to a bucket size in
+        {2^k, 1.5*2^k} (< 50% padding), which keeps the set of batch shapes
+        the device sees small; padded rows are sliced off."""
+        if len(conds) != len(n_list) or not conds:
+            raise ValueError("conds and n_list must be equal-length and "
+                             "non-empty")
+        norm, counts = [], []
+        for cond, n in zip(conds, n_list):
+            norm.append(self._normalize_cond(
+                np.asarray(cond, dtype=np.float32)))
+            counts.append(int(n))
+        total = sum(counts)
+        target = max(min(_bucket(total), self.max_batch), total)
+        latent = self._latent(target)
+        cond_batch = np.repeat(np.stack(norm), counts, axis=0)
+        if target > total:  # pad conds to the bucket shape; sliced below
+            cond_batch = np.concatenate(
+                [cond_batch, np.zeros((target - total,
+                                       *cond_batch.shape[1:]),
+                                      cond_batch.dtype)])
+        fractions = self.predict_fractions(latent, cond_batch)[:total]
+        fractions = fractions.squeeze(-1)
+        scenarios = self._to_mm(fractions, cond_batch[:total, ..., 0])
+        return list(np.split(scenarios, np.cumsum(counts)[:-1]))
+
+
+def generate_scenarios(gen: PretrainedGenerator, cond, n_scenarios: int):
+    """Free-function form of the reference API."""
+    return gen.generate_scenarios(cond, n_scenarios)

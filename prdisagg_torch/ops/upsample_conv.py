@@ -1,0 +1,164 @@
+"""Folded nearest-upsample x2 + Conv3D(3^3, SAME): the generator's hot op.
+
+Nearest upsampling repeats each voxel 2x2x2, so every 3^3 window of the
+upsampled tensor reads at most 2 distinct source voxels per axis.  The
+composition ``Conv3D(k, SAME)(upsample2(x))`` is therefore exactly 8 "phase"
+convolutions with folded 2^3 kernels on the LOW-RES grid, interleaved:
+
+    out[2d+a, 2h+b, 2w+c] = (x_pad * K2[a,b,c])[d, h, w]
+
+with, per axis, K2 rows  phase 0: [k(-1), k(0)+k(+1)]
+                         phase 1: [k(-1)+k(0), k(+1)]
+
+That is 64*DHW*Cin*Cout MACs where the direct form needs 216.
+
+Three implementations of one function:
+
+* :func:`upsample2_conv3_reference`, plain PyTorch (8 ``F.conv3d`` calls on
+  the 1-padded input, interleaved).  The CPU path and the yardstick of the
+  kernel's correctness on the card.
+* the CUDA kernel in ``csrc/upsample_conv.cu`` (one implicit GEMM per phase,
+  stored straight into the interleaved layout).
+* :func:`upsample2_conv3`, the dispatcher: a CPU tensor takes the plain
+  version, a CUDA tensor the kernel, anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from prdisagg_torch import _build
+
+# per-axis folding matrices: K2[phase] = F[phase] @ K3 along that axis
+_F0 = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 1.0]])  # sources (d-1, d)
+_F1 = np.array([[1.0, 1.0, 0.0], [0.0, 0.0, 1.0]])  # sources (d, d+1)
+
+#: number of CUDA kernel launches made by :func:`upsample2_conv3`
+launches = 0
+
+
+def phase_kernels(kernel: torch.Tensor) -> torch.Tensor:
+    """(3,3,3,Cin,Cout) -> (2,2,2 phases, 2,2,2 taps, Cin, Cout)."""
+    f = torch.stack([torch.as_tensor(_F0, dtype=kernel.dtype,
+                                     device=kernel.device),
+                     torch.as_tensor(_F1, dtype=kernel.dtype,
+                                     device=kernel.device)])
+    # fold each spatial axis: k2[a,p, b,q, c,r] = F[a,p,i] F[b,q,j] F[c,r,l] k[i,j,l]
+    return torch.einsum("api,bqj,crl,ijlmo->abcpqrmo", f, f, f, kernel)
+
+
+def _folded(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Phase kernels folded in float32 (exact sums of at most 8 weights),
+    then cast once to the compute dtype."""
+    return phase_kernels(kernel.float()).to(dtype)
+
+
+def upsample2_conv3_reference(x: torch.Tensor, kernel: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """Exactly Conv3D(kernel, SAME)(nearest_upsample_2x(x)) + bias.
+
+    x: (B, D, H, W, Cin); kernel: (3, 3, 3, Cin, Cout); bias: (Cout,).
+    Returns (B, 2D, 2H, 2W, Cout) in x's dtype.
+    """
+    b, d, h, w, _ = x.shape
+    cout = kernel.shape[-1]
+    k2 = _folded(kernel, x.dtype)
+    xp = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1))  # NCDHW
+    phases = []
+    for a in range(2):
+        for bb in range(2):
+            for c in range(2):
+                window = xp[:, :, a:a + d + 1, bb:bb + h + 1, c:c + w + 1]
+                weight = k2[a, bb, c].permute(4, 3, 0, 1, 2)  # (Cout,Cin,2,2,2)
+                phases.append(F.conv3d(window, weight))
+    # (2,2,2, B, Cout, D, H, W) -> (B, D, 2, H, 2, W, 2, Cout)
+    out = torch.stack(phases).reshape(2, 2, 2, b, cout, d, h, w)
+    out = out.permute(3, 5, 0, 6, 1, 7, 2, 4).reshape(
+        b, 2 * d, 2 * h, 2 * w, cout)
+    return out + bias.to(x.dtype)
+
+
+_CUDA_ENTRY = {torch.float32: "prdisagg_upsample2_conv3_f32",
+               torch.bfloat16: "prdisagg_upsample2_conv3_bf16"}
+
+
+def _kernel_fn(dtype: torch.dtype):
+    lib = _build.load("upsample_conv")
+    fn = getattr(lib, _CUDA_ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.prdisagg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.prdisagg_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.prdisagg_cuda_error_string
+
+
+def upsample2_conv3_cuda(x: torch.Tensor, k2: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on folded phase kernels.
+
+    x: (B, D, H, W, Cin) f32 or bf16; k2: (8, 8, Cin, Cout) of x's dtype;
+    bias: (Cout,) f32.  All contiguous on one CUDA device.  Returns
+    (B, 2D, 2H, 2W, Cout) in x's dtype, on the current stream."""
+    global launches
+    if x.dtype not in _CUDA_ENTRY:
+        raise TypeError(f"upsample2_conv3 kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"x must be (B, D, H, W, Cin), got {tuple(x.shape)}")
+    b, d, h, w, cin = x.shape
+    if k2.dim() != 4 or k2.shape[:3] != (8, 8, cin):
+        raise ValueError(f"k2 must be (8, 8, {cin}, Cout), got "
+                         f"{tuple(k2.shape)}")
+    cout = k2.shape[-1]
+    if k2.dtype != x.dtype or bias.dtype != torch.float32:
+        raise TypeError(f"dtypes: x {x.dtype}, k2 {k2.dtype} (must match x), "
+                        f"bias {bias.dtype} (must be float32)")
+    if tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
+    for name, t in (("x", x), ("k2", k2), ("bias", bias)):
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; every operand must "
+                             f"be on the CUDA device of x ({x.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((b, 2 * d, 2 * h, 2 * w, cout), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    fn, err_str = _kernel_fn(x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), k2.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 b, d, h, w, cin, cout, stream)
+    if err != 0:
+        raise RuntimeError(f"upsample2_conv3 kernel launch failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    launches += 1
+    return out
+
+
+def upsample2_conv3(x: torch.Tensor, kernel: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Conv3D(kernel, SAME)(nearest_upsample_2x(x)) + bias, NDHWC.
+
+    x: (B, D, H, W, Cin) in the compute dtype; kernel: (3, 3, 3, Cin, Cout)
+    and bias: (Cout,), normally the float32 parameters.  A CPU tensor runs
+    the plain version; a CUDA tensor runs the kernel (f32 or bf16) or
+    raises.  The kernel has no backward yet, so on CUDA it refuses inputs
+    that autograd would have to track."""
+    if x.device.type == "cpu":
+        return upsample2_conv3_reference(x, kernel, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"upsample2_conv3 runs on cpu or cuda, got {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, kernel, bias)):
+        raise NotImplementedError(
+            "the CUDA upsample2_conv3 kernel has no backward yet: call it "
+            "under torch.inference_mode() or torch.no_grad()")
+    k2 = _folded(kernel, x.dtype).reshape(8, 8, *kernel.shape[-2:])
+    return upsample2_conv3_cuda(x, k2.contiguous(),
+                                bias.to(torch.float32).contiguous())
