@@ -7,19 +7,36 @@ Run from the repository root.  Phases:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles every CUDA kernel from the sources in prdisagg_torch/csrc;
-3. kernel check: the upsample-conv kernel against its plain PyTorch version
-   at the flagship generator's three stage shapes (batch 1000) and at the
-   64x64 domain's last stage (batch 8), in float32 and bfloat16, with its
-   time beside the plain version's, one cuDNN convolution of the upsampled
-   input (timed only) and the card's bound for the same work;
-4. slice: a flagship float32 PretrainedGenerator built from seeded random
+2. build: compiles every CUDA kernel from the sources in prdisagg_torch/csrc,
+   one nvcc per source, all started together;
+3. kernel check (K1): the upsample-conv kernel against its plain PyTorch
+   version at the flagship generator's three stage shapes (batch 1000) and
+   at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, and
+   at the training shapes (bf16, batch 160 and 32), with its time beside the
+   plain version's, one cuDNN convolution of the upsampled input (timed
+   only) and the card's bound for the same work; at batch 32 also its
+   backward, timed and held against autograd through the plain version;
+4. dataset: a synthetic radar tensor of 448 days x 24 h x 256 x 256 (2.8 GB
+   of float32, a multi-year store) made on the card from --seed with the
+   synthetic-data recipe, and its valid patch indices;
+5. gather check (K2): the patch-gather kernel against its plain version,
+   bit for bit, at one train step's real gathers (160 patches), a bulk draw
+   (5000) and the generator update's conditions from the daily sums
+   (32 patches, nh = 1);
+6. slice: a flagship float32 PretrainedGenerator built from seeded random
    weights, written to .npz and loaded back, generates 1000 scenarios; the
    kernel's launch count, shapes, finiteness and conservation of the daily
    sum are checked, the result is held against the CPU path on a few
    samples, and scenarios/s and peak memory per scenario are measured;
-5. serve: a ScenarioServer answers ping, info, a b64 map request, a stack
-   request, reload, stats and shutdown.
+7. serve: a ScenarioServer answers ping, info, a b64 map request, a stack
+   request, reload, stats and shutdown;
+8. train: Trainer.fit at the flagship defaults (bf16, batch 32, n_disc 5)
+   on the card-resident dataset, 5 warm steps and 50 timed ones; checks
+   finite metrics, changed parameters, 6 K1 launches and 3 K1 backward
+   passes and 2 K2 launches per step, that a step does not copy the data
+   (peak memory), conservation of the trained generator, and one float32
+   step on the card against the same step on the CPU path; prints steps/s,
+   sample-updates/s, peak memory and a profile of one step.
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -28,6 +45,8 @@ printing no result, if any phase fails or no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -53,6 +72,20 @@ MAIN_PATH_STAGES = ("stage0", "stage1", "stage2")
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}  # rtol, atol/max
 SCENARIOS = 1000
 CONSERVATION_RTOL = 1e-5  # |sum_h scenarios - cond| <= this * max(cond)
+
+TRAIN_BATCH = 32
+N_DISC = 5
+# K1 at the training shapes: the held-over fake forward (n_disc * batch) and
+# the generator update (batch), bf16
+TRAIN_STAGES = [(f"{name}_b{b}", b, d, h, w, cin, cout)
+                for b in (N_DISC * TRAIN_BATCH, TRAIN_BATCH)
+                for name, _, d, h, w, cin, cout in STAGES[:3]]
+K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
+            + [(s, ("bfloat16",)) for s in TRAIN_STAGES])
+DATASET_SHAPE = (448, 24, 256, 256)  # days, hours, ny, nx: 2.8 GB float32
+WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 10, 5
+CARD = "cuda"  # where the dataset and the train phase live
+F32_CHECK = dict(n_disc=2, batch=8, rtol=1e-4)
 
 
 def check(ok: bool, what) -> None:
@@ -103,7 +136,44 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
+def _kernel_row(name, dtype, shape, flops, nbytes, peak_flops, **kw) -> dict:
+    """A [kernel] line's fields, with the card's bound for the work: the
+    larger of FLOPs over the operand type's peak and bytes over HBM's
+    rate."""
+    ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_BYTES
+    return dict(stage=name, dtype=dtype, shape=shape, **kw,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _k1_backward(x, k, bias, g) -> dict:
+    """K1's backward (the phase convolutions' gradients) against autograd
+    through the plain version, and both timed."""
+    import torch
+
+    from prdisagg_torch.ops.upsample_conv import (
+        upsample2_conv3,
+        upsample2_conv3_backward,
+        upsample2_conv3_reference,
+    )
+
+    leaves = [t.detach().requires_grad_(True) for t in (x, k, bias)]
+    got = torch.autograd.grad(upsample2_conv3(*leaves), leaves, g)
+    want = torch.autograd.grad(upsample2_conv3_reference(*leaves), leaves, g)
+    return dict(
+        backward_max_err_over_max=max(
+            ((a.float() - c.float()).abs().max()
+             / c.float().abs().max()).item() for a, c in zip(got, want)),
+        backward_ms=cuda_ms(lambda: upsample2_conv3_backward(x, k, g), 10),
+        backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(
+            upsample2_conv3_reference(*leaves), leaves, g), 10))
+
+
 def phase_kernel_check(seed: int) -> dict:
+    """K1 against its plain version at every shape of K1_CASES, with its
+    time beside the plain version's and one cuDNN convolution of the
+    upsampled input (timed only); at the generator update's batch also its
+    backward."""
     import torch
     import torch.nn.functional as F
 
@@ -118,25 +188,31 @@ def phase_kernel_check(seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     ok = True
-    for name, b, d, h, w, cin, cout in STAGES:
+    for (name, b, d, h, w, cin, cout), dtypes in K1_CASES:
         x32 = torch.randn((b, d, h, w, cin), generator=gen, device=dev)
         k = 0.02 * torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev)
         bias = 0.02 * torch.randn((cout,), generator=gen, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
             x = x32.to(dtype)
             k2 = _folded(k, dtype).reshape(8, 8, cin, cout).contiguous()
+            rtol, atol = TOL[dname]
             with full_f32():
                 ref = upsample2_conv3_reference(x, k, bias)
                 got = upsample2_conv3_cuda(x, k2, bias)
                 torch.cuda.synchronize()
                 err = (got.float() - ref.float()).abs()
                 scale = ref.float().abs().max().item()
-                rtol, atol = TOL[dname]
                 good = bool((err <= atol * scale
                              + rtol * ref.float().abs()).all().item())
                 max_err = err.max().item()
                 del got, err
+                extra = {}
+                if b == TRAIN_BATCH:  # the generator update's backward
+                    g = torch.randn(ref.shape, generator=gen,
+                                    device=dev).to(dtype)
+                    extra = _k1_backward(x, k, bias, g)
+                    good &= extra["backward_max_err_over_max"] <= atol
                 reps = 10
                 ms = cuda_ms(lambda: upsample2_conv3_cuda(x, k2, bias), reps)
                 plain_ms = cuda_ms(
@@ -150,17 +226,14 @@ def phase_kernel_check(seed: int) -> dict:
                 del xu, ref
             es = x.element_size()
             flops = 2 * 64 * b * d * h * w * cin * cout
-            nbytes = (b * d * h * w * cin * es + 64 * cin * cout * es
-                      + 4 * cout + 8 * b * d * h * w * cout * es)
-            peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-            ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
-            row = dict(stage=name, dtype=dname,
-                       shape=[b, d, h, w, cin, cout], ok=good,
-                       max_abs_err=max_err, max_ref=scale, rtol=rtol,
-                       atol_over_max=atol, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                       tflops=flops / ms / 1e9)
+            row = _kernel_row(
+                name, dname, [b, d, h, w, cin, cout], flops,
+                b * d * h * w * cin * es + 64 * cin * cout * es + 4 * cout
+                + 8 * b * d * h * w * cout * es,
+                PEAK_F32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS,
+                ok=good, max_abs_err=max_err, max_ref=scale, rtol=rtol,
+                atol_over_max=atol, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, tflops=flops / ms / 1e9, **extra)
             rows.append(row)
             ok &= good
             print("[kernel] " + json.dumps(row))
@@ -172,11 +245,264 @@ def phase_kernel_check(seed: int) -> dict:
     return {"rows": rows}
 
 
-def profile_breakdown(fn, what: str, top: int = 8) -> None:
+def phase_dataset(seed: int):
+    """The card-resident training dataset, made on the card."""
+    import torch
+
+    from prdisagg_torch.core.config import DataConfig
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.data.synthetic import make_synthetic_dataset_torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_days, _, ny, nx = DATASET_SHAPE
+    data, indices, cfg = make_synthetic_dataset_torch(
+        n_days, ny, nx, seed, CARD, cfg=DataConfig())
+    ds = DeviceDataset.from_tensor(data, indices, cfg)
+    torch.cuda.synchronize()
+    nbytes = data.numel() * data.element_size()
+    print(f"[dataset] {tuple(data.shape)} float32 on the card "
+          f"({nbytes / 1e9:.3f} GB), {ds.n_samples} valid patches, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(data.data_ptr() == ds.data.data_ptr(), "from_tensor copied data")
+    return ds
+
+
+def phase_gather_check(ds, seed: int) -> dict:
+    """K2 against its plain version, bit for bit, with fresh index rows for
+    every timed call (a real draw finds its patches outside the L2).  Times
+    are device times from the profiler (:func:`device_ms`)."""
+    import torch
+
+    from prdisagg_torch.core.config import RainFarmConfig
+    from prdisagg_torch.ops.gather import (
+        gather_patches_cuda,
+        gather_patches_reference,
+    )
+
+    gen = torch.Generator(device=ds.device).manual_seed(seed + 3)
+    nd = ds.cfg.ndomain
+    rows, ok = [], True
+    reps = 20
+    step_b, bulk_b = N_DISC * TRAIN_BATCH, RainFarmConfig().n_calib
+    # one step's real gathers, a bulk draw (RainFARM's calibration) and the
+    # generator update's conditions from the daily sums
+    for name, b, from_dsum in ((f"real_b{step_b}", step_b, False),
+                               (f"bulk_b{bulk_b}", bulk_b, False),
+                               (f"cond_b{TRAIN_BATCH}", TRAIN_BATCH, True)):
+        src = ds.dsum[:, None] if from_dsum else ds.data
+        nh = src.shape[1]
+        batches = [ds.draw_rows(b, gen) for _ in range(reps + 2)]
+        idx = batches[0]
+        got = gather_patches_cuda(src, idx, nd)
+        want = gather_patches_reference(src, idx, nd)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        max_err = (got - want).abs().max().item()
+        ok &= equal
+        cycle = itertools.cycle(batches)
+        longs = itertools.cycle([[c.long() for c in i.unbind(1)]
+                                 for i in batches])
+        windows = src.unfold(2, nd, 1).unfold(3, nd, 1)
+
+        def library():
+            t, y, x = next(longs)
+            return windows[t, :, y, x]
+
+        nbytes = 2 * b * nh * nd * nd * 4
+        row = _kernel_row(
+            name, "float32", [b, nh, nd, nd], 0, nbytes, PEAK_F32_FLOPS,
+            ok=equal, exact=equal, max_abs_err=max_err,
+            ms=device_ms(lambda: gather_patches_cuda(src, next(cycle), nd),
+                         reps),
+            plain_ms=device_ms(
+                lambda: gather_patches_reference(src, next(cycle), nd), reps),
+            library_ms=device_ms(library, reps),
+            # CUDA events around each call: the launch from Python included
+            call_ms=cuda_ms(lambda: gather_patches_cuda(src, next(cycle), nd),
+                            reps))
+        row["gb_per_s"] = nbytes / row["ms"] / 1e6
+        rows.append(row)
+        print("[kernel] " + json.dumps(row))
+    if not ok:
+        raise AssertionError("gather_patches kernel is not bit-exact "
+                             "(see [kernel] lines)")
+    return {"rows": rows}
+
+
+def _f32_step_check(state, ds, seed: int) -> dict:
+    """One float32 step (dropout 0, pre-drawn inputs) from the trained state
+    on the card and on the CPU path; losses within rtol 1e-4 of the losses'
+    scale and every parameter within 1e-4 * max|p| over its net."""
+    import torch
+
+    from prdisagg_torch.core.config import TrainConfig
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.train.state import clone_train_state
+    from prdisagg_torch.train.wgan_gp import (
+        StepDraws,
+        train_step_on,
+        unpack_metrics,
+    )
+
+    n_disc, b, rtol = (F32_CHECK[k] for k in ("n_disc", "batch", "rtol"))
+    cfg = dataclasses.replace(state.gen.cfg, compute_dtype="float32",
+                              dropout_rate=0.0)
+    tcfg = TrainConfig(n_disc=n_disc)
+    ds_cpu = DeviceDataset.from_tensor(ds.data.cpu(), ds.indices.cpu(),
+                                       ds.cfg)
+    g = torch.Generator().manual_seed(seed + 4)
+    draws = dict(real_rows=ds_cpu.draw_rows(n_disc * b, g),
+                 latent=torch.randn((n_disc * b, cfg.latent_dim), generator=g),
+                 eps=torch.rand((n_disc, b), generator=g),
+                 gen_latent=torch.randn((b, cfg.latent_dim), generator=g),
+                 gen_rows=ds_cpu.draw_rows(b, g))
+    out = {}
+    for dev, data in ((CARD, ds), ("cpu", ds_cpu)):
+        st = clone_train_state(state, cfg, tcfg, dev)
+        dr = StepDraws(masks=[None] * n_disc, gp_masks=[None] * n_disc,
+                       gen_masks=None,
+                       **{k: v.to(dev) for k, v in draws.items()})
+        m = unpack_metrics(train_step_on(st, data, dr, tcfg)["packed"])
+        out[dev] = (m, st)
+    (mc, sc), (mp, sp) = out[CARD], out["cpu"]
+    losses = ("d_loss", "gp", "w_distance", "g_loss")
+    scale = max(abs(mp[k]) for k in losses)
+    loss_err = max(abs(mc[k] - mp[k]) for k in losses) / scale
+    param_err = 0.0
+    for net in ("gen", "critic"):
+        a, c = getattr(sc, net).state_dict(), getattr(sp, net).state_dict()
+        pmax = max(v.abs().max().item() for v in c.values())
+        param_err = max(param_err, max(
+            (a[k].cpu() - c[k]).abs().max().item() for k in c) / pmax)
+    row = {"card": {k: mc[k] for k in losses}, "cpu": {k: mp[k] for k in losses},
+           "loss_err_over_scale": loss_err, "param_err_over_max": param_err,
+           "n_disc": n_disc, "batch": b, "tolerance": rtol}
+    print("[train] f32 step, card vs CPU: " + json.dumps(row))
+    check(not mc["nonfinite"] and not mp["nonfinite"], "non-finite f32 step")
+    check(loss_err <= rtol and param_err <= rtol,
+          f"card and CPU f32 steps differ: {row}")
+    return row
+
+
+def phase_train(ds, seed: int, workdir: str) -> dict:
+    """Trainer.fit at the flagship defaults on the card-resident dataset."""
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
+    from prdisagg_torch.ops import gather, upsample_conv
+    from prdisagg_torch.train.loop import Trainer
+    from prdisagg_torch.train.wgan_gp import make_train_step
+
+    epochs = WARM_EPOCHS + TIMED_EPOCHS
+    exp = ExperimentConfig(train=TrainConfig(
+        n_disc=N_DISC, schedule=((epochs, TRAIN_BATCH),), seed=seed))
+    trainer = Trainer(exp, ds, workdir, steps_per_epoch=STEPS_PER_EPOCH,
+                      export_weights_every_epochs=epochs)
+    state = trainer.state
+    check(trainer.model_cfg.compute_dtype == "bfloat16"
+          and trainer.model_cfg.gen_channels == (256, 128, 64), exp)
+    before = {net: {k: v.clone() for k, v in
+                    getattr(state, net).state_dict().items()}
+              for net in ("gen", "critic")}
+
+    torch.cuda.synchronize()
+    upsample_conv.launches = upsample_conv.backward_calls = 0
+    gather.launches = 0
+    hist = trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    counts = {"upsample2_conv3": upsample_conv.launches,
+              "upsample2_conv3_backward": upsample_conv.backward_calls,
+              "gather_patches": gather.launches}
+    steps = epochs * STEPS_PER_EPOCH
+    print(f"[train] main path: Trainer.fit, {steps} steps at batch "
+          f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16: launches {counts}")
+    check(trainer.state.step == steps, trainer.state.step)
+    check(counts == {"upsample2_conv3": 6 * steps,
+                     "upsample2_conv3_backward": 3 * steps,
+                     "gather_patches": 2 * steps}, counts)
+    vals = np.array([hist[k] for k in hist if k != "epoch"])
+    check(np.isfinite(vals).all(), f"non-finite metrics {hist}")
+    for net in ("gen", "critic"):
+        now = getattr(state, net).state_dict()
+        check(any(not torch.equal(before[net][k], v) for k, v in now.items()),
+              f"{net} parameters did not change")
+    last = {k: hist[k][-1] for k in hist}
+    print(f"[train] last metrics {json.dumps(last)}")
+    timed = sum(trainer.epoch_seconds[WARM_EPOCHS:])
+    n_timed = TIMED_EPOCHS * STEPS_PER_EPOCH
+    rate = n_timed / timed
+    print(f"[train] {n_timed} timed steps in {timed:.3f} s: {rate:.2f} fused "
+          f"steps/s, {rate * TRAIN_BATCH * (N_DISC + 1):.1f} sample-updates/s "
+          f"(warm epoch {trainer.epoch_seconds[0]:.3f} s)")
+    exports = sorted(os.listdir(trainer.outdir))
+    check(len(exports) == 2, exports)
+
+    # one more step: the peak memory it adds to what is resident
+    step_fn = make_train_step(trainer.model_cfg, exp.train, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn(state, ds)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - resident
+    data_bytes = ds.data.numel() * ds.data.element_size()
+    print(f"[train] one step's peak memory above the {resident} resident "
+          f"bytes: {step_peak} bytes ({step_peak / data_bytes:.3f} of the "
+          f"dataset's {data_bytes}); peak allocated "
+          f"{torch.cuda.max_memory_allocated()}")
+    check(step_peak < data_bytes / 2, "a train step copies the dataset")
+
+    gen = torch.Generator(device=ds.device).manual_seed(seed + 5)
+    latent, cond = ds.sample_latent(256, trainer.model_cfg.latent_dim, gen)
+    with torch.no_grad():
+        frac = state.gen(latent, cond)
+    cons = (frac.sum(dim=1) - 1.0).abs().max().item()
+    print(f"[train] trained generator: max |sum_h frac - 1| = {cons:.3e} "
+          f"over 256 samples (bound {CONSERVATION_RTOL})")
+    check(frac.shape == (256, 24, 16, 16, 1) and cons <= CONSERVATION_RTOL,
+          f"conservation {cons}")
+
+    profile_breakdown(lambda: (step_fn(state, ds), torch.cuda.synchronize()),
+                      f"one train step, bf16 batch {TRAIN_BATCH}", top=12,
+                      host_top=12)
+    f32 = _f32_step_check(state, ds, seed)
+    return {"counts": counts, "steps_per_s": rate, "step_peak": step_peak,
+            "conservation": cons, "f32": f32}
+
+
+def _device_events(prof) -> list:
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of fn, the sum of the durations of
+    the kernels and copies it launched, from a torch.profiler trace of
+    `reps` calls: unlike CUDA events around one call, it does not count the
+    time the device waits for the host to launch a microsecond kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = _device_events(prof)
+    check(dev, "the profiler saw no device activity")
+    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+
+
+def profile_breakdown(fn, what: str, top: int = 8, host_top: int = 0) -> None:
     """Device time by kernel and the device's idle share over one call of
     fn, from a torch.profiler trace; prints "not measured" when the trace
-    holds no device activity."""
-    from torch.autograd import DeviceType
+    holds no device activity.  With `host_top`, also the host operators
+    with the most self time on the CPU."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -184,7 +510,7 @@ def profile_breakdown(fn, what: str, top: int = 8) -> None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
     events = list(prof.events())
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev = _device_events(prof)
     if not dev:
         print(f"[profile] {what}: no device activity in the trace; "
               "breakdown not measured")
@@ -204,9 +530,15 @@ def profile_breakdown(fn, what: str, top: int = 8) -> None:
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     print(f"[profile] {what}: window {window / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms, idle share {1 - busy / window:.3f}")
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / window:.3f}, "
+          f"{len(dev)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"[profile]   {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name[:90]}")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+        for a in ops[:host_top]:
+            print(f"[profile]   host {a.self_cpu_time_total / 1e3:9.3f} ms "
+                  f"self, {a.count:5d} calls  {a.key[:80]}")
 
 
 def _random_generator_tree(cfg, seed: int) -> dict:
@@ -362,6 +694,54 @@ def phase_serve(sl: dict) -> None:
           f"expected 6 kernel launches, got {upsample_conv.launches}")
 
 
+def _kernel_lines(kc: dict, gc: dict, counts: dict,
+                  slice_launches: int) -> list:
+    main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
+                 and r["dtype"] == "float32"]
+    step_rows = [r for r in kc["rows"]
+                 if r["stage"] in {s[0] for s in TRAIN_STAGES}]
+    real, _, cond = gc["rows"]
+    return [{
+        "name": "upsample2_conv3",
+        "route": "cuda",
+        "source": "prdisagg_torch/csrc/upsample_conv.cu",
+        "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:37",
+        # the train path's launches (6 a step); the serving path's beside
+        "launches": counts["upsample2_conv3"],
+        "launches_by_path": {"slice": slice_launches,
+                             "train": counts["upsample2_conv3"]},
+        # one flagship float32 forward's three launches at batch 1000 (every
+        # stage and dtype checked is in the [kernel] lines)
+        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+        "ms": sum(r["ms"] for r in main_rows),
+        "plain_ms": sum(r["plain_ms"] for r in main_rows),
+        "bound_ms": sum(r["bound_ms"] for r in main_rows),
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in main_rows) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in main_rows),
+        # one bf16 train step's six launches, and its backward
+        "train_step_ms": sum(r["ms"] for r in step_rows),
+        "train_step_bound_ms": sum(r["bound_ms"] for r in step_rows),
+        "train_backward_ms": sum(r.get("backward_ms", 0.0)
+                                 for r in step_rows),
+    }, {
+        "name": "gather_patches",
+        "route": "cuda",
+        "source": "prdisagg_torch/csrc/gather.cu",
+        "replaces": "prdisagg_tpu/ops/pallas_gather.py:30",
+        "launches": counts["gather_patches"],
+        # one train step's two launches: the n_disc*B real patches and the
+        # generator update's conditions (every gather checked is in the
+        # [kernel] lines)
+        "max_abs_err": max(r["max_abs_err"] for r in gc["rows"]),
+        "ms": real["ms"] + cond["ms"],
+        "plain_ms": real["plain_ms"] + cond["plain_ms"],
+        "bound_ms": real["bound_ms"] + cond["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": real["library_ms"] + cond["library_ms"],
+    }]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -381,50 +761,36 @@ def main() -> int:
         return 1
 
     failed = []
-    kc, sl = None, None
+    out: dict = {}
     workdir = tempfile.TemporaryDirectory(prefix="chip_smoke-")
-    for name, fn in (("kernel_check", lambda: phase_kernel_check(args.seed)),
-                     ("slice", lambda: phase_slice(args.seed, workdir.name))):
+
+    def run(name, fn, needs=()):
+        missing = [n for n in needs if n not in out]
+        if missing:
+            failed.append(f"{name} (skipped: {', '.join(missing)} failed)")
+            return
         try:
-            out = fn()
-            if name == "kernel_check":
-                kc = out
-            else:
-                sl = out
+            out[name] = fn()
         except Exception:  # noqa: BLE001 — report, run the other phases
             traceback.print_exc()
             failed.append(name)
-    if sl is not None:
-        try:
-            phase_serve(sl)
-        except Exception:  # noqa: BLE001
-            traceback.print_exc()
-            failed.append("serve")
-    else:
-        failed.append("serve (skipped: slice failed)")
+
+    run("kernel_check", lambda: phase_kernel_check(args.seed))
+    run("dataset", lambda: phase_dataset(args.seed))
+    run("gather_check", lambda: phase_gather_check(out["dataset"], args.seed),
+        needs=("dataset",))
+    run("slice", lambda: phase_slice(args.seed, workdir.name))
+    run("serve", lambda: phase_serve(out["slice"]), needs=("slice",))
+    run("train", lambda: phase_train(out["dataset"], args.seed,
+                                     os.path.join(workdir.name, "train")),
+        needs=("dataset",))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
-    main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
-                 and r["dtype"] == "float32"]
-    kernels = [{
-        "name": "upsample2_conv3",
-        "route": "cuda",
-        "source": "prdisagg_torch/csrc/upsample_conv.cu",
-        "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:37",
-        "launches": sl["launches"],
-        # one flagship float32 forward's three launches at batch 1000 (every
-        # stage and dtype checked is in the [kernel] lines)
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(r["bound_ms"] for r in main_rows),
-        "bound_by": "operations" if all(
-            r["bound_by"] == "operations" for r in main_rows) else "bytes",
-        "library_ms": sum(r["library_ms"] for r in main_rows),
-    }]
+    kernels = _kernel_lines(out["kernel_check"], out["gather_check"],
+                            out["train"]["counts"], out["slice"]["launches"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

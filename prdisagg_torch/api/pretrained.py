@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from prdisagg_torch.core.config import ModelConfig
+from prdisagg_torch.core.device import resolve_device
 from prdisagg_torch.models.generator import Generator
 from prdisagg_torch.models.io import (
     infer_generator_config,
@@ -50,17 +51,6 @@ def _bucket(n: int) -> int:
     if p > 1 and 3 * p // 4 >= n:
         return 3 * p // 4
     return p
-
-
-def resolve_device(device) -> torch.device:
-    """The requested device, refusing "cuda" when no card is present (the
-    port never falls back to the CPU on its own)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} was requested but torch finds "
-                           "no CUDA device; pass device='cpu' to run on the "
-                           "CPU")
-    return device
 
 
 class PretrainedGenerator:

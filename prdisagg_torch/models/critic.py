@@ -1,0 +1,136 @@
+"""Conditional critic (Wasserstein discriminator).
+
+Architecture parity with the reference critic
+(gan_train_cwgangp_pixelnorm.py:272-309) and the JAX package's ``Critic``:
+the daily-sum condition is broadcast along the hour axis and concatenated as
+extra channel(s), then four stride-2 Conv3D(3^3) blocks (VALID, then three
+SAME) with LeakyReLU(0.2) and Dropout(0.25), a flatten and a linear score.
+
+Three details decide parity with the JAX weights and outputs:
+
+* SAME padding at stride 2 is asymmetric wherever the extent is even: the
+  pads are ``jax.lax.padtype_to_pads``'s (total = max((out-1)*2 + 3 - n, 0),
+  low = total // 2), applied with ``F.pad`` before an unpadded convolution.
+  For the flagship they are (1,1)^3 on (11,7,7), (0,1)^3 on (6,4,4) and
+  (1,1),(0,1),(0,1) on (3,2,2); ``padding=1`` would shift every window.
+* the flatten before ``score`` runs in (B, D, H, W, C) order;
+* conv kernels keep the JAX/Keras layout (3, 3, 3, Cin, Cout), glorot-uniform
+  initialised as Keras and Flax do.
+
+Dropout takes explicit keep masks (:meth:`Critic.draw_masks` draws them from
+a ``torch.Generator``), so the training step controls every random draw.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from prdisagg_torch.core.config import ModelConfig
+from prdisagg_torch.models.generator import torch_dtype
+from prdisagg_torch.ops.core import full_f32, leaky_relu
+
+
+def _same_pads(n: int) -> Tuple[int, int]:
+    out = -(-n // 2)
+    total = max((out - 1) * 2 + 3 - n, 0)
+    return total // 2, total - total // 2
+
+
+def critic_stage_dims(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """(hour, y, x) extents after each conv stage: stage 0 is VALID
+    (floor((n-3)/2)+1), the rest SAME (ceil(n/2))."""
+    dims = (cfg.nhours, cfg.ndomain, cfg.ndomain)
+    out = []
+    for i in range(len(cfg.critic_channels)):
+        dims = tuple((n - 3) // 2 + 1 if i == 0 else -(-n // 2) for n in dims)
+        out.append(dims)
+    return out
+
+
+def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int) -> None:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-limit, limit)
+
+
+class Conv3dNDHWC(nn.Module):
+    """Parameters of one Conv3D(3^3) in the JAX/Keras layout."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(3, 3, 3, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        _glorot_(self.weight, 27 * cin, 27 * cout)
+
+
+class Critic(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = torch_dtype(cfg.compute_dtype)
+        cin = 1 + cfg.n_cond_channels
+        for i, ch in enumerate(cfg.critic_channels):
+            self.add_module(f"conv{i}", Conv3dNDHWC(cin, ch))
+            cin = ch
+        self.stage_dims = critic_stage_dims(cfg)
+        # F.pad order: (x_lo, x_hi, y_lo, y_hi, hour_lo, hour_hi)
+        self._pads = [None] + [
+            tuple(p for n in reversed(self.stage_dims[i - 1])
+                  for p in _same_pads(n))
+            for i in range(1, len(cfg.critic_channels))]
+        flat = math.prod(self.stage_dims[-1]) * cfg.critic_channels[-1]
+        self.score = nn.Linear(flat, 1)
+        _glorot_(self.score.weight, flat, 1)
+        with torch.no_grad():
+            self.score.bias.zero_()
+
+    def convs(self):
+        return [getattr(self, f"conv{i}")
+                for i in range(len(self.cfg.critic_channels))]
+
+    def draw_masks(self, batch: int, generator: torch.Generator
+                   ) -> Optional[List[torch.Tensor]]:
+        """Dropout keep masks for one call on `batch` samples, in the
+        (B, C, D, H, W) layout of each stage's output; None when the
+        dropout rate is 0 (Flax's Dropout is then the identity)."""
+        rate = self.cfg.dropout_rate
+        if rate == 0.0:
+            return None
+        dev = self.score.weight.device
+        return [torch.rand((batch, ch, *dims), generator=generator,
+                           device=dev) >= rate
+                for ch, dims in zip(self.cfg.critic_channels,
+                                    self.stage_dims)]
+
+    def forward(self, sample: torch.Tensor, cond: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """sample: (B, nhours, nd, nd, 1); cond: (B, nd, nd, n_cond_channels);
+        masks: None (deterministic) or one keep mask per stage.
+
+        Returns critic scores (B, 1) in float32."""
+        cfg, cd = self.cfg, self.compute_dtype
+        keep = 1.0 - cfg.dropout_rate
+        strict = (full_f32() if cd == torch.float32
+                  else contextlib.nullcontext())
+        with strict:
+            b = sample.shape[0]
+            cond_b = cond[:, None].expand(b, cfg.nhours, *cond.shape[1:])
+            x = torch.cat([sample, cond_b], dim=-1).to(cd)
+            x = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the NDHWC tensor
+            for i, conv in enumerate(self.convs()):
+                if i > 0:
+                    x = F.pad(x, self._pads[i])
+                x = F.conv3d(x, conv.weight.permute(4, 3, 0, 1, 2).to(cd),
+                             conv.bias.to(cd), stride=2)
+                x = leaky_relu(x, cfg.leak)
+                if masks is not None:
+                    x = torch.where(masks[i], x / keep, 0.0)
+            x = x.permute(0, 2, 3, 4, 1).reshape(b, -1).float()
+            return self.score(x)

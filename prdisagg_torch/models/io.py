@@ -1,9 +1,13 @@
-"""Weight import: the JAX package's ``.npz`` and the reference's Keras ``.h5``.
+"""Weight import and export: the JAX package's ``.npz`` and the reference's
+Keras ``.h5``.
 
-Both formats hold the generator as a tree ``{latent_proj, conv0.., head}``
-of ``{kernel, bias}`` numpy arrays in the Flax/Keras layouts: Dense kernels
-(in, out), Conv3D kernels (kd, kh, kw, in, out).  The readers here return
-that tree; :func:`params_from_jax` turns it into the port's ``state_dict``.
+Both formats hold a net as a tree of ``{kernel, bias}`` numpy arrays in the
+Flax/Keras layouts: Dense kernels (in, out), Conv3D kernels (kd, kh, kw, in,
+out).  The generator's tree is ``{latent_proj, conv0.., head}``, the
+critic's ``{conv0..conv3, score}``.  :func:`params_from_jax` and
+:func:`critic_params_from_jax` turn a tree into the port's ``state_dict``;
+:func:`params_to_jax` goes back, and :func:`save_params_npz` writes the JAX
+package's ``params/<layer>/<kind>`` layout.
 
 Keras layer mapping: dense -> latent_proj, conv3d/_1/_2 -> conv0..2,
 conv3d_3 -> head.
@@ -11,6 +15,7 @@ conv3d_3 -> head.
 
 from __future__ import annotations
 
+import os
 import re
 import warnings
 from typing import Dict, Optional, Tuple
@@ -51,6 +56,12 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.tensor(a)
 
 
+def _conv_names(p):
+    """conv0, conv1, ... of a tree, in numeric order."""
+    return sorted((k for k in p if re.fullmatch(r"conv\d+", k)),
+                  key=lambda s: int(s[4:]))
+
+
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """JAX/Keras generator tree -> the port's ``Generator`` state_dict.
 
@@ -61,15 +72,64 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     sd = {"latent_proj.weight": _to_tensor(p["latent_proj"]["kernel"]).T
           .contiguous(),
           "latent_proj.bias": _to_tensor(p["latent_proj"]["bias"])}
-    stages = sorted((k for k in p if re.fullmatch(r"conv\d+", k)),
-                    key=lambda s: int(s[4:]))
-    for name in stages:
+    for name in _conv_names(p):
         sd[f"{name}.weight"] = _to_tensor(p[name]["kernel"])
         sd[f"{name}.bias"] = _to_tensor(p[name]["bias"])
     sd["head.weight"] = _to_tensor(p["head"]["kernel"]).permute(
         4, 3, 0, 1, 2).contiguous()
     sd["head.bias"] = _to_tensor(p["head"]["bias"])
     return sd
+
+
+def critic_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX/Keras critic tree -> the port's ``Critic`` state_dict: conv
+    kernels keep (3, 3, 3, Cin, Cout); the score Dense (in, 1) becomes
+    ``nn.Linear``'s (1, in)."""
+    p = _unwrap(tree)
+    sd = {}
+    for name in _conv_names(p):
+        sd[f"{name}.weight"] = _to_tensor(p[name]["kernel"])
+        sd[f"{name}.bias"] = _to_tensor(p[name]["bias"])
+    sd["score.weight"] = _to_tensor(p["score"]["kernel"]).T.contiguous()
+    sd["score.bias"] = _to_tensor(p["score"]["bias"])
+    return sd
+
+
+def params_to_jax(state_dict) -> dict:
+    """A port ``Generator`` or ``Critic`` state_dict -> the JAX tree
+    ``{"params": {layer: {kernel, bias}}}`` of float32 numpy arrays."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    layers = {k.split(".")[0] for k in sd}
+    out = {}
+    for name in layers:
+        w, b = sd[f"{name}.weight"], sd[f"{name}.bias"]
+        if name in ("latent_proj", "score"):
+            w = w.T
+        elif name == "head":
+            w = w.transpose(2, 3, 4, 1, 0)
+        out[name] = {"kernel": np.ascontiguousarray(w), "bias": b}
+    return {"params": out}
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_params_npz(path: str, params) -> None:
+    """Write a JAX-layout tree (:func:`params_to_jax`) as the JAX package's
+    flat ``.npz`` (keys like ``params/conv0/kernel``).  Atomic: a reader
+    never sees half a file."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **_flatten(params))
+    os.replace(tmp, path)
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,17 @@ def upsample3d_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return x.reshape(b, d * factor, h * factor, w * factor, c)
 
 
+def fractions_and_condition(patches: torch.Tensor, norm_scale: float,
+                            eps: float = 1e-12):
+    """Hourly mm patches (..., nhours, ny, nx, 1) -> (fractions summing to
+    ~1 over hours, daily sum / norm_scale (..., ny, nx, 1)), the reference's
+    last preprocessing step (gan_train_cwgangp_pixelnorm.py:159-166) with an
+    epsilon guard for all-dry gridpoints."""
+    cond = torch.sum(patches, dim=-4)
+    frac = patches / torch.clamp(cond[..., None, :, :, :], min=eps)
+    return frac, cond / norm_scale
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run cuDNN convolutions and cuBLAS products in full float32.

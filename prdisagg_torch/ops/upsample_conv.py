@@ -20,16 +20,24 @@ Three implementations of one function:
 * the CUDA kernel in ``csrc/upsample_conv.cu`` (one implicit GEMM per phase,
   stored straight into the interleaved layout).
 * :func:`upsample2_conv3`, the dispatcher: a CPU tensor takes the plain
-  version, a CUDA tensor the kernel, anything else raises.
+  version, a CUDA tensor the kernel, anything else raises.  It is an
+  ``autograd.Function`` whose backward, :func:`upsample2_conv3_backward`,
+  is the 8 phase convolutions' own input and weight gradients (cuDNN on the
+  card), the same on the CPU and the card.  The JAX package does likewise:
+  its Pallas kernel's custom_vjp delegates to XLA's autodiff of the phase
+  form (pallas_upsample_conv.py:99-108).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from torch.autograd.function import once_differentiable
 
 from prdisagg_torch import _build
 
@@ -39,14 +47,23 @@ _F1 = np.array([[1.0, 1.0, 0.0], [0.0, 0.0, 1.0]])  # sources (d, d+1)
 
 #: number of CUDA kernel launches made by :func:`upsample2_conv3`
 launches = 0
+#: number of backward passes taken through :func:`upsample2_conv3`
+backward_calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_matrices(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(2 phases, 2 taps, 3) folding matrices, made once per dtype and
+    device: copying them from the host on every call would synchronise the
+    host with the card several times per train step.  Made outside
+    inference mode, so that autograd may save them later."""
+    with torch.inference_mode(False):
+        return torch.tensor(np.stack([_F0, _F1]), dtype=dtype, device=device)
 
 
 def phase_kernels(kernel: torch.Tensor) -> torch.Tensor:
     """(3,3,3,Cin,Cout) -> (2,2,2 phases, 2,2,2 taps, Cin, Cout)."""
-    f = torch.stack([torch.as_tensor(_F0, dtype=kernel.dtype,
-                                     device=kernel.device),
-                     torch.as_tensor(_F1, dtype=kernel.dtype,
-                                     device=kernel.device)])
+    f = _fold_matrices(kernel.dtype, kernel.device)
     # fold each spatial axis: k2[a,p, b,q, c,r] = F[a,p,i] F[b,q,j] F[c,r,l] k[i,j,l]
     return torch.einsum("api,bqj,crl,ijlmo->abcpqrmo", f, f, f, kernel)
 
@@ -141,24 +158,92 @@ def upsample2_conv3_cuda(x: torch.Tensor, k2: torch.Tensor,
     return out
 
 
+def _fold_transpose(dk2: torch.Tensor) -> torch.Tensor:
+    """Adjoint of :func:`phase_kernels`: (2,2,2, 2,2,2, Cin, Cout) phase-tap
+    gradients -> the (3,3,3, Cin, Cout) kernel's gradient."""
+    f = _fold_matrices(dk2.dtype, dk2.device)
+    return torch.einsum("api,bqj,crl,abcpqrmo->ijlmo", f, f, f, dk2)
+
+
+def upsample2_conv3_backward(x: torch.Tensor, kernel: torch.Tensor,
+                             g: torch.Tensor, need_dx: bool = True,
+                             need_dk: bool = True):
+    """Gradients of :func:`upsample2_conv3_reference` with respect to x and
+    kernel for the output cotangent g (B, 2D, 2H, 2W, Cout), without
+    recomputing the forward: each phase's convolution gives its input and
+    weight gradients (``aten.convolution_backward``, what autograd runs for
+    ``F.conv3d``); input gradients are summed over the overlapping windows
+    in float32 and the phase-tap gradients folded back onto the 3^3 kernel.
+    Returns (dx in x's dtype or None, dkernel in kernel's dtype or None)."""
+    b, d, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    k2 = _folded(kernel, x.dtype)
+    xp = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1))  # NCDHW
+    g8 = g.to(x.dtype).reshape(b, d, 2, h, 2, w, 2, cout)
+    dxp = torch.zeros(xp.shape, dtype=torch.float32, device=x.device) \
+        if need_dx else None
+    dk2 = torch.empty((2, 2, 2, 2, 2, 2, cin, cout), dtype=torch.float32,
+                      device=x.device) if need_dk else None
+    for a in range(2):
+        for bb in range(2):
+            for c in range(2):
+                window = xp[:, :, a:a + d + 1, bb:bb + h + 1, c:c + w + 1]
+                weight = k2[a, bb, c].permute(4, 3, 0, 1, 2)
+                gph = g8[:, :, a, :, bb, :, c].permute(0, 4, 1, 2, 3)
+                gi, gw, _ = torch.ops.aten.convolution_backward(
+                    gph, window, weight, None, [1, 1, 1], [0, 0, 0],
+                    [1, 1, 1], False, [0, 0, 0], 1, [need_dx, need_dk, False])
+                if need_dx:
+                    dxp[:, :, a:a + d + 1, bb:bb + h + 1, c:c + w + 1] += gi
+                if need_dk:
+                    dk2[a, bb, c] = gw.permute(2, 3, 4, 1, 0)
+    dx = dk = None
+    if need_dx:
+        dx = dxp[:, :, 1:-1, 1:-1, 1:-1].permute(0, 2, 3, 4, 1).to(
+            x.dtype).contiguous()
+    if need_dk:
+        dk = _fold_transpose(dk2).to(kernel.dtype)
+    return dx, dk
+
+
+class _UpsampleConv3(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward; the phase
+    convolutions' gradients backward.  Differentiable once: the gradient
+    penalty's second order runs through the critic only, since the fakes
+    it sees are detached from the generator."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        ctx.bias_dtype = bias.dtype
+        if x.device.type == "cpu":
+            return upsample2_conv3_reference(x, kernel, bias)
+        k2 = _folded(kernel, x.dtype).reshape(8, 8, *kernel.shape[-2:])
+        return upsample2_conv3_cuda(x, k2.contiguous(),
+                                    bias.to(torch.float32).contiguous())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        global backward_calls
+        x, kernel = ctx.saved_tensors
+        need_dx, need_dk, need_db = ctx.needs_input_grad
+        dx, dk = upsample2_conv3_backward(x, kernel, g, need_dx, need_dk)
+        db = g.float().sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype) \
+            if need_db else None
+        backward_calls += 1
+        return dx, dk, db
+
+
 def upsample2_conv3(x: torch.Tensor, kernel: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
-    """Conv3D(kernel, SAME)(nearest_upsample_2x(x)) + bias, NDHWC.
+    """Conv3D(kernel, SAME)(nearest_upsample_2x(x)) + bias, NDHWC, with a
+    gradient for x, kernel and bias.
 
     x: (B, D, H, W, Cin) in the compute dtype; kernel: (3, 3, 3, Cin, Cout)
     and bias: (Cout,), normally the float32 parameters.  A CPU tensor runs
     the plain version; a CUDA tensor runs the kernel (f32 or bf16) or
-    raises.  The kernel has no backward yet, so on CUDA it refuses inputs
-    that autograd would have to track."""
-    if x.device.type == "cpu":
-        return upsample2_conv3_reference(x, kernel, bias)
-    if x.device.type != "cuda":
+    raises."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"upsample2_conv3 runs on cpu or cuda, got {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, kernel, bias)):
-        raise NotImplementedError(
-            "the CUDA upsample2_conv3 kernel has no backward yet: call it "
-            "under torch.inference_mode() or torch.no_grad()")
-    k2 = _folded(kernel, x.dtype).reshape(8, 8, *kernel.shape[-2:])
-    return upsample2_conv3_cuda(x, k2.contiguous(),
-                                bias.to(torch.float32).contiguous())
+    return _UpsampleConv3.apply(x, kernel, bias)

@@ -1,0 +1,217 @@
+"""cWGAN-GP train step: n_disc critic updates, then one generator update.
+
+Loss semantics (parity with gan_train_cwgangp_pixelnorm.py:360-408,452-454
+and the JAX package's train/wgan_gp.py):
+  critic:    mean(-D(real)) + mean(D(fake)) + gp_weight * mean((||g||-1)^2)
+             with fake = G(z, cond_real), g = dD/d(interp),
+             interp = eps*real + (1-eps)*fake, eps ~ U(0,1) per sample
+  generator: mean(-D(G(z, cond), cond)) with freshly drawn cond
+  reported d_loss = mean(valid_loss, fake_loss) of the last critic update
+
+As in the JAX package, the generator is frozen across the critic updates,
+so all n_disc fake batches come from one held-over (n_disc*B) forward under
+``no_grad`` (optionally in chunks), and the n_disc real batches from one
+gather.  Each critic update makes one 2B real+fake call with its own
+dropout mask, and the gradient penalty's call a second, independent one.
+
+Every random draw of a step is made up front by :func:`draw_step_inputs`
+and handed to :func:`train_step_on`, so a test can feed the port and the
+JAX package the same latents, index rows, eps and masks.  Injected index
+rows are checked against the dataset; the step's own draws, taken from its
+checked rows, are not.
+
+Not ported here: ``steps_per_call`` (the JAX package scans K steps in one
+dispatch), ``fused_gen_forward`` and the data-parallel ``mesh``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import List, Optional
+
+import torch
+
+from prdisagg_torch.core.config import ModelConfig, TrainConfig
+from prdisagg_torch.data.sampler import DeviceDataset
+from prdisagg_torch.ops.core import full_f32
+from prdisagg_torch.train.state import GANTrainState
+
+# order of the scalar metrics in the packed vector (one host fetch instead
+# of seven)
+METRIC_KEYS = (
+    "d_loss", "d_loss_mean", "gp", "w_distance",
+    "d_grad_norm", "g_loss", "g_grad_norm",
+)
+
+
+def unpack_metrics(packed) -> dict:
+    """Packed (8,) tensor -> python dict (one host transfer)."""
+    vals = packed.detach().cpu().numpy()
+    m = dict(zip(METRIC_KEYS, vals[:-1].tolist()))
+    m["nonfinite"] = bool(vals[-1])
+    return m
+
+
+def hoisted_chunk_count(train_cfg: TrainConfig, batch_size: int) -> int:
+    """Number of sequential chunks of the held-over (n_disc*B) forward:
+    ``train_cfg.hoisted_chunks`` when > 1, else the smallest divisor of
+    n_disc*B keeping chunks at or under ``train_cfg.hoisted_chunk_samples``,
+    else 1."""
+    chunks = train_cfg.hoisted_chunks
+    total = train_cfg.n_disc * batch_size
+    if chunks <= 1 and train_cfg.hoisted_chunk_samples:
+        cap = train_cfg.hoisted_chunk_samples
+        chunks = next((c for c in range(max(1, -(-total // cap)), total + 1)
+                       if total % c == 0 and total // c <= cap), total)
+    chunks = max(chunks, 1)
+    if total % chunks:
+        raise ValueError(f"hoisted_chunks={chunks} must divide "
+                         f"n_disc*batch_size={total}")
+    return chunks
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """Every random input of one train step."""
+
+    real_rows: torch.Tensor       # (n_disc*B, 3) int32 index rows
+    latent: torch.Tensor          # (n_disc*B, latent_dim) held-over latents
+    eps: torch.Tensor             # (n_disc, B) interpolation weights
+    masks: List                   # n_disc keep-mask lists, 2B real+fake call
+    gp_masks: List                # n_disc keep-mask lists, the GP's call
+    gen_latent: torch.Tensor      # (B, latent_dim)
+    gen_rows: torch.Tensor        # (B, 3) rows of the generator's conds
+    gen_masks: Optional[list]     # keep masks of the generator's critic call
+
+
+def draw_step_inputs(state: GANTrainState, ds: DeviceDataset,
+                     batch_size: int, n_disc: int) -> StepDraws:
+    g, dev = state.rng, state.device
+    b, latent_dim = batch_size, state.gen.cfg.latent_dim
+    critic = state.critic
+    return StepDraws(
+        real_rows=ds.draw_rows(n_disc * b, g),
+        latent=torch.randn((n_disc * b, latent_dim), generator=g, device=dev),
+        eps=torch.rand((n_disc, b), generator=g, device=dev),
+        masks=[critic.draw_masks(2 * b, g) for _ in range(n_disc)],
+        gp_masks=[critic.draw_masks(b, g) for _ in range(n_disc)],
+        gen_latent=torch.randn((b, latent_dim), generator=g, device=dev),
+        gen_rows=ds.draw_rows(b, g),
+        gen_masks=critic.draw_masks(b, g))
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+
+
+def critic_loss(critic, frac_real, cond, fake, eps, masks, gp_masks,
+                gp_weight: float):
+    """One critic update's loss on given data, fakes, eps and masks.
+    Returns (loss, d_loss, gp, w_distance); the loss keeps its graph through
+    the gradient penalty's first derivative."""
+    b = frac_real.shape[0]
+    scores = critic(torch.cat([frac_real, fake]), torch.cat([cond, cond]),
+                    masks)
+    d_real, d_fake = scores[:b], scores[b:]
+    e = eps.reshape(b, 1, 1, 1, 1)
+    interp = (e * frac_real + (1.0 - e) * fake).requires_grad_(True)
+    (g,) = torch.autograd.grad(critic(interp, cond, gp_masks).sum(), interp,
+                               create_graph=True)
+    norm = torch.sqrt(g.reshape(b, -1).square().sum(dim=1) + 1e-12)
+    gp = (norm - 1.0).square().mean()
+    loss_valid, loss_fake = (-d_real).mean(), d_fake.mean()
+    loss = loss_valid + loss_fake + gp_weight * gp
+    return (loss, 0.5 * (loss_valid + loss_fake), gp,
+            -(loss_valid + loss_fake))
+
+
+def train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
+                  train_cfg: TrainConfig, chunks: int = 1) -> dict:
+    """One fused step on given draws; updates `state` in place and returns
+    the metrics as device tensors, with ``packed`` the (8,) vector of
+    :data:`METRIC_KEYS` and the non-finite flag.  Raises ValueError when an
+    index row of `draws` lies outside the dataset."""
+    ds.check_rows(draws.real_rows)
+    ds.check_rows(draws.gen_rows)
+    return _train_step_on(state, ds, draws, train_cfg, chunks)
+
+
+def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
+                   train_cfg: TrainConfig, chunks: int) -> dict:
+    gen, critic = state.gen, state.critic
+    n_disc, b = draws.eps.shape
+    strict = (full_f32() if gen.compute_dtype == torch.float32
+              else contextlib.nullcontext())
+    with strict:
+        frac, cond = ds._real_from_rows(draws.real_rows)
+        with torch.no_grad():
+            fake = torch.cat([gen(lat, cnd) for lat, cnd in zip(
+                draws.latent.chunk(chunks), cond.chunk(chunks))])
+        frac = frac.reshape(n_disc, b, *frac.shape[1:])
+        cond = cond.reshape(n_disc, b, *cond.shape[1:])
+        fake = fake.reshape(n_disc, b, *fake.shape[1:])
+
+        c_params = list(critic.parameters())
+        aux = []
+        for i in range(n_disc):
+            loss, d_loss, gp, w_dist = critic_loss(
+                critic, frac[i], cond[i], fake[i], draws.eps[i],
+                draws.masks[i], draws.gp_masks[i], train_cfg.gp_weight)
+            grads = torch.autograd.grad(loss, c_params)
+            _apply(state.critic_opt, c_params, grads)
+            aux.append((d_loss.detach(), gp.detach(), w_dist.detach(),
+                        _global_norm(grads)))
+
+        g_params = list(gen.parameters())
+        cond_g = ds._cond_from_rows(draws.gen_rows)
+        d_fake = critic(gen(draws.gen_latent, cond_g), cond_g,
+                        draws.gen_masks)
+        g_loss = (-d_fake).mean()
+        g_grads = torch.autograd.grad(g_loss, g_params)
+        _apply(state.gen_opt, g_params, g_grads)
+        if train_cfg.ema_decay > 0:
+            d = train_cfg.ema_decay
+            with torch.no_grad():
+                for e, p in zip(state.ema_gen.parameters(), g_params):
+                    e.copy_(d * e + (1.0 - d) * p)
+
+    d_losses = torch.stack([a[0] for a in aux])
+    metrics = {
+        "d_loss": aux[-1][0], "d_loss_mean": d_losses.mean(),
+        "gp": aux[-1][1], "w_distance": aux[-1][2],
+        "d_grad_norm": aux[-1][3], "g_loss": g_loss.detach(),
+        "g_grad_norm": _global_norm(g_grads),
+    }
+    vals = torch.stack([metrics[k].float() for k in METRIC_KEYS])
+    nonfinite = ~torch.isfinite(vals).all()
+    metrics["nonfinite"] = nonfinite
+    metrics["packed"] = torch.cat([vals, nonfinite.float()[None]])
+    state.step += 1
+    return metrics
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                    batch_size: int):
+    """The fused train step ``(state, ds) -> (state, metrics)``: draws from
+    ``state.rng``, then the step on those draws, whose rows need no check.
+    The state is updated in place and returned for the JAX package's
+    calling convention."""
+    chunks = hoisted_chunk_count(train_cfg, batch_size)
+    n_disc = train_cfg.n_disc
+
+    def train_step(state: GANTrainState, ds: DeviceDataset):
+        if state.gen.cfg != model_cfg:
+            raise ValueError("the state's model config differs from the "
+                             "step's")
+        draws = draw_step_inputs(state, ds, batch_size, n_disc)
+        return state, _train_step_on(state, ds, draws, train_cfg, chunks)
+
+    return train_step

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (and K1's gradient) against their plain PyTorch
+versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc (a CUDA kernel has no CPU mode), so
 they skip elsewhere.  On a machine with a card, from the repository root:
@@ -8,7 +9,8 @@ they skip elsewhere.  On a machine with a card, from the repository root:
 (``--noconftest`` because the suite's conftest imports JAX, which the port
 does not need.)  The shapes here are the awkward ones — channel counts that
 are not multiples of the kernel's tiles, rows that end mid-tile, single
-voxels; the flagship shapes are checked by chip_smoke.py.
+voxels, patches at the tensor's last row and column, x offsets that rule out
+16-byte loads; the flagship shapes are checked by chip_smoke.py.
 """
 
 import numpy as np
@@ -61,20 +63,108 @@ def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
                                rtol=rtol, atol=atol * scale)
 
 
+@pytest.mark.parametrize("shape", [(2, 3, 2, 2, 16, 4), (3, 5, 3, 7, 40, 70),
+                                   (4, 6, 4, 4, 256, 128)])
+@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-4),
+                                             ("bfloat16", 2e-2, 2e-2)])
+def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
+    """The kernel's autograd.Function against autograd through the plain
+    version, on the card: dx, dkernel and dbias."""
+    from prdisagg_torch.ops import upsample_conv
+    from prdisagg_torch.ops.core import full_f32
+
+    b, d, h, w, cin, cout = shape
+    rng = np.random.RandomState(sum(shape))
+    dt = getattr(torch, dtype)
+    x = torch.tensor(rng.randn(b, d, h, w, cin).astype("f4"),
+                     device=cuda).to(dt)
+    k = torch.tensor(0.1 * rng.randn(3, 3, 3, cin, cout).astype("f4"),
+                     device=cuda)
+    bias = torch.tensor(rng.randn(cout).astype("f4"), device=cuda)
+    g = torch.tensor(rng.randn(b, 2 * d, 2 * h, 2 * w, cout).astype("f4"),
+                     device=cuda).to(dt)
+    grads = []
+    before = (upsample_conv.launches, upsample_conv.backward_calls)
+    with full_f32():
+        for fn in (upsample_conv.upsample2_conv3,
+                   upsample_conv.upsample2_conv3_reference):
+            leaves = [t.detach().requires_grad_(True) for t in (x, k, bias)]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+    torch.cuda.synchronize()
+    assert (upsample_conv.launches, upsample_conv.backward_calls) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = want.float().abs().max().item()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=rtol, atol=atol * scale)
+
+
 def test_upsample2_conv3_kernel_refuses_what_it_cannot_take(cuda):
     from prdisagg_torch.ops import upsample_conv
 
     x = torch.randn(2, 3, 2, 2, 8, device=cuda)
-    k = torch.randn(3, 3, 3, 8, 4, device=cuda, requires_grad=True)
+    k = torch.randn(3, 3, 3, 8, 4, device=cuda)
     bias = torch.zeros(4, device=cuda)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        upsample_conv.upsample2_conv3(x, k, bias)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        with torch.no_grad():
-            upsample_conv.upsample2_conv3(x.half(), k, bias)
+        upsample_conv.upsample2_conv3(x.half(), k, bias)
     k2 = torch.zeros(8, 8, 8, 4, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         upsample_conv.upsample2_conv3_cuda(
             x.transpose(1, 2), k2, bias)
     with pytest.raises(ValueError, match="CUDA device"):
         upsample_conv.upsample2_conv3_cuda(x, k2, bias.cpu())
+
+
+GATHER_CASES = [  # (D, nh, ny, nx, nd, B)
+    (3, 24, 48, 40, 16, 7),    # the flagship patch, 16-byte path
+    (2, 1, 21, 19, 16, 5),     # nh = 1 (conditions from the daily sums)
+    (4, 24, 33, 37, 16, 1),    # B = 1, nx not a multiple of 4
+    (3, 5, 17, 23, 5, 9),      # nd not a multiple of 4
+    (2, 9, 64, 64, 8, 300),    # a partial hour block, many patches
+]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_kernel_equals_plain_exactly(cuda, case):
+    from prdisagg_torch.ops import gather
+
+    n_days, nh, ny, nx, nd, b = case
+    rng = np.random.RandomState(sum(case))
+    data = torch.tensor(rng.rand(n_days, nh, ny, nx).astype("f4"),
+                        device=cuda)
+    rows = np.stack([rng.randint(0, n_days, b),
+                     rng.randint(0, ny - nd + 1, b),
+                     rng.randint(0, nx - nd + 1, b)], 1)
+    rows[0] = (n_days - 1, ny - nd, nx - nd)  # the last row and column
+    if b > 1:
+        rows[1, 2] = 1 + 4 * ((nx - nd) // 8)  # an odd x in any tensor
+    idx = torch.tensor(rows.astype("i4"), device=cuda)
+    before = gather.launches
+    got = gather.gather_patches(data, idx, nd)
+    want = gather.gather_patches_reference(data, idx, nd)
+    torch.cuda.synchronize()
+    assert gather.launches == before + 1
+    assert got.shape == (b, nh, nd, nd) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    cpu = data.cpu()
+    for i, (t, y, x) in enumerate(rows):
+        assert torch.equal(got[i].cpu(), cpu[t, :, y:y + nd, x:x + nd])
+
+
+def test_gather_kernel_refuses_what_it_cannot_take(cuda):
+    from prdisagg_torch.ops import gather
+
+    data = torch.rand(2, 24, 32, 32, device=cuda)
+    idx = torch.zeros(3, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather.gather_patches(data, idx.cpu(), 16)
+    with pytest.raises(TypeError, match="int32"):
+        gather.gather_patches(data, idx.long(), 16)
+    with pytest.raises(TypeError, match="float32"):
+        gather.gather_patches(data.double(), idx, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_patches(data.transpose(2, 3), idx, 16)
+    with pytest.raises(ValueError, match="does not fit"):
+        gather.gather_patches(data, idx, 33)

@@ -38,6 +38,8 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "prdisagg_torch/ops/upsample_conv.py" in names
     assert "prdisagg_torch/api/server.py" in names
+    assert "prdisagg_torch/ops/gather.py" in names
+    assert "prdisagg_torch/train/wgan_gp.py" in names
     assert "chip_smoke.py" in names
 
 
