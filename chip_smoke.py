@@ -8,14 +8,17 @@ Run from the repository root.  Phases:
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles every CUDA kernel from the sources in prdisagg_torch/csrc,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, and finds wgmma (HGMMA)
+   instructions in K1's SASS;
 3. kernel check (K1): the upsample-conv kernel against its plain PyTorch
    version at the flagship generator's three stage shapes (batch 1000) and
    at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, and
    at the training shapes (bf16, batch 160 and 32), with its time beside the
    plain version's, one cuDNN convolution of the upsampled input (timed
-   only) and the card's bound for the same work; at batch 32 also its
-   backward, timed and held against autograd through the plain version;
+   only) and the card's bound for the same work; every shape must take the
+   fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32
+   also its backward, timed and held against autograd through the plain
+   version, beside its bound and autograd through the cuDNN convolution;
 4. dataset: a synthetic radar tensor of 448 days x 24 h x 256 x 256 (2.8 GB
    of float32, a multi-year store) made on the card from --seed with the
    synthetic-data recipe, and its valid patch indices;
@@ -25,18 +28,19 @@ Run from the repository root.  Phases:
    (32 patches, nh = 1);
 6. slice: a flagship float32 PretrainedGenerator built from seeded random
    weights, written to .npz and loaded back, generates 1000 scenarios; the
-   kernel's launch count, shapes, finiteness and conservation of the daily
-   sum are checked, the result is held against the CPU path on a few
-   samples, and scenarios/s and peak memory per scenario are measured;
+   kernel's launch count (3, all of the fast variant), shapes, finiteness
+   and conservation of the daily sum are checked, the result is held
+   against the CPU path on a few samples, and scenarios/s and peak memory
+   per scenario are measured;
 7. serve: a ScenarioServer answers ping, info, a b64 map request, a stack
    request, reload, stats and shutdown;
 8. train: Trainer.fit at the flagship defaults (bf16, batch 32, n_disc 5)
    on the card-resident dataset, 5 warm steps and 50 timed ones; checks
-   finite metrics, changed parameters, 6 K1 launches and 3 K1 backward
-   passes and 2 K2 launches per step, that a step does not copy the data
-   (peak memory), conservation of the trained generator, and one float32
-   step on the card against the same step on the CPU path; prints steps/s,
-   sample-updates/s, peak memory and a profile of one step.
+   finite metrics, changed parameters, 6 K1 launches (all fast), 3 K1
+   backward passes and 2 K2 launches per step, that a step does not copy
+   the data (peak memory), conservation of the trained generator, and one
+   float32 step on the card against the same step on the CPU path; prints
+   steps/s, sample-updates/s, peak memory and a profile of one step.
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -94,6 +98,20 @@ def check(ok: bool, what) -> None:
         raise AssertionError(what)
 
 
+def reset_k1_counts() -> None:
+    """Zero K1's launch counters, in total and by kernel variant."""
+    from prdisagg_torch.ops import upsample_conv
+
+    upsample_conv.launches = upsample_conv.backward_calls = 0
+    upsample_conv.launches_by_variant = dict.fromkeys(
+        upsample_conv.VARIANTS, 0)
+
+
+def fast_only(n: int) -> dict:
+    """K1's launches by variant when the main path made n, all fast."""
+    return {"fast": n, "general": 0}
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median device milliseconds of fn() over `reps` CUDA-event-timed calls."""
     import torch
@@ -110,6 +128,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of fn over `reps` calls queued
+    behind a spin kernel: the host enqueues every call while the card
+    spins, so the CUDA events around the calls see device time only, not
+    the Python launches (which take longer than a small kernel).  The spin
+    doubles until it outlasts the host's enqueueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin_cycles = 10_000_000  # about 5 ms at the H100's 1.98 GHz boost
+    for _ in range(8):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(spin_cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        marks[2].record()
+        marks[2].synchronize()
+        if host_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / reps
+        spin_cycles *= 2
+    raise AssertionError("the host could not queue the calls ahead of the "
+                         "card")
 
 
 def phase_device():
@@ -134,22 +181,42 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the bf16 K1 kernels must run on the tensor cores: wgmma is HGMMA in SASS
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         str(_build._library_path("upsample_conv"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = [ln.split(";")[0].split("*/")[-1].strip()
+             for ln in sass.splitlines() if "HGMMA" in ln]
+    print(f"[build] upsample_conv SASS: {len(hgmma)} HGMMA (wgmma) "
+          f"instructions, e.g. {hgmma[:1]}")
+    check(hgmma, "no wgmma (HGMMA) instruction in the K1 library")
 
 
 def _kernel_row(name, dtype, shape, flops, nbytes, peak_flops, **kw) -> dict:
     """A [kernel] line's fields, with the card's bound for the work: the
     larger of FLOPs over the operand type's peak and bytes over HBM's
-    rate."""
+    rate, and the kernel's share of that bound and its ratio to the library
+    call."""
     ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_BYTES
-    return dict(stage=name, dtype=dtype, shape=shape, **kw,
-                bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    bound = max(ops_ms, bytes_ms)
+    return dict(stage=name, dtype=dtype, shape=shape, **kw, bound_ms=bound,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_share=bound / kw["ms"],
+                library_ratio=kw["ms"] / kw["library_ms"])
 
 
-def _k1_backward(x, k, bias, g) -> dict:
+def _k1_backward(x, k, bias, g, flops: float, peak_flops: float) -> dict:
     """K1's backward (the phase convolutions' gradients) against autograd
-    through the plain version, and both timed."""
+    through the plain version, both timed, beside its bound (2x the
+    forward's FLOPs: dx and dkernel) and autograd through one cuDNN conv of
+    the upsampled input (timed only)."""
     import torch
+    import torch.nn.functional as F
+
+    from prdisagg_torch.ops.core import upsample3d_nearest
 
     from prdisagg_torch.ops.upsample_conv import (
         upsample2_conv3,
@@ -160,26 +227,37 @@ def _k1_backward(x, k, bias, g) -> dict:
     leaves = [t.detach().requires_grad_(True) for t in (x, k, bias)]
     got = torch.autograd.grad(upsample2_conv3(*leaves), leaves, g)
     want = torch.autograd.grad(upsample2_conv3_reference(*leaves), leaves, g)
+    lx, lk, lb = (t.detach().requires_grad_(True) for t in (x, k, bias))
+    lib_leaves = [lx, lk, lb]
+    xu = upsample3d_nearest(lx, 2).permute(0, 4, 1, 2, 3)
+    lib_out = F.conv3d(xu, lk.permute(4, 3, 0, 1, 2).to(x.dtype),
+                       lb.to(x.dtype), padding=1)
+    lib_g = g.permute(0, 4, 1, 2, 3)
     return dict(
         backward_max_err_over_max=max(
             ((a.float() - c.float()).abs().max()
              / c.float().abs().max()).item() for a, c in zip(got, want)),
         backward_ms=cuda_ms(lambda: upsample2_conv3_backward(x, k, g), 10),
         backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(
-            upsample2_conv3_reference(*leaves), leaves, g), 10))
+            upsample2_conv3_reference(*leaves), leaves, g), 10),
+        backward_bound_ms=1e3 * 2 * flops / peak_flops,
+        backward_library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, lib_g, retain_graph=True), 10))
 
 
 def phase_kernel_check(seed: int) -> dict:
     """K1 against its plain version at every shape of K1_CASES, with its
     time beside the plain version's and one cuDNN convolution of the
     upsampled input (timed only); at the generator update's batch also its
-    backward."""
+    backward.  Forward times are device times (:func:`queued_ms`);
+    ``call_ms`` is one call timed with CUDA events, launch included."""
     import torch
     import torch.nn.functional as F
 
+    from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32, upsample3d_nearest
     from prdisagg_torch.ops.upsample_conv import (
-        _folded,
+        pack_phase_kernels,
         upsample2_conv3_cuda,
         upsample2_conv3_reference,
     )
@@ -195,49 +273,67 @@ def phase_kernel_check(seed: int) -> dict:
         for dname in dtypes:
             dtype = getattr(torch, dname)
             x = x32.to(dtype)
-            k2 = _folded(k, dtype).reshape(8, 8, cin, cout).contiguous()
+            kp = pack_phase_kernels(k, dtype)
             rtol, atol = TOL[dname]
+            es = x.element_size()
+            flops = 2 * 64 * b * d * h * w * cin * cout
+            peak = PEAK_F32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
             with full_f32():
                 ref = upsample2_conv3_reference(x, k, bias)
-                got = upsample2_conv3_cuda(x, k2, bias)
+                counts = upsample_conv.launches_by_variant
+                before = dict(counts)
+                got = upsample2_conv3_cuda(x, kp, bias)
                 torch.cuda.synchronize()
+                variant = [v for v in counts if counts[v] != before[v]]
+                plan = upsample_conv.k1_plan(dtype, b, d, h, w, cin, cout)
                 err = (got.float() - ref.float()).abs()
                 scale = ref.float().abs().max().item()
                 good = bool((err <= atol * scale
                              + rtol * ref.float().abs()).all().item())
+                # every flagship and 64x64 stage takes the fast kernel
+                good &= variant == ["fast"]
                 max_err = err.max().item()
                 del got, err
                 extra = {}
                 if b == TRAIN_BATCH:  # the generator update's backward
                     g = torch.randn(ref.shape, generator=gen,
                                     device=dev).to(dtype)
-                    extra = _k1_backward(x, k, bias, g)
+                    extra = _k1_backward(x, k, bias, g, flops, peak)
                     good &= extra["backward_max_err_over_max"] <= atol
                 reps = 10
-                ms = cuda_ms(lambda: upsample2_conv3_cuda(x, k2, bias), reps)
-                plain_ms = cuda_ms(
+                ms = queued_ms(lambda: upsample2_conv3_cuda(x, kp, bias), reps)
+                # one call timed with CUDA events, the Python launch included
+                call_ms = cuda_ms(lambda: upsample2_conv3_cuda(x, kp, bias),
+                                  reps)
+                plain_ms = queued_ms(
                     lambda: upsample2_conv3_reference(x, k, bias), reps)
                 # library yardstick: one cuDNN conv of the upsampled input
                 xu = upsample3d_nearest(x, 2).permute(0, 4, 1, 2, 3)
                 wt = k.permute(4, 3, 0, 1, 2).to(dtype)
                 bt = bias.to(dtype)
-                library_ms = cuda_ms(
+                library_ms = queued_ms(
                     lambda: F.conv3d(xu, wt, bt, padding=1), reps)
                 del xu, ref
-            es = x.element_size()
-            flops = 2 * 64 * b * d * h * w * cin * cout
             row = _kernel_row(
                 name, dname, [b, d, h, w, cin, cout], flops,
                 b * d * h * w * cin * es + 64 * cin * cout * es + 4 * cout
                 + 8 * b * d * h * w * cout * es,
-                PEAK_F32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS,
-                ok=good, max_abs_err=max_err, max_ref=scale, rtol=rtol,
-                atol_over_max=atol, ms=ms, plain_ms=plain_ms,
+                peak, ok=good, variant=variant[0], tile=[plan.bm, plan.bn],
+                ctas=plan.ctas, max_abs_err=max_err, max_ref=scale, rtol=rtol,
+                atol_over_max=atol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=library_ms, tflops=flops / ms / 1e9, **extra)
+            if row["variant"] == "fast":
+                # what the CTAs copy from L2 into shared memory: every
+                # (phase, tap) re-reads the input rows, every M tile the
+                # weights; 128 bytes per tile row and reduction slice
+                bk = upsample_conv.FAST_BK[dtype]
+                row["tile_load_bytes"] = (plan.ctas * (8 * cin // bk)
+                                          * (plan.bm + plan.bn) * 128)
+                row["tile_load_tb_per_s"] = row["tile_load_bytes"] / ms / 1e9
             rows.append(row)
             ok &= good
             print("[kernel] " + json.dumps(row))
-        del x32, x, k2
+        del x32, x, kp
         torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("upsample2_conv3 kernel disagrees with its "
@@ -408,11 +504,13 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
               for net in ("gen", "critic")}
 
     torch.cuda.synchronize()
-    upsample_conv.launches = upsample_conv.backward_calls = 0
+    reset_k1_counts()
     gather.launches = 0
     hist = trainer.fit(progress=False)
     torch.cuda.synchronize()
     counts = {"upsample2_conv3": upsample_conv.launches,
+              "upsample2_conv3_by_variant": dict(
+                  upsample_conv.launches_by_variant),
               "upsample2_conv3_backward": upsample_conv.backward_calls,
               "gather_patches": gather.launches}
     steps = epochs * STEPS_PER_EPOCH
@@ -420,6 +518,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
           f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16: launches {counts}")
     check(trainer.state.step == steps, trainer.state.step)
     check(counts == {"upsample2_conv3": 6 * steps,
+                     "upsample2_conv3_by_variant": fast_only(6 * steps),
                      "upsample2_conv3_backward": 3 * steps,
                      "gather_patches": 2 * steps}, counts)
     vals = np.array([hist[k] for k in hist if k != "epoch"])
@@ -584,12 +683,15 @@ def phase_slice(seed: int, workdir: str) -> dict:
     cond = rng.gamma(0.6, 12.0, (16, 16)).astype("f4")  # daily sums, mm
 
     torch.cuda.synchronize()
-    upsample_conv.launches = 0
+    reset_k1_counts()
     scen = gen.generate_scenarios(cond, SCENARIOS)
-    launches = upsample_conv.launches
+    launches, by_variant = (upsample_conv.launches,
+                            dict(upsample_conv.launches_by_variant))
     print(f"[slice] main path: generate_scenarios(cond, {SCENARIOS}) "
-          f"launched the kernel {launches} times (max_batch {gen.max_batch})")
-    check(launches == 3, f"expected 3 kernel launches, got {launches}")
+          f"launched the kernel {launches} times {by_variant} (max_batch "
+          f"{gen.max_batch})")
+    check(launches == 3 and by_variant == fast_only(3),
+          f"expected 3 fast kernel launches, got {by_variant}")
     check(scen.shape == (SCENARIOS, 24, 16, 16), scen.shape)
     check(np.isfinite(scen).all(), "non-finite scenarios")
     cons = _conservation_err(scen, cond)
@@ -632,7 +734,10 @@ def phase_slice(seed: int, workdir: str) -> dict:
                       f"f32 generate_scenarios(cond, {SCENARIOS})")
     gen16 = PretrainedGenerator.from_npz(
         npz, cfg=ModelConfig(compute_dtype="bfloat16"), seed=seed)
+    reset_k1_counts()
     scen16 = gen16.generate_scenarios(cond, SCENARIOS)
+    check(upsample_conv.launches_by_variant == fast_only(3),
+          f"bf16 forward: {upsample_conv.launches_by_variant}")
     cons16 = _conservation_err(scen16, cond)
     walls = []
     for _ in range(5):
@@ -660,7 +765,7 @@ def phase_serve(sl: dict) -> None:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     stack = np.stack([cond * (1 + 0.1 * i) for i in range(8)])
-    upsample_conv.launches = 0
+    reset_k1_counts()
     try:
         answers = {
             "ping": request(sock, {"cmd": "ping"}),
@@ -690,14 +795,18 @@ def phase_serve(sl: dict) -> None:
     print(f"[serve] 7/7 responses ok; conservation {cons:.3e}; kernel "
           f"launches {upsample_conv.launches} for 2 scenario requests")
     check(cons <= CONSERVATION_RTOL, f"conservation error {cons}")
-    check(upsample_conv.launches == 6,
-          f"expected 6 kernel launches, got {upsample_conv.launches}")
+    check(upsample_conv.launches == 6
+          and upsample_conv.launches_by_variant == fast_only(6),
+          f"expected 6 fast kernel launches, got "
+          f"{upsample_conv.launches_by_variant}")
 
 
 def _kernel_lines(kc: dict, gc: dict, counts: dict,
                   slice_launches: int) -> list:
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
+    bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
+                 and r["dtype"] == "bfloat16"]
     step_rows = [r for r in kc["rows"]
                  if r["stage"] in {s[0] for s in TRAIN_STAGES}]
     real, _, cond = gc["rows"]
@@ -710,6 +819,7 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict,
         "launches": counts["upsample2_conv3"],
         "launches_by_path": {"slice": slice_launches,
                              "train": counts["upsample2_conv3"]},
+        "launches_by_variant": counts["upsample2_conv3_by_variant"],
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
@@ -719,11 +829,23 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict,
         "bound_by": "operations" if all(
             r["bound_by"] == "operations" for r in main_rows) else "bytes",
         "library_ms": sum(r["library_ms"] for r in main_rows),
+        "call_ms": sum(r["call_ms"] for r in main_rows),
+        # the same forward in bf16
+        "bf16_ms": sum(r["ms"] for r in bf16_rows),
+        "bf16_call_ms": sum(r["call_ms"] for r in bf16_rows),
+        "bf16_plain_ms": sum(r["plain_ms"] for r in bf16_rows),
+        "bf16_bound_ms": sum(r["bound_ms"] for r in bf16_rows),
+        "bf16_library_ms": sum(r["library_ms"] for r in bf16_rows),
         # one bf16 train step's six launches, and its backward
         "train_step_ms": sum(r["ms"] for r in step_rows),
         "train_step_bound_ms": sum(r["bound_ms"] for r in step_rows),
+        "train_step_library_ms": sum(r["library_ms"] for r in step_rows),
         "train_backward_ms": sum(r.get("backward_ms", 0.0)
                                  for r in step_rows),
+        "train_backward_bound_ms": sum(r.get("backward_bound_ms", 0.0)
+                                       for r in step_rows),
+        "train_backward_library_ms": sum(r.get("backward_library_ms", 0.0)
+                                         for r in step_rows),
     }, {
         "name": "gather_patches",
         "route": "cuda",

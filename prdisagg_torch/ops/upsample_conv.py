@@ -17,8 +17,11 @@ Three implementations of one function:
 * :func:`upsample2_conv3_reference`, plain PyTorch (8 ``F.conv3d`` calls on
   the 1-padded input, interleaved).  The CPU path and the yardstick of the
   kernel's correctness on the card.
-* the CUDA kernel in ``csrc/upsample_conv.cu`` (one implicit GEMM per phase,
-  stored straight into the interleaved layout).
+* the CUDA kernels in ``csrc/upsample_conv.cu`` (one implicit GEMM per
+  phase, stored straight into the interleaved layout): a fast kernel per
+  dtype (bf16 on wgmma tensor cores, f32 on a pipelined FMA loop) and a
+  general one for other widths, chosen by shape in :func:`k1_plan`, on the
+  folded weights packed K-major by :func:`pack_phase_kernels`.
 * :func:`upsample2_conv3`, the dispatcher: a CPU tensor takes the plain
   version, a CUDA tensor the kernel, anything else raises.  It is an
   ``autograd.Function`` whose backward, :func:`upsample2_conv3_backward`,
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -99,62 +103,128 @@ def upsample2_conv3_reference(x: torch.Tensor, kernel: torch.Tensor,
     return out + bias.to(x.dtype)
 
 
-_CUDA_ENTRY = {torch.float32: "prdisagg_upsample2_conv3_f32",
-               torch.bfloat16: "prdisagg_upsample2_conv3_bf16"}
+#: streaming multiprocessors of the card the tiles are chosen for (H100 SXM)
+SMS = 132
+#: fast-kernel tiles (BM rows, BN channels), preferred first; a 64 x 128
+#: tile would never be picked, since 128 x 64 makes at least as many CTAs
+FAST_TILES = ((128, 128), (128, 64), (64, 64))
+#: reduction slice of the fast kernels: a slice must lie inside one tap
+FAST_BK = {torch.bfloat16: 64, torch.float32: 32}
+VARIANTS = ("fast", "general")
+#: launches of :func:`upsample2_conv3_cuda` by kernel variant
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
-def _kernel_fn(dtype: torch.dtype):
+class K1Plan(NamedTuple):
+    """Which kernel a shape takes, its tile and its grid's CTA count."""
+    variant: str
+    bm: int
+    bn: int
+    ctas: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k1_plan(dtype: torch.dtype, b: int, d: int, h: int, w: int, cin: int,
+            cout: int) -> K1Plan:
+    """The kernel and tile for x (b, d, h, w, cin) -> cout channels.
+
+    The fast kernels (bf16 wgmma, f32 pipelined FMA) need Cin to be a
+    multiple of their reduction slice (64 bf16, 32 f32) and Cout of 64;
+    other widths take the general kernel.  Among the fast tiles, the largest
+    whose grid (8 phases x M tiles x N tiles) fills the card's SMS SMs; if
+    none does, the smallest."""
+    m = b * d * h * w
+    if cin % FAST_BK[dtype] or cout % 64:
+        return K1Plan("general", 128, 64, 8 * _ceil(m, 128) * _ceil(cout, 64))
+    plan = None
+    for bm, bn in FAST_TILES:
+        if cout % bn:
+            continue
+        plan = K1Plan("fast", bm, bn, 8 * _ceil(m, bm) * (cout // bn))
+        if plan.ctas >= SMS:
+            break
+    return plan
+
+
+def pack_phase_kernels(kernel: torch.Tensor, dtype: torch.dtype
+                       ) -> torch.Tensor:
+    """The folded weights as the kernels read them: (8 phases, Cout, 8*Cin),
+    K-major with k = tap*Cin + ci, contiguous, in `dtype`."""
+    cin, cout = kernel.shape[-2:]
+    k2 = _folded(kernel, dtype).reshape(8, 8 * cin, cout)
+    return k2.transpose(1, 2).contiguous()
+
+
+_ENTRY_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(variant: str, dtype: torch.dtype):
     lib = _build.load("upsample_conv")
-    fn = getattr(lib, _CUDA_ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = getattr(lib, f"prdisagg_upsample2_conv3_{variant}_"
+                      f"{_ENTRY_DTYPES[dtype]}")
+    tile = [ctypes.c_int] * 2 if variant == "fast" else []
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + tile
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.prdisagg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.prdisagg_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.prdisagg_cuda_error_string
 
 
-def upsample2_conv3_cuda(x: torch.Tensor, k2: torch.Tensor,
+def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on folded phase kernels.
+    """Launch the CUDA kernel that :func:`k1_plan` picks for x's shape.
 
-    x: (B, D, H, W, Cin) f32 or bf16; k2: (8, 8, Cin, Cout) of x's dtype;
-    bias: (Cout,) f32.  All contiguous on one CUDA device.  Returns
-    (B, 2D, 2H, 2W, Cout) in x's dtype, on the current stream."""
+    x: (B, D, H, W, Cin) f32 or bf16; kp: (8, Cout, 8*Cin) of x's dtype, from
+    :func:`pack_phase_kernels`; bias: (Cout,) f32.  All contiguous on one
+    CUDA device.  Returns (B, 2D, 2H, 2W, Cout) in x's dtype, on the current
+    stream."""
     global launches
-    if x.dtype not in _CUDA_ENTRY:
-        raise TypeError(f"upsample2_conv3 kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if x.dim() != 5:
-        raise ValueError(f"x must be (B, D, H, W, Cin), got {tuple(x.shape)}")
-    b, d, h, w, cin = x.shape
-    if k2.dim() != 4 or k2.shape[:3] != (8, 8, cin):
-        raise ValueError(f"k2 must be (8, 8, {cin}, Cout), got "
-                         f"{tuple(k2.shape)}")
-    cout = k2.shape[-1]
-    if k2.dtype != x.dtype or bias.dtype != torch.float32:
-        raise TypeError(f"dtypes: x {x.dtype}, k2 {k2.dtype} (must match x), "
-                        f"bias {bias.dtype} (must be float32)")
-    if tuple(bias.shape) != (cout,):
-        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
-    for name, t in (("x", x), ("k2", k2), ("bias", bias)):
+    for name, t in (("x", x), ("kp", kp), ("bias", bias)):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; every operand must "
                              f"be on the CUDA device of x ({x.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if x.dtype not in _ENTRY_DTYPES:
+        raise TypeError(f"upsample2_conv3 kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"x must be (B, D, H, W, Cin), got {tuple(x.shape)}")
+    b, d, h, w, cin = x.shape
+    if kp.dim() != 3 or kp.shape[0] != 8 or kp.shape[2] != 8 * cin:
+        raise ValueError(f"kp must be (8, Cout, {8 * cin}), got "
+                         f"{tuple(kp.shape)}")
+    cout = kp.shape[1]
+    if kp.dtype != x.dtype or bias.dtype != torch.float32:
+        raise TypeError(f"dtypes: x {x.dtype}, kp {kp.dtype} (must match x), "
+                        f"bias {bias.dtype} (must be float32)")
+    if tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
     out = torch.empty((b, 2 * d, 2 * h, 2 * w, cout), dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
-    fn, err_str = _kernel_fn(x.dtype)
+    plan = k1_plan(x.dtype, b, d, h, w, cin, cout)
+    if plan.variant == "fast" and any(
+            t.data_ptr() % 16 for t in (x, kp, bias)):
+        plan = plan._replace(variant="general")  # 16-byte copies need it
+    fn, err_str = _kernel_fn(plan.variant, x.dtype)
+    tile = (plan.bm, plan.bn) if plan.variant == "fast" else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), k2.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 b, d, h, w, cin, cout, stream)
+        err = fn(x.data_ptr(), kp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 b, d, h, w, cin, cout, *tile, stream)
     if err != 0:
-        raise RuntimeError(f"upsample2_conv3 kernel launch failed: "
-                           f"{err_str(err).decode()} (cuda error {err})")
+        raise RuntimeError(f"upsample2_conv3 {plan.variant} kernel launch "
+                           f"failed: {err_str(err).decode()} "
+                           f"(cuda error {err})")
     launches += 1
+    launches_by_variant[plan.variant] += 1
     return out
 
 
@@ -218,8 +288,7 @@ class _UpsampleConv3(torch.autograd.Function):
         ctx.bias_dtype = bias.dtype
         if x.device.type == "cpu":
             return upsample2_conv3_reference(x, kernel, bias)
-        k2 = _folded(kernel, x.dtype).reshape(8, 8, *kernel.shape[-2:])
-        return upsample2_conv3_cuda(x, k2.contiguous(),
+        return upsample2_conv3_cuda(x, pack_phase_kernels(kernel, x.dtype),
                                     bias.to(torch.float32).contiguous())
 
     @staticmethod

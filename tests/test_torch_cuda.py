@@ -10,7 +10,8 @@ they skip elsewhere.  On a machine with a card, from the repository root:
 does not need.)  The shapes here are the awkward ones — channel counts that
 are not multiples of the kernel's tiles, rows that end mid-tile, single
 voxels, patches at the tensor's last row and column, x offsets that rule out
-16-byte loads; the flagship shapes are checked by chip_smoke.py.
+16-byte loads; the flagship shapes are checked by chip_smoke.py.  Each K1
+test asserts, through ``launches_by_variant``, which kernel variant ran.
 """
 
 import numpy as np
@@ -34,12 +35,20 @@ SHAPES = [
     (1, 1, 1, 1, 1, 1),      # one voxel, one channel
     (5, 6, 4, 4, 256, 128),  # flagship stage-1 widths, small batch
 ]
+# the fast kernels' edge cases, each with the tile k1_plan gives it
+FAST_EDGES = [
+    ((3, 3, 2, 2, 256, 256), (64, 64)),     # stage 0 at B 3: M = 36 < 64
+    ((4, 12, 8, 8, 128, 64), (128, 64)),    # Cout 64, as at stage 2
+    ((16, 6, 4, 4, 64, 192), (128, 64)),    # Cin 64, Cout 192
+    ((1, 12, 32, 32, 128, 64), (128, 64)),  # the 64x64 last stage at B 1
+    ((33, 6, 4, 4, 256, 128), (128, 128)),  # rows end mid-tile
+]
+DTYPE_TOLS = [("float32", 1e-4, 1e-5), ("bfloat16", 2e-2, 2e-2)]
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-5),
-                                             ("bfloat16", 2e-2, 2e-2)])
-def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
+def _check_forward(cuda, shape, dtype, rtol, atol):
+    """One launch of the kernel against the plain version; returns the
+    variant that ran."""
     from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32
 
@@ -51,16 +60,43 @@ def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
                      device=cuda)
     bias = torch.tensor(rng.randn(cout).astype("f4"), device=cuda)
     before = upsample_conv.launches
+    by_variant = dict(upsample_conv.launches_by_variant)
     with torch.inference_mode(), full_f32():
         got = upsample_conv.upsample2_conv3(x.to(dt), k, bias)
         want = upsample_conv.upsample2_conv3_reference(x.to(dt), k, bias)
     torch.cuda.synchronize()
     assert upsample_conv.launches == before + 1
+    ran = [v for v, n in upsample_conv.launches_by_variant.items()
+           if n != by_variant[v]]
+    assert len(ran) == 1
     assert got.shape == (b, 2 * d, 2 * h, 2 * w, cout) and got.dtype == dt
     scale = want.float().abs().max().item()
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=rtol, atol=atol * scale)
+    return ran[0]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
+def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
+    from prdisagg_torch.ops import upsample_conv
+
+    # the odd widths take the general kernel, flagship widths the fast one
+    want = "fast" if shape[-2:] == (256, 128) else "general"
+    assert upsample_conv.k1_plan(getattr(torch, dtype), *shape).variant == want
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == want
+
+
+@pytest.mark.parametrize("shape,tile", FAST_EDGES)
+@pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
+def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
+                                                rtol, atol):
+    from prdisagg_torch.ops import upsample_conv
+
+    plan = upsample_conv.k1_plan(getattr(torch, dtype), *shape)
+    assert (plan.variant, plan.bm, plan.bn) == ("fast", *tile)
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 2, 2, 16, 4), (3, 5, 3, 7, 40, 70),
@@ -109,12 +145,15 @@ def test_upsample2_conv3_kernel_refuses_what_it_cannot_take(cuda):
     bias = torch.zeros(4, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         upsample_conv.upsample2_conv3(x.half(), k, bias)
-    k2 = torch.zeros(8, 8, 8, 4, device=cuda)
+    kp = torch.zeros(8, 4, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         upsample_conv.upsample2_conv3_cuda(
-            x.transpose(1, 2), k2, bias)
+            x.transpose(1, 2), kp, bias)
     with pytest.raises(ValueError, match="CUDA device"):
-        upsample_conv.upsample2_conv3_cuda(x, k2, bias.cpu())
+        upsample_conv.upsample2_conv3_cuda(x, kp, bias.cpu())
+    with pytest.raises(ValueError, match="kp must be"):
+        upsample_conv.upsample2_conv3_cuda(
+            x, torch.zeros(8, 8, 8, 4, device=cuda), bias)
 
 
 GATHER_CASES = [  # (D, nh, ny, nx, nd, B)

@@ -102,6 +102,27 @@ def test_generator_bf16_compute_close_to_f32():
     np.testing.assert_allclose(f16.numpy(), f32.numpy(), atol=2e-2)
 
 
+@pytest.mark.parametrize("cfg_kw", SMOKE_CASES[:3] + SMOKE_CASES[4:5],
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in
+                                                 kw.items()))
+def test_generator_bf16_matches_jax_bf16(cfg_kw):
+    """Both packages with bf16 convolutions on the same weights and inputs.
+    They agree to 2e-2, not 1e-5, because bf16 rounds at different sites:
+    XLA may fuse a chain of ops and round its result once where eager
+    PyTorch rounds after each op, and the two sum the convolutions in
+    different orders.  The hour softmax is f32 in both, so both conserve to
+    1e-6.  Weights at std 0.1 keep the fractions away from uniform (std
+    above 1e-2) without letting the softmax magnify the rounding."""
+    jc, tc = _pair(dict(cfg_kw, compute_dtype="bfloat16", init_stddev=0.1))
+    got, want = _run_both(jc, tc, batch=3)
+    assert got.dtype == want.dtype == np.float32  # f32 hour softmax
+    assert got.shape == want.shape == (3, 24, jc.ndomain, jc.ndomain, 1)
+    assert want.std() > 1e-2
+    for frac in (got, want):
+        assert np.abs(frac.sum(axis=1) - 1.0).max() <= 1e-6
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+
+
 def test_params_from_jax_layouts():
     jc, tc = _pair(dict(ndomain=16, n_cond_channels=1))
     lat = np.zeros((1, jc.latent_dim), "f4")
