@@ -9,7 +9,8 @@ Run from the repository root.  Phases:
    limit as nvidia-smi reports them;
 2. build: compiles every CUDA kernel from the sources in prdisagg_torch/csrc,
    one nvcc per source, all started together, and finds wgmma (HGMMA)
-   instructions in K1's SASS;
+   instructions in K1's SASS and 16-byte loads and stores (LDG.E.128,
+   STG.E.128) in K2's;
 3. kernel check (K1): the upsample-conv kernel against its plain PyTorch
    version at the flagship generator's three stage shapes (batch 1000) and
    at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, and
@@ -24,8 +25,10 @@ Run from the repository root.  Phases:
    synthetic-data recipe, and its valid patch indices;
 5. gather check (K2): the patch-gather kernel against its plain version,
    bit for bit, at one train step's real gathers (160 patches), a bulk draw
-   (5000) and the generator update's conditions from the daily sums
-   (32 patches, nh = 1);
+   (5000), the generator update's conditions from the daily sums
+   (32 patches, nh = 1) and 160 patches of the 64x64 domain from the same
+   tensor, with each call's device time, its time with the Python launch
+   included, and its host cost;
 6. slice: a flagship float32 PretrainedGenerator built from seeded random
    weights, written to .npz and loaded back, generates 1000 scenarios; the
    kernel's launch count (3, all of the fast variant), shapes, finiteness
@@ -87,6 +90,7 @@ TRAIN_STAGES = [(f"{name}_b{b}", b, d, h, w, cin, cout)
 K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("bfloat16",)) for s in TRAIN_STAGES])
 DATASET_SHAPE = (448, 24, 256, 256)  # days, hours, ny, nx: 2.8 GB float32
+ND_LARGE = 64  # the 64x64 domain's patch, gathered from the same tensor
 WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 10, 5
 CARD = "cuda"  # where the dataset and the train phase live
 F32_CHECK = dict(n_disc=2, batch=8, rtol=1e-4)
@@ -128,6 +132,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Mean host microseconds per call of fn over `reps` calls enqueued
+    back to back with no synchronisation: what each call costs the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * secs / reps
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -181,18 +200,30 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the bf16 K1 kernels must run on the tensor cores: wgmma is HGMMA in SASS
+    # the bf16 K1 kernels must run on the tensor cores (wgmma is HGMMA in
+    # SASS); K2's copy on 16-byte loads and stores
+    wants = {"upsample_conv": ("HGMMA",), "gather": ("LDG.E.128", "STG.E.128")}
+    for name, ops in wants.items():
+        sass = _sass(name)
+        for op in ops:
+            found = [ln for ln in sass if op in ln]
+            print(f"[build] {name} SASS: {len(found)} {op} instructions, "
+                  f"e.g. {found[:1]}")
+            check(found, f"no {op} instruction in the {name} library")
+
+
+def _sass(name: str) -> list:
+    """The instructions of one built kernel library, from cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    sass = subprocess.run(
+    from prdisagg_torch import _build
+
+    out = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
-         str(_build._library_path("upsample_conv"))],
+         str(_build._library_path(name))],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma = [ln.split(";")[0].split("*/")[-1].strip()
-             for ln in sass.splitlines() if "HGMMA" in ln]
-    print(f"[build] upsample_conv SASS: {len(hgmma)} HGMMA (wgmma) "
-          f"instructions, e.g. {hgmma[:1]}")
-    check(hgmma, "no wgmma (HGMMA) instruction in the K1 library")
+    return [ln.split(";")[0].split("*/")[-1].strip()
+            for ln in out.splitlines() if ";" in ln]
 
 
 def _kernel_row(name, dtype, shape, flops, nbytes, peak_flops, **kw) -> dict:
@@ -364,10 +395,25 @@ def phase_dataset(seed: int):
     return ds
 
 
+def _rows_nd(ds, b: int, nd: int, gen):
+    """b index rows of nd-wide patches inside ds's tensor, on the sweep's
+    stride as the dataset's valid rows are."""
+    import torch
+
+    n_days, _, ny, nx = ds.data.shape
+    stride = ds.cfg.stride
+    cols = [torch.randint(0, hi, (b,), generator=gen, device=ds.device)
+            for hi in (n_days, (ny - nd) // stride + 1,
+                       (nx - nd) // stride + 1)]
+    return torch.stack([cols[0], stride * cols[1], stride * cols[2]],
+                       1).to(torch.int32)
+
+
 def phase_gather_check(ds, seed: int) -> dict:
     """K2 against its plain version, bit for bit, with fresh index rows for
     every timed call (a real draw finds its patches outside the L2).  Times
-    are device times from the profiler (:func:`device_ms`)."""
+    are device times from the profiler (:func:`device_ms`); ``call_ms`` is
+    one call timed with CUDA events, the Python launch included."""
     import torch
 
     from prdisagg_torch.core.config import RainFarmConfig
@@ -377,24 +423,29 @@ def phase_gather_check(ds, seed: int) -> dict:
     )
 
     gen = torch.Generator(device=ds.device).manual_seed(seed + 3)
-    nd = ds.cfg.ndomain
     rows, ok = [], True
     reps = 20
     step_b, bulk_b = N_DISC * TRAIN_BATCH, RainFarmConfig().n_calib
-    # one step's real gathers, a bulk draw (RainFARM's calibration) and the
-    # generator update's conditions from the daily sums
-    for name, b, from_dsum in ((f"real_b{step_b}", step_b, False),
-                               (f"bulk_b{bulk_b}", bulk_b, False),
-                               (f"cond_b{TRAIN_BATCH}", TRAIN_BATCH, True)):
+    nd16 = ds.cfg.ndomain
+    # one step's real gathers, a bulk draw (RainFARM's calibration), the
+    # generator update's conditions from the daily sums, and one step's
+    # real gathers at the 64x64 domain from the same tensor
+    for name, b, nd, from_dsum in (
+            (f"real_b{step_b}", step_b, nd16, False),
+            (f"bulk_b{bulk_b}", bulk_b, nd16, False),
+            (f"cond_b{TRAIN_BATCH}", TRAIN_BATCH, nd16, True),
+            (f"real_b{step_b}_nd{ND_LARGE}", step_b, ND_LARGE, False)):
         src = ds.dsum[:, None] if from_dsum else ds.data
         nh = src.shape[1]
-        batches = [ds.draw_rows(b, gen) for _ in range(reps + 2)]
+        batches = [ds.draw_rows(b, gen) if nd == nd16
+                   else _rows_nd(ds, b, nd, gen) for _ in range(reps + 2)]
         idx = batches[0]
         got = gather_patches_cuda(src, idx, nd)
         want = gather_patches_reference(src, idx, nd)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         max_err = (got - want).abs().max().item()
+        del got, want
         ok &= equal
         cycle = itertools.cycle(batches)
         longs = itertools.cycle([[c.long() for c in i.unbind(1)]
@@ -416,7 +467,9 @@ def phase_gather_check(ds, seed: int) -> dict:
             library_ms=device_ms(library, reps),
             # CUDA events around each call: the launch from Python included
             call_ms=cuda_ms(lambda: gather_patches_cuda(src, next(cycle), nd),
-                            reps))
+                            reps),
+            host_us=host_us(
+                lambda: gather_patches_cuda(src, next(cycle), nd)))
         row["gb_per_s"] = nbytes / row["ms"] / 1e6
         rows.append(row)
         print("[kernel] " + json.dumps(row))
@@ -809,7 +862,9 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict,
                  and r["dtype"] == "bfloat16"]
     step_rows = [r for r in kc["rows"]
                  if r["stage"] in {s[0] for s in TRAIN_STAGES}]
-    real, _, cond = gc["rows"]
+    k2 = {r["stage"]: r for r in gc["rows"]}
+    real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
+    cond = k2[f"cond_b{TRAIN_BATCH}"]
     return [{
         "name": "upsample2_conv3",
         "route": "cuda",
@@ -861,6 +916,8 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict,
         "bound_ms": real["bound_ms"] + cond["bound_ms"],
         "bound_by": "bytes",
         "library_ms": real["library_ms"] + cond["library_ms"],
+        "call_ms": real["call_ms"] + cond["call_ms"],
+        "host_us": real["host_us"] + cond["host_us"],
     }]
 
 

@@ -18,6 +18,7 @@ view of the daily sums) the same function gathers conditions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,14 +37,57 @@ def gather_patches_reference(data: torch.Tensor, idx: torch.Tensor,
     return windows[idx[:, 0], :, idx[:, 1], idx[:, 2]]
 
 
-def _kernel_fn():
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """The library's entry points and its launch record's size, resolved
+    once per process."""
     lib = _build.load("gather")
-    fn = lib.prdisagg_gather_patches_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.prdisagg_gather_error_string.argtypes = [ctypes.c_int]
-    lib.prdisagg_gather_error_string.restype = ctypes.c_char_p
-    return fn, lib.prdisagg_gather_error_string
+    prepare = lib.prdisagg_gather_prepare
+    prepare.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    prepare.restype = ctypes.c_int
+    launch = lib.prdisagg_gather_launch
+    launch.argtypes = [ctypes.c_void_p] * 4
+    launch.restype = ctypes.c_int
+    lib.prdisagg_gather_record_bytes.restype = ctypes.c_int
+    err_str = lib.prdisagg_gather_error_string
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    return prepare, launch, err_str, lib.prdisagg_gather_record_bytes()
+
+
+#: prepared launch records by what fixes them: the source's address and
+#: shape, nd and B.  The key holds all that a record holds, so an entry
+#: never goes stale: a new tensor at a cached address and shape is
+#: described by the same record.
+_records: dict = {}
+_MAX_RECORDS = 64
+
+
+def _record(key, kernels):
+    rec = _records.get(key)
+    if rec is not None:
+        return rec
+    ptr, _, nh, ny, nx, nd, b = key
+    prepare, _, err_str, record_bytes = kernels
+    rec = ctypes.create_string_buffer(record_bytes)
+    err = prepare(rec, ptr, b, nh, ny, nx, nd)
+    if err != 0:
+        raise RuntimeError(f"gather_patches: preparing the kernel failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    if len(_records) >= _MAX_RECORDS:
+        _records.clear()
+    _records[key] = rec
+    return rec
+
+
+def _launch(kernels, key, idx, out, index: int) -> None:
+    # the raw stream handle: torch.cuda.current_stream() builds a Stream
+    # object on every call, which costs more than the launch
+    err = kernels[1](_record(key, kernels), idx.data_ptr(), out.data_ptr(),
+                     torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"gather_patches kernel launch failed: "
+                           f"{kernels[2](err).decode()} (cuda error {err})")
 
 
 def gather_patches_cuda(data: torch.Tensor, idx: torch.Tensor,
@@ -59,28 +103,27 @@ def gather_patches_cuda(data: torch.Tensor, idx: torch.Tensor,
     if data.dim() != 4 or idx.dim() != 2 or idx.shape[1] != 3:
         raise ValueError(f"data must be (D, nh, ny, nx) and idx (B, 3), got "
                          f"{tuple(data.shape)} and {tuple(idx.shape)}")
-    _, nh, ny, nx = data.shape
+    d, nh, ny, nx = data.shape
     if not 0 < nd <= min(ny, nx):
         raise ValueError(f"patch size {nd} does not fit a {ny}x{nx} field")
-    for name, t in (("data", data), ("idx", idx)):
-        if t.device.type != "cuda" or t.device != data.device:
-            raise ValueError(f"{name} is on {t.device}; both operands must "
-                             f"be on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = data.device
+    if dev.type != "cuda" or idx.device != dev:
+        raise ValueError(f"data is on {dev} and idx on {idx.device}; both "
+                         f"operands must be on one CUDA device")
+    if not (data.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("data and idx must be contiguous")
     b = idx.shape[0]
-    out = torch.empty((b, nh, nd, nd), dtype=data.dtype, device=data.device)
-    if out.numel() == 0:
+    out = torch.empty((b, nh, nd, nd), dtype=torch.float32, device=dev)
+    if b == 0 or nh == 0:
         return out
-    vec_ok = int(nx % 4 == 0 and nd % 4 == 0 and data.data_ptr() % 16 == 0)
-    fn, err_str = _kernel_fn()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), idx.data_ptr(), out.data_ptr(), b, nh, ny,
-                 nx, nd, vec_ok, stream)
-    if err != 0:
-        raise RuntimeError(f"gather_patches kernel launch failed: "
-                           f"{err_str(err).decode()} (cuda error {err})")
+    kernels = _kernels()
+    key = (data.data_ptr(), d, nh, ny, nx, nd, b)
+    index = dev.index
+    if index == torch.cuda.current_device():
+        _launch(kernels, key, idx, out, index)
+    else:
+        with torch.cuda.device(index):
+            _launch(kernels, key, idx, out, index)
     launches += 1
     return out
 

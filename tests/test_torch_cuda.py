@@ -157,12 +157,41 @@ def test_upsample2_conv3_kernel_refuses_what_it_cannot_take(cuda):
 
 
 GATHER_CASES = [  # (D, nh, ny, nx, nd, B)
-    (3, 24, 48, 40, 16, 7),    # the flagship patch, 16-byte path
-    (2, 1, 21, 19, 16, 5),     # nh = 1 (conditions from the daily sums)
-    (4, 24, 33, 37, 16, 1),    # B = 1, nx not a multiple of 4
-    (3, 5, 17, 23, 5, 9),      # nd not a multiple of 4
-    (2, 9, 64, 64, 8, 300),    # a partial hour block, many patches
+    (3, 24, 48, 40, 16, 7),      # the flagship patch, 16-byte path
+    (2, 1, 21, 19, 16, 5),       # nh = 1, nx not a multiple of 4
+    (4, 24, 33, 37, 16, 1),      # B = 1, nx not a multiple of 4
+    (3, 5, 17, 23, 5, 9),        # nd not a multiple of 4
+    (2, 9, 64, 64, 8, 300),      # a partial hour block, many patches
+    (2, 24, 128, 136, 64, 160),  # nd 64: many unrolled passes a block
+    (40, 24, 64, 64, 16, 5000),  # a bulk draw
+    (6, 1, 48, 48, 16, 32),      # conditions: nh 1 at B 32
 ]
+
+
+def _gather_rows(rng, n_days, ny, nx, nd, b):
+    """b random rows in range, the first at the last day, row and column,
+    the second at an odd x."""
+    rows = np.stack([rng.randint(0, n_days, b),
+                     rng.randint(0, ny - nd + 1, b),
+                     rng.randint(0, nx - nd + 1, b)], 1)
+    rows[0] = (n_days - 1, ny - nd, nx - nd)  # the last row and column
+    if b > 1:
+        rows[1, 2] = 1 + 4 * ((nx - nd) // 8)  # an odd x in any tensor
+    return rows
+
+
+def _check_gather(data, idx, nd):
+    """One launch against the plain version, bit for bit."""
+    from prdisagg_torch.ops import gather
+
+    before = gather.launches
+    got = gather.gather_patches(data, idx, nd)
+    want = gather.gather_patches_reference(data, idx, nd)
+    torch.cuda.synchronize()
+    assert gather.launches == before + 1
+    assert got.shape == (idx.shape[0], data.shape[1], nd, nd)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("case", GATHER_CASES)
@@ -173,23 +202,60 @@ def test_gather_kernel_equals_plain_exactly(cuda, case):
     rng = np.random.RandomState(sum(case))
     data = torch.tensor(rng.rand(n_days, nh, ny, nx).astype("f4"),
                         device=cuda)
-    rows = np.stack([rng.randint(0, n_days, b),
-                     rng.randint(0, ny - nd + 1, b),
-                     rng.randint(0, nx - nd + 1, b)], 1)
-    rows[0] = (n_days - 1, ny - nd, nx - nd)  # the last row and column
-    if b > 1:
-        rows[1, 2] = 1 + 4 * ((nx - nd) // 8)  # an odd x in any tensor
+    rows = _gather_rows(rng, n_days, ny, nx, nd, b)
     idx = torch.tensor(rows.astype("i4"), device=cuda)
-    before = gather.launches
-    got = gather.gather_patches(data, idx, nd)
-    want = gather.gather_patches_reference(data, idx, nd)
-    torch.cuda.synchronize()
-    assert gather.launches == before + 1
-    assert got.shape == (b, nh, nd, nd) and got.dtype == torch.float32
-    assert torch.equal(got, want)
+    _check_gather(data, idx, nd)
+    got = gather.gather_patches(data, idx, nd).cpu()
     cpu = data.cpu()
-    for i, (t, y, x) in enumerate(rows):
-        assert torch.equal(got[i].cpu(), cpu[t, :, y:y + nd, x:x + nd])
+    for i, (t, y, x) in enumerate(rows[:64]):
+        assert torch.equal(got[i], cpu[t, :, y:y + nd, x:x + nd])
+
+
+def test_gather_record_cache_follows_its_sources(cuda):
+    """Launch records are cached by the source's address and shape: two sources in turn, new contents at one address,
+    another shape at that address, and a freed and re-allocated source all
+    stay exact."""
+    rng = np.random.RandomState(5)
+    shape, nd = (3, 24, 48, 48), 16
+    sources = [torch.tensor(rng.rand(*shape).astype("f4"), device=cuda)
+               for _ in range(2)]
+    idx = torch.tensor(_gather_rows(rng, 3, 48, 48, nd, 40).astype("i4"),
+                       device=cuda)
+    for data in sources + sources:
+        _check_gather(data, idx, nd)
+    buf = sources[0]
+    buf.copy_(torch.from_numpy(rng.rand(*shape).astype("f4")))
+    _check_gather(buf, idx, nd)
+    other = buf.view(6, 12, 48, 48)  # the same address, another shape
+    assert other.data_ptr() == buf.data_ptr()
+    rows6 = _gather_rows(rng, 6, 48, 48, nd, 40)
+    idx6 = torch.tensor(rows6.astype("i4"), device=cuda)
+    _check_gather(other, idx6, nd)
+    del sources, buf, other, data
+    # the caching allocator hands a freed block out again, most likely at a
+    # cached address; the gather must be exact wherever it lands
+    again = torch.empty(shape, device=cuda)
+    again.copy_(torch.from_numpy(rng.rand(*shape).astype("f4")))
+    _check_gather(again, idx, nd)
+
+
+@pytest.mark.parametrize("why", ["storage offset", "nx % 4", "nd % 4"])
+def test_gather_scalar_path_on_odd_shapes(cuda, why):
+    """What 16-byte loads cannot take goes to the scalar path, still
+    exact."""
+    rng = np.random.RandomState(len(why))
+    nd, shape = 16, (3, 24, 40, 40)
+    if why == "nx % 4":
+        shape = (3, 24, 40, 42)
+    elif why == "nd % 4":
+        nd = 14
+    flat = torch.tensor(rng.rand(int(np.prod(shape)) + 1).astype("f4"),
+                        device=cuda)
+    data = (flat[1:] if why == "storage offset" else flat[:-1]).view(shape)
+    assert data.is_contiguous()
+    idx = torch.tensor(_gather_rows(rng, 3, shape[2], shape[3], nd,
+                                    33).astype("i4"), device=cuda)
+    _check_gather(data, idx, nd)
 
 
 def test_gather_kernel_refuses_what_it_cannot_take(cuda):
