@@ -38,12 +38,27 @@ Run from the repository root.  Phases:
 7. serve: a ScenarioServer answers ping, info, a b64 map request, a stack
    request, reload, stats and shutdown;
 8. train: Trainer.fit at the flagship defaults (bf16, batch 32, n_disc 5)
-   on the card-resident dataset, 5 warm steps and 50 timed ones; checks
-   finite metrics, changed parameters, 6 K1 launches (all fast), 3 K1
-   backward passes and 2 K2 launches per step, that a step does not copy
-   the data (peak memory), conservation of the trained generator, and one
-   float32 step on the card against the same step on the CPU path; prints
-   steps/s, sample-updates/s, peak memory and a profile of one step.
+   on the card-resident dataset, the step a CUDA graph: one epoch with the
+   warm-up and capture, then 4 calls of 50 replays timed; checks finite
+   metrics, changed parameters, the kernel counts (6 K1 launches, all fast,
+   3 K1 backward passes and 2 K2 launches per step, through the wrappers
+   at warm-up and capture and per replay after), the checkpoint and
+   exports; then the same number of eager steps (draw_step_inputs +
+   train_step_on) for the eager rate, the graphed step's peak memory (it
+   must not copy the data), conservation of the trained generator, a
+   profile of one call of 10 replays (device busy and idle share, and the
+   hand-written kernels counted by name inside the graph), a profile of one
+   eager step (with K1's backward device time) and one float32 step on the
+   card against the same step on the CPU path;
+9. graph check: float32, smoke width, dropout on: the graphed step against
+   eager steps from the same state and generator state, draws bit for bit,
+   losses and parameters within 1e-4 of their scale, and successive
+   replays drawing different rows and latents;
+10. resume check: flagship bf16, 2 epochs with a checkpoint each, resumed
+   by a new Trainer to epoch 3, against an uninterrupted 3-epoch run
+   (parameters within 1e-4 of their scale, the same hist.csv epochs);
+11. cli: ``python -m prdisagg_torch.cli train --synthetic`` at the flagship
+   width for 2 epochs, then ``--resume`` to a third, as subprocesses.
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -91,7 +106,13 @@ K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("bfloat16",)) for s in TRAIN_STAGES])
 DATASET_SHAPE = (448, 24, 256, 256)  # days, hours, ny, nx: 2.8 GB float32
 ND_LARGE = 64  # the 64x64 domain's patch, gathered from the same tensor
-WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 10, 5
+# Trainer.fit: one epoch with the warm-up and capture, then 4 x 50 graphed
+# steps timed, one call of 50 replays an epoch
+WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 4, 50
+PROFILE_REPLAYS = 10  # the profiled call of the graphed step
+GRAPH_CHECK_STEPS = 4  # graphed vs eager steps
+RESUME_STEPS = 4  # steps per epoch of the resume check
+CLI_STEPS = 4  # steps per epoch of the CLI runs
 CARD = "cuda"  # where the dataset and the train phase live
 F32_CHECK = dict(n_disc=2, batch=8, rtol=1e-4)
 
@@ -534,21 +555,59 @@ def _f32_step_check(state, ds, seed: int) -> dict:
     return row
 
 
+def _train_exp(epochs: int, seed: int, **train_kw):
+    """The flagship training configuration (bf16, B 32, n_disc 5) for
+    `epochs` epochs."""
+    from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
+
+    return ExperimentConfig(train=TrainConfig(
+        n_disc=N_DISC, schedule=((epochs, TRAIN_BATCH),), seed=seed,
+        **train_kw))
+
+
+def _k1_backward_ms(prof) -> float:
+    """Device milliseconds of the kernels launched inside K1's backward
+    (the autograd node of ops/upsample_conv.py's Function), from a
+    profile's operator tree."""
+    total = 0.0
+    for a in prof.key_averages():
+        if "_UpsampleConv3Backward" in a.key:
+            total += getattr(a, "device_time_total",
+                             getattr(a, "cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def _executed_counts(wrappers: dict, captured: dict, replayed: dict) -> dict:
+    """Kernel runs on a path: what passed through the wrappers (eager
+    calls, and captures, which record a launch without running it), less
+    the captured launches, plus what graph replays launched."""
+    return {k: wrappers[k] - captured.get(k, 0) + replayed.get(k, 0)
+            for k in wrappers}
+
+
 def phase_train(ds, seed: int, workdir: str) -> dict:
-    """Trainer.fit at the flagship defaults on the card-resident dataset."""
+    """Trainer.fit at the flagship defaults on the card-resident dataset,
+    the step running as a CUDA graph, then the same number of eager steps
+    in this process, the graphed step's memory and profile, and an eager
+    step's profile."""
     import numpy as np
     import torch
 
-    from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
-    from prdisagg_torch.ops import gather, upsample_conv
+    from prdisagg_torch.ops import gather
+    from prdisagg_torch.train import wgan_gp
     from prdisagg_torch.train.loop import Trainer
-    from prdisagg_torch.train.wgan_gp import make_train_step
+    from prdisagg_torch.train.wgan_gp import (
+        draw_step_inputs,
+        make_train_step,
+        train_step_on,
+    )
 
     epochs = WARM_EPOCHS + TIMED_EPOCHS
-    exp = ExperimentConfig(train=TrainConfig(
-        n_disc=N_DISC, schedule=((epochs, TRAIN_BATCH),), seed=seed))
+    exp = _train_exp(epochs, seed, log_every_steps=STEPS_PER_EPOCH,
+                     checkpoint_every_epochs=epochs)
     trainer = Trainer(exp, ds, workdir, steps_per_epoch=STEPS_PER_EPOCH,
-                      export_weights_every_epochs=epochs)
+                      plot_every_epochs=0, export_weights_every_epochs=epochs,
+                      export_format="npz")
     state = trainer.state
     check(trainer.model_cfg.compute_dtype == "bfloat16"
           and trainer.model_cfg.gen_channels == (256, 128, 64), exp)
@@ -559,21 +618,35 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     torch.cuda.synchronize()
     reset_k1_counts()
     gather.launches = 0
+    wgan_gp.graph_captured.clear()
+    wgan_gp.graph_launches.clear()
     hist = trainer.fit(progress=False)
     torch.cuda.synchronize()
-    counts = {"upsample2_conv3": upsample_conv.launches,
-              "upsample2_conv3_by_variant": dict(
-                  upsample_conv.launches_by_variant),
-              "upsample2_conv3_backward": upsample_conv.backward_calls,
-              "gather_patches": gather.launches}
+    wrappers = wgan_gp.kernel_counts()
+    captured = dict(wgan_gp.graph_captured)
+    replayed = dict(wgan_gp.graph_launches)
     steps = epochs * STEPS_PER_EPOCH
+    per_step = {"upsample2_conv3": 6, "upsample2_conv3_fast": 6,
+                "upsample2_conv3_general": 0, "upsample2_conv3_backward": 3,
+                "gather_patches": 2}
+    executed = _executed_counts(wrappers, captured, replayed)
     print(f"[train] main path: Trainer.fit, {steps} steps at batch "
-          f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16: launches {counts}")
+          f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16, as {epochs} calls of "
+          f"{STEPS_PER_EPOCH} CUDA graph replays: wrappers {wrappers} (the "
+          f"{wgan_gp.WARMUP_STEPS} warm-up steps and one capture), captured "
+          f"per replay {captured}, replays launched {replayed}, kernels run "
+          f"{executed}")
     check(trainer.state.step == steps, trainer.state.step)
-    check(counts == {"upsample2_conv3": 6 * steps,
-                     "upsample2_conv3_by_variant": fast_only(6 * steps),
-                     "upsample2_conv3_backward": 3 * steps,
-                     "gather_patches": 2 * steps}, counts)
+    check(captured == per_step, f"one capture of one step: {captured}")
+    check(replayed == {k: n * steps for k, n in per_step.items()}, replayed)
+    check(wrappers == {k: n * (wgan_gp.WARMUP_STEPS + 1)
+                       for k, n in per_step.items()}, wrappers)
+    counts = {"upsample2_conv3": executed["upsample2_conv3"],
+              "upsample2_conv3_by_variant": {
+                  v: executed[f"upsample2_conv3_{v}"] for v in ("fast",
+                                                               "general")},
+              "upsample2_conv3_backward": executed["upsample2_conv3_backward"],
+              "gather_patches": executed["gather_patches"]}
     vals = np.array([hist[k] for k in hist if k != "epoch"])
     check(np.isfinite(vals).all(), f"non-finite metrics {hist}")
     for net in ("gen", "critic"):
@@ -582,29 +655,53 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
               f"{net} parameters did not change")
     last = {k: hist[k][-1] for k in hist}
     print(f"[train] last metrics {json.dumps(last)}")
-    timed = sum(trainer.epoch_seconds[WARM_EPOCHS:])
     n_timed = TIMED_EPOCHS * STEPS_PER_EPOCH
-    rate = n_timed / timed
-    print(f"[train] {n_timed} timed steps in {timed:.3f} s: {rate:.2f} fused "
-          f"steps/s, {rate * TRAIN_BATCH * (N_DISC + 1):.1f} sample-updates/s "
-          f"(warm epoch {trainer.epoch_seconds[0]:.3f} s)")
+    timed = sum(trainer.epoch_seconds[WARM_EPOCHS:])
+    graphed = n_timed / timed
     exports = sorted(os.listdir(trainer.outdir))
-    check(len(exports) == 2, exports)
+    check(exports == sorted(["ckpt"] + [
+        f"{p}_{trainer.params_str}_{epochs:04d}.npz" for p in ("gen", "disc")]),
+        exports)
+    check(trainer.ckpt.epochs() == [epochs], trainer.ckpt.epochs())
 
-    # one more step: the peak memory it adds to what is resident
-    step_fn = make_train_step(trainer.model_cfg, exp.train, TRAIN_BATCH)
+    # the same number of eager steps, after two to warm up
+    for _ in range(2):
+        train_step_on(state, ds, draw_step_inputs(state, ds, TRAIN_BATCH,
+                                                  N_DISC), exp.train)
     torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    step_fn(state, ds)
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        train_step_on(state, ds, draw_step_inputs(state, ds, TRAIN_BATCH,
+                                                  N_DISC), exp.train)
     torch.cuda.synchronize()
-    step_peak = torch.cuda.max_memory_allocated() - resident
+    eager = n_timed / (time.perf_counter() - t0)
+    print(f"[train] {n_timed} steps: graphed {graphed:.2f} fused steps/s "
+          f"({graphed * TRAIN_BATCH * (N_DISC + 1):.1f} sample-updates/s; "
+          f"Trainer.fit, {TIMED_EPOCHS} calls of {STEPS_PER_EPOCH} replays "
+          f"in {timed:.3f} s, warm epoch {trainer.epoch_seconds[0]:.3f} s "
+          f"with the warm-up and capture), eager {eager:.2f} fused steps/s "
+          f"(draw_step_inputs + train_step_on), graphed/eager "
+          f"{graphed / eager:.2f}")
+
+    # a new graphed step: its first call's peak memory (warm-up on a clone,
+    # capture, replays), then a call of replays alone
+    step_fn = make_train_step(trainer.model_cfg, exp.train, TRAIN_BATCH,
+                              steps_per_call=PROFILE_REPLAYS)
     data_bytes = ds.data.numel() * ds.data.element_size()
-    print(f"[train] one step's peak memory above the {resident} resident "
-          f"bytes: {step_peak} bytes ({step_peak / data_bytes:.3f} of the "
-          f"dataset's {data_bytes}); peak allocated "
-          f"{torch.cuda.max_memory_allocated()}")
-    check(step_peak < data_bytes / 2, "a train step copies the dataset")
+    peaks = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(state, ds)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - resident)
+    print(f"[train] peak memory above the resident bytes: first call "
+          f"(warm-up, capture, {PROFILE_REPLAYS} replays) {peaks[0]} bytes "
+          f"({peaks[0] / data_bytes:.3f} of the dataset's {data_bytes}); a "
+          f"call of {PROFILE_REPLAYS} replays {peaks[1]} bytes; resident "
+          f"{torch.cuda.memory_allocated()}")
+    check(max(peaks) < data_bytes / 2, "a train step copies the dataset")
 
     gen = torch.Generator(device=ds.device).manual_seed(seed + 5)
     latent, cond = ds.sample_latent(256, trainer.model_cfg.latent_dim, gen)
@@ -616,12 +713,217 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     check(frac.shape == (256, 24, 16, 16, 1) and cons <= CONSERVATION_RTOL,
           f"conservation {cons}")
 
-    profile_breakdown(lambda: (step_fn(state, ds), torch.cuda.synchronize()),
-                      f"one train step, bf16 batch {TRAIN_BATCH}", top=12,
-                      host_top=12)
+    graph_prof = profile_breakdown(
+        lambda: (step_fn(state, ds), torch.cuda.synchronize()),
+        f"one call of {PROFILE_REPLAYS} graphed steps, bf16 batch "
+        f"{TRAIN_BATCH}", top=12)
+    check(graph_prof is not None, "no device events in the graphed window")
+    names = graph_prof["count_by_name"]
+
+    def runs(part: str) -> int:
+        return sum(n for k, n in names.items() if part in k)
+
+    in_graph = {"k1_bf16_wgmma": runs("k1_bf16_wgmma"),
+                "k1_f32_fma": runs("k1_f32_fma"),
+                "k1_general": runs("k1_general"),
+                "k2_gather": runs("k2_gather")}
+    print(f"[train] kernels in the profiled replays by name: {in_graph} "
+          f"({PROFILE_REPLAYS} steps)")
+    check(in_graph == {"k1_bf16_wgmma": 6 * PROFILE_REPLAYS, "k1_f32_fma": 0,
+                       "k1_general": 0, "k2_gather": 2 * PROFILE_REPLAYS},
+          f"the graph's kernels are not the hand-written ones: {in_graph}")
+    eager_prof = profile_breakdown(
+        lambda: (train_step_on(state, ds, draw_step_inputs(
+            state, ds, TRAIN_BATCH, N_DISC), exp.train),
+            torch.cuda.synchronize()),
+        f"one eager step, bf16 batch {TRAIN_BATCH}", top=6, host_top=6)
+    k1_bwd = None if eager_prof is None else _k1_backward_ms(
+        eager_prof["prof"])
+    print(f"[train] K1 backward device time per step (3 passes, eager "
+          f"profile): {k1_bwd} ms")
     f32 = _f32_step_check(state, ds, seed)
-    return {"counts": counts, "steps_per_s": rate, "step_peak": step_peak,
-            "conservation": cons, "f32": f32}
+    return {"counts": counts, "graphed_steps_per_s": graphed,
+            "eager_steps_per_s": eager, "step_peaks": peaks,
+            "conservation": cons, "f32": f32,
+            "graph_profile": {k: graph_prof[k] for k in (
+                "window_ms", "busy_ms", "idle_share")},
+            "k1_backward_ms": k1_bwd}
+
+
+def phase_graph_check(ds, seed: int) -> dict:
+    """The graphed step against eager steps from the same state and
+    generator state, float32 with TF32 off, smoke width, dropout on: the
+    draws of every replay bit for bit, the losses of every step and the
+    parameters after GRAPH_CHECK_STEPS steps within 1e-4 of their scale;
+    successive replays draw different rows and latents."""
+    import torch
+
+    from prdisagg_torch.core.config import TrainConfig, smoke_model_config
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import (
+        clone_train_state,
+        create_train_state,
+    )
+
+    mc = smoke_model_config(compute_dtype="float32")
+    cfg = TrainConfig(n_disc=2, seed=seed)
+    b, rtol = 8, 1e-4
+    state = create_train_state(mc, cfg, device=CARD)
+    eager = clone_train_state(state, mc, cfg, CARD)
+    eager.rng.set_state(state.rng.get_state())
+    made, real = [], wgan_gp.draw_step_inputs
+    fields = ("real_rows", "latent", "eps", "gen_latent", "gen_rows")
+
+    def recording(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    def masks(d):
+        return [m for ms in (*d.masks, *d.gp_masks, d.gen_masks) for m in ms]
+
+    step = wgan_gp.make_train_step(mc, cfg, b)
+    identical, differ, loss_err = [], [], 0.0
+    wgan_gp.draw_step_inputs = recording
+    try:
+        prev = None
+        for _ in range(GRAPH_CHECK_STEPS):
+            _, got = step(state, ds)
+            static = made[wgan_gp.WARMUP_STEPS]
+            want_draws = real(eager, ds, b, cfg.n_disc)
+            identical.append(
+                all(torch.equal(getattr(static, f), getattr(want_draws, f))
+                    for f in fields)
+                and all(torch.equal(x, y) for x, y in
+                        zip(masks(static), masks(want_draws))))
+            now = {f: getattr(static, f).clone() for f in fields}
+            if prev is not None:
+                differ.append(all(not torch.equal(prev[f], now[f])
+                                  for f in ("real_rows", "latent")))
+            prev = now
+            want = wgan_gp.train_step_on(eager, ds, want_draws, cfg)
+            g, w = got["packed"][:-1], want["packed"][:-1]
+            loss_err = max(loss_err, ((g - w).abs().max()
+                                      / w.abs().max()).item())
+    finally:
+        wgan_gp.draw_step_inputs = real
+    param_err = 0.0
+    for net in ("gen", "critic"):
+        a, c = getattr(state, net).state_dict(), getattr(eager, net).state_dict()
+        pmax = max(v.abs().max().item() for v in c.values())
+        param_err = max(param_err, max(
+            (a[k] - c[k]).abs().max().item() for k in c) / pmax)
+    row = {"steps": GRAPH_CHECK_STEPS, "batch": b, "n_disc": cfg.n_disc,
+           "dropout": mc.dropout_rate, "draws_bit_identical": identical,
+           "successive_replays_differ": differ,
+           "rng_state_equal": bool(torch.equal(state.rng.get_state(),
+                                               eager.rng.get_state())),
+           "metric_err_over_scale": loss_err,
+           "param_err_over_max": param_err, "tolerance": rtol}
+    print("[graph] graphed vs eager steps: " + json.dumps(row))
+    check(all(identical) and all(differ) and row["rng_state_equal"]
+          and loss_err <= rtol and param_err <= rtol,
+          f"graphed and eager steps differ: {row}")
+    return row
+
+
+def phase_resume_check(ds, seed: int, workdir: str) -> dict:
+    """Exact resume on the card at the flagship width: 2 epochs with a
+    checkpoint each, a new Trainer in the same workdir resumed to epoch 3,
+    against an uninterrupted 3-epoch run from the same seed.  cuDNN runs
+    deterministically here, so that only the resume is under test."""
+    import torch
+
+    from prdisagg_torch.train.loop import Trainer
+
+    kw = dict(steps_per_epoch=RESUME_STEPS, plot_every_epochs=0,
+              export_weights_every_epochs=0, export_format="npz")
+
+    def run(epochs, sub, resume=False):
+        exp = _train_exp(epochs, seed, log_every_steps=RESUME_STEPS // 2,
+                         checkpoint_every_epochs=1)
+        tr = Trainer(exp, ds, os.path.join(workdir, sub), **kw)
+        if resume:
+            check(tr.maybe_resume() and tr.epoch == 2,
+                  f"resume did not find epoch 2 ({tr.epoch})")
+        tr.fit(progress=False)
+        return tr
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = run(3, "full")
+        part = run(2, "part")
+        check(part.ckpt.epochs() == [1, 2], part.ckpt.epochs())
+        resumed = run(3, "part", resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    param_err = 0.0
+    for net in ("gen", "critic"):
+        a = getattr(resumed.state, net).state_dict()
+        c = getattr(full.state, net).state_dict()
+        pmax = max(v.abs().max().item() for v in c.values())
+        param_err = max(param_err, max(
+            (a[k] - c[k]).abs().max().item() for k in c) / pmax)
+    with open(os.path.join(workdir, "full", "hist.csv")) as fa, \
+            open(os.path.join(workdir, "part", "hist.csv")) as fb:
+        ha, hb = fa.read(), fb.read()
+    row = {"steps": resumed.state.step, "param_err_over_max": param_err,
+           "hist_epochs": resumed.hist["epoch"],
+           "hist_epochs_equal": resumed.hist["epoch"] == full.hist["epoch"],
+           "hist_csv_identical": ha == hb, "tolerance": 1e-4}
+    print("[resume] resumed vs uninterrupted: " + json.dumps(row))
+    check(resumed.state.step == 3 * RESUME_STEPS and param_err <= 1e-4
+          and row["hist_epochs_equal"], f"resume is not exact: {row}")
+    return row
+
+
+def phase_cli(seed: int, workdir: str) -> dict:
+    """``python -m prdisagg_torch.cli train --synthetic`` at the flagship
+    width for two short epochs, then ``--resume`` to a third: both exit 0,
+    the second starts at the saved epoch, and the checkpoints, the .npz
+    exports, hist.csv and run_config.json are there."""
+    args = [sys.executable, "-m", "prdisagg_torch.cli", "train",
+            "--synthetic", "--steps-per-epoch", str(CLI_STEPS),
+            "--export-format", "npz", "--plot-every-epochs", "0",
+            "--workdir", workdir, "--seed", str(seed)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, extra in (("train", ["--epochs", "2"]),
+                        ("resume", ["--epochs", "3", "--resume"])):
+        t0 = time.perf_counter()
+        r = subprocess.run(args + extra, cwd=root, capture_output=True,
+                           text=True, timeout=600)
+        out[name] = {"rc": r.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "last_line": r.stdout.strip().splitlines()[-1:]}
+        print(f"[cli] {name}: " + json.dumps(out[name]))
+        check(r.returncode == 0, f"cli {name} failed:\n{r.stdout[-2000:]}"
+              f"\n{r.stderr[-4000:]}")
+        out[name]["stdout"] = r.stdout
+    check("resumed at epoch 2" in out["resume"]["stdout"]
+          and "finished at epoch 3" in out["resume"]["stdout"],
+          out["resume"]["stdout"][-2000:])
+    from prdisagg_torch.core.config import DataConfig
+
+    outdir = os.path.join(workdir, "trained_models", "wgancp_pixelnorm")
+    params = DataConfig().params_string()
+    want = sorted(["ckpt"] + [f"{p}_{params}_{e:04d}.npz"
+                              for p in ("gen", "disc") for e in (1, 2, 3)])
+    got = sorted(os.listdir(outdir))
+    ckpts = sorted(os.listdir(os.path.join(outdir, "ckpt")))
+    with open(os.path.join(workdir, "hist.csv")) as fh:
+        epochs = [line.rsplit(",", 1)[-1].strip()
+                  for line in fh.read().splitlines()[1:]]
+    print(f"[cli] exports {len(got) - 1} files, checkpoints {ckpts}, "
+          f"hist.csv epochs {epochs}, run_config.json "
+          f"{os.path.exists(os.path.join(workdir, 'run_config.json'))}")
+    check(got == want, got)
+    check(ckpts == ["epoch_00000002.pt", "epoch_00000003.pt"], ckpts)
+    check(epochs == ["1", "2", "3"], epochs)
+    check(os.path.exists(os.path.join(workdir, "run_config.json")),
+          "no run_config.json")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+            for k, v in out.items()}
 
 
 def _device_events(prof) -> list:
@@ -650,11 +952,13 @@ def device_ms(fn, reps: int) -> float:
     return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
 
 
-def profile_breakdown(fn, what: str, top: int = 8, host_top: int = 0) -> None:
+def profile_breakdown(fn, what: str, top: int = 8, host_top: int = 0):
     """Device time by kernel and the device's idle share over one call of
-    fn, from a torch.profiler trace; prints "not measured" when the trace
-    holds no device activity.  With `host_top`, also the host operators
-    with the most self time on the CPU."""
+    fn, from a torch.profiler trace; prints "not measured" and returns None
+    when the trace holds no device activity.  With `host_top`, also the
+    host operators with the most self time on the CPU.  Returns the window
+    and busy milliseconds, the idle share, the kernels' event counts and
+    milliseconds by name, and the profile itself."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -666,7 +970,7 @@ def profile_breakdown(fn, what: str, top: int = 8, host_top: int = 0) -> None:
     if not dev:
         print(f"[profile] {what}: no device activity in the trace; "
               "breakdown not measured")
-        return
+        return None
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events))
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -679,18 +983,25 @@ def profile_breakdown(fn, what: str, top: int = 8, host_top: int = 0) -> None:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     by_name: dict = {}
+    counts: dict = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        counts[e.name] = counts.get(e.name, 0) + 1
     print(f"[profile] {what}: window {window / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / window:.3f}, "
           f"{len(dev)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"[profile]   {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name[:90]}")
+        print(f"[profile]   {us / 1e3:9.3f} ms  {us / busy:6.1%}  "
+              f"{counts[name]:6d}x  {name[:90]}")
     if host_top:
         ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
         for a in ops[:host_top]:
             print(f"[profile]   host {a.self_cpu_time_total / 1e3:9.3f} ms "
                   f"self, {a.count:5d} calls  {a.key[:80]}")
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / window,
+            "ms_by_name": {k: v / 1e3 for k, v in by_name.items()},
+            "count_by_name": counts, "prof": prof}
 
 
 def _random_generator_tree(cfg, seed: int) -> dict:
@@ -963,6 +1274,12 @@ def main() -> int:
     run("train", lambda: phase_train(out["dataset"], args.seed,
                                      os.path.join(workdir.name, "train")),
         needs=("dataset",))
+    run("graph_check", lambda: phase_graph_check(out["dataset"], args.seed),
+        needs=("dataset",))
+    run("resume_check", lambda: phase_resume_check(
+        out["dataset"], args.seed, os.path.join(workdir.name, "resume")),
+        needs=("dataset",))
+    run("cli", lambda: phase_cli(args.seed, os.path.join(workdir.name, "cli")))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

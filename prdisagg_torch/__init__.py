@@ -4,12 +4,17 @@ Stochastic temporal disaggregation of precipitation with a conditional
 WGAN-GP generator, running on an NVIDIA Hopper GPU.  Module names follow
 the JAX package so each counterpart is easy to find:
 
-core       model configuration
+core       data, model and training configuration
+data       the card-resident dataset and its sampler
 ops        generator ops; ops/upsample_conv.py holds the folded
-           upsample-conv with its hand-written CUDA kernel (csrc/)
-models     Generator and the weight import (.npz / Keras .h5)
+           upsample-conv and ops/gather.py the patch gather, each with its
+           hand-written CUDA kernel (csrc/)
+models     Generator, Critic and the weight files (.npz / Keras .h5)
+train      the train step (a CUDA graph on the card), Trainer, checkpoints
+           and the background artifact writer
 api        PretrainedGenerator (generate_scenarios) and the serving daemon
-utils      heartbeat for supervised daemons
+utils      plots, TensorBoard and the heartbeat
+cli        ``python -m prdisagg_torch.cli train``
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; kernels are built by nvcc at first use (_build.py).

@@ -1,0 +1,255 @@
+"""Command-line interface of the port (the JAX package's cli.py, subcommand
+for subcommand as they are ported):
+
+  python -m prdisagg_torch.cli train --synthetic --epochs 2
+  python -m prdisagg_torch.cli train --data d.npy --indices i.pkl
+  python -m prdisagg_torch.cli train --synthetic --device cpu --model-preset tiny
+  python -m prdisagg_torch.cli train ... --resume
+
+``train`` takes the JAX package's flags, plus ``--device`` (default
+``cuda``: the port runs on the card unless asked otherwise),
+``--export-format`` and ``--plot-every-epochs``.  The per-epoch ``.h5``
+exports (the default format) need ``h5py`` and the plots ``matplotlib``;
+where one is missing the command refuses to start and names the flag that
+turns the artifact off.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import pickle
+import sys
+
+import numpy as np
+
+
+def _load_dataset(args, cfg):
+    from prdisagg_torch.data.sampler import DeviceDataset
+
+    if getattr(args, "synthetic", False):
+        from prdisagg_torch.data.synthetic import make_synthetic_dataset
+
+        data, indices, cfg = make_synthetic_dataset(
+            n_days=args.synthetic_days, ny=args.synthetic_size,
+            nx=args.synthetic_size, cfg=cfg)
+    else:
+        if not args.data or not args.indices:
+            sys.exit("need --data and --indices (or --synthetic)")
+        data = np.load(args.data, mmap_mode="r")
+        # the valid-index list this tool or the reference wrote
+        with open(args.indices, "rb") as f:
+            indices = np.asarray(pickle.load(f), dtype=np.int32)
+    doy = np.load(args.doy) if getattr(args, "doy", None) else None
+    return DeviceDataset.from_numpy(np.asarray(data), indices, cfg, doy=doy,
+                                    device=args.device), cfg
+
+
+def _data_config(args):
+    from prdisagg_torch.core.config import DataConfig
+
+    kw = {}
+    for field in ("ndomain", "stride", "tp_thresh_daily", "n_thresh",
+                  "conditioning", "startdate", "enddate"):
+        v = getattr(args, field, None)
+        if v is not None:
+            kw[field] = v
+    return DataConfig(**kw)
+
+
+def _add_data_args(p, with_dataset=True):
+    p.add_argument("--ndomain", type=int, default=None)
+    p.add_argument("--stride", type=int, default=None)
+    p.add_argument("--tp-thresh-daily", dest="tp_thresh_daily",
+                   type=float, default=None)
+    p.add_argument("--n-thresh", dest="n_thresh", type=int, default=None)
+    p.add_argument("--startdate", default=None)
+    p.add_argument("--enddate", default=None)
+    p.add_argument("--conditioning", choices=["base", "doy", "lon"],
+                   default=None)
+    if with_dataset:
+        p.add_argument("--data", help="training tensor .npy")
+        p.add_argument("--indices", help="valid-indices .pkl")
+        p.add_argument("--doy", help="day-of-year sidecar .npy")
+        p.add_argument("--synthetic", action="store_true",
+                       help="use the synthetic fixture dataset")
+        p.add_argument("--synthetic-days", type=int, default=8)
+        p.add_argument("--synthetic-size", type=int, default=64)
+
+
+def _missing_artifact_modules(args) -> list:
+    """What the requested artifacts need and this installation lacks, with
+    the flag that turns each off."""
+    needs = []
+    if args.export_format in ("h5", "both"):
+        needs.append(("h5py", "the .h5 weight exports",
+                      "--export-format npz"))
+    if args.plot_every_epochs:
+        needs.append(("matplotlib", "the per-epoch plots",
+                      "--plot-every-epochs 0"))
+    return [f"{what} need the '{mod}' package, which is not installed; "
+            f"pass {flag} to run without them"
+            for mod, what, flag in needs
+            if importlib.util.find_spec(mod) is None]
+
+
+def cmd_train(args):
+    from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
+    from prdisagg_torch.train.loop import Trainer
+
+    missing = _missing_artifact_modules(args)
+    if missing:
+        sys.exit("; ".join(missing))
+    if args.f32_parity and args.compute_dtype == "bfloat16":
+        sys.exit("--f32-parity contradicts --compute-dtype bfloat16: "
+                 "pass exactly one precision request")
+    dcfg = _data_config(args)
+    ds, dcfg = _load_dataset(args, dcfg)
+    compute_dtype = "float32" if args.f32_parity else args.compute_dtype
+    # explicit flags always win; --production supplies the rest of its
+    # preset wholesale
+    explicit = dict(n_disc=args.n_disc, seed=args.seed)
+    if args.schedule:
+        from prdisagg_torch.core.config import parse_schedule
+
+        try:  # each stage captures the step's graph once
+            explicit["schedule"] = parse_schedule(args.schedule)
+        except ValueError as err:
+            sys.exit(f"bad --schedule: {err}")
+    if args.ema_decay is not None:
+        explicit["ema_decay"] = args.ema_decay
+    if args.hoisted_chunks is not None:
+        explicit["hoisted_chunks"] = args.hoisted_chunks
+    if args.hoisted_chunk_samples is not None:
+        explicit["hoisted_chunk_samples"] = args.hoisted_chunk_samples
+    if args.production:
+        from prdisagg_torch.core.config import production_train_config
+
+        tcfg = production_train_config(**explicit)
+    else:
+        explicit.setdefault("schedule", ((args.epochs, args.batch_size),))
+        tcfg = TrainConfig(**explicit)
+    exp = ExperimentConfig(data=dcfg, train=tcfg, name=args.name,
+                           compute_dtype=compute_dtype)
+    if args.model_preset == "tiny":
+        from prdisagg_torch.core.config import smoke_model_config
+
+        exp = dataclasses.replace(exp, model_override=smoke_model_config(
+            ndomain=dcfg.ndomain, n_cond_channels=dcfg.n_cond_channels,
+            compute_dtype=compute_dtype))
+    warm = None
+    if args.warm_start_gen:
+        warm = (args.warm_start_gen, args.warm_start_critic)
+        if args.infer_arch:
+            # the architecture from the weight files themselves; an explicit
+            # precision request still wins over the inferred default
+            from prdisagg_torch.train.state import (
+                infer_model_config_from_weights,
+            )
+
+            inferred = infer_model_config_from_weights(*warm)
+            if compute_dtype is not None:
+                inferred = dataclasses.replace(inferred,
+                                               compute_dtype=compute_dtype)
+            exp = dataclasses.replace(exp, model_override=inferred)
+    elif args.warm_start_critic:
+        sys.exit("--warm-start-critic requires --warm-start-gen")
+    tr = Trainer(exp, ds, workdir=args.workdir,
+                 steps_per_epoch=args.steps_per_epoch,
+                 plot_every_epochs=args.plot_every_epochs,
+                 export_format=args.export_format,
+                 warm_start_weights=warm, start_epoch=args.start_epoch,
+                 tensorboard_dir=args.tensorboard)
+    if args.resume:
+        if tr.maybe_resume():
+            print(f"resumed at epoch {tr.epoch} (step {tr.state.step})",
+                  flush=True)
+    elif args.plot_every_epochs:
+        tr.plot_real_samples()
+    tr.fit()
+    print(f"finished at epoch {tr.epoch}; artifacts in {tr.outdir}")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="prdisagg_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train")
+    _add_data_args(t)
+    t.add_argument("--device", default="cuda",
+                   help="where the dataset and the training run live "
+                        "(default cuda; 'cpu' runs the plain versions of "
+                        "the kernels)")
+    t.add_argument("--epochs", type=int, default=50)
+    t.add_argument("--batch-size", type=int, default=32)
+    t.add_argument("--schedule", default=None,
+                   help="increasing-batch-size schedule EPOCHS:BATCH[,...] "
+                        "e.g. '20:32,30:128' (overrides --epochs/--batch-size)")
+    t.add_argument("--n-disc", type=int, default=5)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--steps-per-epoch", type=int, default=None)
+    t.add_argument("--workdir", default=".")
+    t.add_argument("--name", default="wgancp_pixelnorm")
+    t.add_argument("--resume", action="store_true",
+                   help="exact resume from the latest checkpoint")
+    t.add_argument("--warm-start-gen", dest="warm_start_gen",
+                   help="generator weights (.npz/.h5) to continue from "
+                        "with fresh optimizers (reference workflow)")
+    t.add_argument("--warm-start-critic", dest="warm_start_critic",
+                   default=None)
+    t.add_argument("--infer-arch", dest="infer_arch", action="store_true",
+                   help="reconstruct the model architecture from the "
+                        "warm-start weight files (no config needed)")
+    t.add_argument("--start-epoch", dest="start_epoch", type=int, default=0,
+                   help="epoch-label offset for continued runs")
+    t.add_argument("--compute-dtype", dest="compute_dtype",
+                   choices=["bfloat16", "float32"], default=None,
+                   help="conv/matmul precision (params + conservation "
+                        "softmax are always float32); default bfloat16")
+    t.add_argument("--ema-decay", dest="ema_decay", type=float,
+                   default=None,
+                   help="EMA generator decay per fused step (0 = off, the "
+                        "reference protocol); exports gen_ema_* weights")
+    t.add_argument("--tensorboard", dest="tensorboard", default=None,
+                   metavar="DIR",
+                   help="also stream per-interval metrics to a TensorBoard "
+                        "event file in DIR (hist.csv stays the record)")
+    t.add_argument("--production", action="store_true",
+                   help="production preset (core.config."
+                        "production_train_config): schedule 20:32,30:128 + "
+                        "EMA 0.999.  Explicit --schedule / --ema-decay win")
+    t.add_argument("--f32-parity", dest="f32_parity", action="store_true",
+                   help="strict reference-protocol precision; same as "
+                        "--compute-dtype float32")
+    t.add_argument("--hoisted-chunks", dest="hoisted_chunks", type=int,
+                   default=None,
+                   help="chunk the hoisted (n_disc*B) generator forward "
+                        "into N sequential pieces (memory lever)")
+    t.add_argument("--hoisted-chunk-samples", dest="hoisted_chunk_samples",
+                   type=int, default=None,
+                   help="cap per-chunk samples instead (auto chunk count "
+                        "per schedule stage)")
+    t.add_argument("--model-preset", choices=["flagship", "tiny"],
+                   default="flagship",
+                   help="'tiny' = shrunken smoke architecture for pipeline "
+                        "rehearsals (NOT a benchmark or parity config)")
+    t.add_argument("--export-format", dest="export_format",
+                   choices=["h5", "npz", "both"], default="h5",
+                   help="per-epoch weight exports: the reference's .h5 "
+                        "(needs h5py), the JAX package's .npz, or both")
+    t.add_argument("--plot-every-epochs", dest="plot_every_epochs",
+                   type=int, default=1,
+                   help="sample and loss plots every N epochs (needs "
+                        "matplotlib); 0 = none")
+    t.set_defaults(fn=cmd_train)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

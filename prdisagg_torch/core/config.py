@@ -174,6 +174,31 @@ class TrainConfig:
         return sum(n for n, _ in self.schedule)
 
 
+def parse_schedule(spec: str) -> Tuple[Tuple[int, int], ...]:
+    """Parse an increasing-batch-size schedule "EPOCHS:BATCH[,...]" (e.g.
+    "20:32,30:128") into the ``TrainConfig.schedule`` tuple (reference
+    schedule semantics: gan_train_cwgangp_pixelnorm.py:73-74,526-529)."""
+    try:
+        out = tuple((int(e), int(b))
+                    for e, b in (stage.split(":") for stage in spec.split(",")))
+    except ValueError as err:
+        raise ValueError(f"bad schedule {spec!r}; expected "
+                         f"EPOCHS:BATCH[,EPOCHS:BATCH...]") from err
+    if not out or any(e <= 0 or b <= 0 for e, b in out):
+        raise ValueError(f"bad schedule {spec!r}: epochs/batch must be >= 1")
+    return out
+
+
+def production_train_config(**overrides) -> TrainConfig:
+    """The JAX package's production preset: the reference's commented-out
+    increasing-batch-size schedule ((20, 32), (30, 128)) and a generator EMA
+    of decay 0.999.  ``TrainConfig()`` stays the reference protocol; keyword
+    overrides win."""
+    kw: dict = dict(schedule=((20, 32), (30, 128)), ema_decay=0.999)
+    kw.update(overrides)
+    return TrainConfig(**kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Evaluation-suite settings (generate_and_evaluate.py:30-57,

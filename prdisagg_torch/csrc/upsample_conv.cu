@@ -65,11 +65,15 @@
 // that the grid fills the 132 SMs at the training batch.
 //
 // Launch contract: runs on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of the launch.
+// synchronise, and returns cudaGetLastError() of the launch.  A fast kernel's
+// shared-memory limit is raised once per device, at its first launch there,
+// so a launch inside a CUDA graph capture is the launch alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -663,14 +667,34 @@ unsigned fast_grid(int B, int D, int H, int W, int Cout, int bm, int bn) {
   return (unsigned)(8 * (Cout / bn) * ((M + bm - 1) / bm));
 }
 
+// A kernel's dynamic shared-memory limit, raised with cudaFuncSetAttribute
+// once per device (the attribute persists): one bit per device ordinal.
+class SmemLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t ensure(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const uint64_t bit = 1ull << (dev & 63);
+    if (devices_.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) devices_.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  std::atomic<uint64_t> devices_{0};
+};
+
 template <int BM, int BN>
 int launch_bf16(const void* x, const void* kp, const void* bias, void* out,
                 int B, int D, int H, int W, int Cin, int Cout,
                 cudaStream_t stream) {
   constexpr int smem = tc::smem_bytes<BM, BN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      tc::k1_bf16_wgmma<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static SmemLimit limit;
+  cudaError_t err = limit.ensure(tc::k1_bf16_wgmma<BM, BN>, smem);
   if (err != cudaSuccess) return (int)err;
   tc::k1_bf16_wgmma<BM, BN>
       <<<fast_grid(B, D, H, W, Cout, BM, BN), BM * 2, smem, stream>>>(
@@ -686,9 +710,8 @@ int launch_f32(const void* x, const void* kp, const void* bias, void* out,
                int B, int D, int H, int W, int Cin, int Cout,
                cudaStream_t stream) {
   constexpr int smem = fp32::smem_bytes<BM, BN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fp32::k1_f32_fma<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static SmemLimit limit;
+  cudaError_t err = limit.ensure(fp32::k1_f32_fma<BM, BN>, smem);
   if (err != cudaSuccess) return (int)err;
   fp32::k1_f32_fma<BM, BN>
       <<<fast_grid(B, D, H, W, Cout, BM, BN), (BM / 8) * (BN / 8), smem,

@@ -20,12 +20,16 @@ JAX package the same latents, index rows, eps and masks.  Injected index
 rows are checked against the dataset; the step's own draws, taken from its
 checked rows, are not.
 
-Not ported here: ``steps_per_call`` (the JAX package scans K steps in one
-dispatch), ``fused_gen_forward`` and the data-parallel ``mesh``.
+:func:`make_train_step` runs ``steps_per_call`` steps per call; on a card
+they are replays of a CUDA graph of one step, the counterpart of the JAX
+package's ``lax.scan`` of K steps in one dispatch.
+
+Not ported here: ``fused_gen_forward`` and the data-parallel ``mesh``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 from typing import List, Optional
@@ -34,6 +38,7 @@ import torch
 
 from prdisagg_torch.core.config import ModelConfig, TrainConfig
 from prdisagg_torch.data.sampler import DeviceDataset
+from prdisagg_torch.ops import gather, upsample_conv
 from prdisagg_torch.ops.core import full_f32
 from prdisagg_torch.train.state import GANTrainState
 
@@ -141,7 +146,9 @@ def train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
     index row of `draws` lies outside the dataset."""
     ds.check_rows(draws.real_rows)
     ds.check_rows(draws.gen_rows)
-    return _train_step_on(state, ds, draws, train_cfg, chunks)
+    metrics = _train_step_on(state, ds, draws, train_cfg, chunks)
+    state.step += 1
+    return metrics
 
 
 def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
@@ -194,24 +201,144 @@ def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
     nonfinite = ~torch.isfinite(vals).all()
     metrics["nonfinite"] = nonfinite
     metrics["packed"] = torch.cat([vals, nonfinite.float()[None]])
-    state.step += 1
     return metrics
 
 
+#: eager steps a new CUDA graph warms up on, on a throwaway clone of the state
+WARMUP_STEPS = 3
+#: what CUDA graphs of the step recorded through the kernel wrappers'
+#: counters at capture (launches that did not run then), and what their
+#: replays launched since (each replay runs what its capture recorded), by
+#: counter name (:func:`kernel_counts`)
+graph_captured = collections.Counter()
+graph_launches = collections.Counter()
+
+
+def kernel_counts() -> dict:
+    """The kernel wrappers' counters: K1's launches, by variant too, K1's
+    backward passes, and K2's launches."""
+    return {"upsample2_conv3": upsample_conv.launches,
+            **{f"upsample2_conv3_{v}": n
+               for v, n in upsample_conv.launches_by_variant.items()},
+            "upsample2_conv3_backward": upsample_conv.backward_calls,
+            "gather_patches": gather.launches}
+
+
+def _call_metrics(last: dict, flag: torch.Tensor) -> dict:
+    """What a call of K steps returns, as the JAX package's scan does: the
+    last step's metrics, with the non-finite flag OR-ed over the K steps.
+    Copies, so that a later step or replay does not change them."""
+    packed = last["packed"].clone()
+    packed[-1] = flag.float()
+    metrics = {k: packed[i] for i, k in enumerate(METRIC_KEYS)}
+    metrics["nonfinite"] = flag.clone()
+    metrics["packed"] = packed
+    return metrics
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph on one state and dataset.
+
+    The captured work is the step's draws (from ``state.rng``, registered
+    with the graph so that every replay draws anew from the generator's
+    current offset), the step on them, and ``flag |= nonfinite``.  The graph
+    records the addresses of the state's parameters, optimizer moments and
+    EMA and of the dataset's tensors: the state must be loaded in place
+    (train/state.py) for a replay to see a restore.
+
+    Before capture, :data:`WARMUP_STEPS` eager steps run on a clone of the
+    state on a side stream, so that cuDNN's plans, the libraries'
+    workspaces, K2's launch record and K1's folding matrices exist and
+    nothing is set up under capture; the state itself is untouched (capture
+    records work, it runs none).  Capture mode "thread_local" leaves other
+    threads, such as the artifact writer's host copies, free to run."""
+
+    def __init__(self, state: GANTrainState, ds: DeviceDataset, step_on,
+                 train_cfg: TrainConfig):
+        from prdisagg_torch.train.state import clone_train_state
+
+        dev = state.device
+        self.state, self.ds = state, ds
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = clone_train_state(state, state.gen.cfg, train_cfg, dev)
+            for _ in range(WARMUP_STEPS):
+                step_on(warm)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del warm
+        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.rng)
+        before = kernel_counts()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.metrics = step_on(state)
+            self.flag.logical_or_(self.metrics["nonfinite"])
+        #: the kernel launches one replay makes, by counter name
+        self.per_replay = {k: n - before[k]
+                           for k, n in kernel_counts().items()}
+        graph_captured.update(self.per_replay)
+
+    def run(self, steps: int) -> dict:
+        self.flag.zero_()
+        for _ in range(steps):
+            self.graph.replay()
+        for k, n in self.per_replay.items():
+            graph_launches[k] += n * steps
+        return _call_metrics(self.metrics, self.flag)
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    batch_size: int):
-    """The fused train step ``(state, ds) -> (state, metrics)``: draws from
-    ``state.rng``, then the step on those draws, whose rows need no check.
-    The state is updated in place and returned for the JAX package's
-    calling convention."""
+                    batch_size: int, steps_per_call: int = 1):
+    """The fused train step ``(state, ds) -> (state, metrics)``, running
+    `steps_per_call` steps per call: each step draws from ``state.rng``,
+    then runs on those draws, whose rows need no check.  The state is
+    updated in place (``state.step`` advances by `steps_per_call`) and
+    returned for the JAX package's calling convention; the metrics are the
+    last step's, with ``nonfinite`` OR-ed over the call's steps.
+
+    On the CPU the steps run eagerly.  On a card the first call captures
+    one step as a CUDA graph (:class:`_StepGraph`) and every call replays it
+    `steps_per_call` times: the counterpart of the JAX package's
+    ``lax.scan`` of K steps in one dispatch.  A capture or replay that
+    fails raises; there is no eager fallback on the card (the eager step
+    stays reachable as :func:`draw_step_inputs` + :func:`train_step_on`).
+    The graph is bound to the state and dataset it captured: a call with
+    others raises, and a new batch size needs a new step."""
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     chunks = hoisted_chunk_count(train_cfg, batch_size)
     n_disc = train_cfg.n_disc
+    graphs: list = []
+
+    def step_on(state: GANTrainState, ds: DeviceDataset) -> dict:
+        draws = draw_step_inputs(state, ds, batch_size, n_disc)
+        return _train_step_on(state, ds, draws, train_cfg, chunks)
 
     def train_step(state: GANTrainState, ds: DeviceDataset):
         if state.gen.cfg != model_cfg:
             raise ValueError("the state's model config differs from the "
                              "step's")
-        draws = draw_step_inputs(state, ds, batch_size, n_disc)
-        return state, _train_step_on(state, ds, draws, train_cfg, chunks)
+        dev = state.device
+        if dev.type == "cpu":
+            flag = None
+            for _ in range(steps_per_call):
+                metrics = step_on(state, ds)
+                f = metrics["nonfinite"]
+                flag = f if flag is None else flag | f
+            metrics = _call_metrics(metrics, flag)
+        elif dev.type == "cuda":
+            if not graphs:
+                graphs.append(_StepGraph(state, ds,
+                                         lambda s: step_on(s, ds), train_cfg))
+            graph = graphs[0]
+            if graph.state is not state or graph.ds is not ds:
+                raise ValueError("this step's CUDA graph was captured on "
+                                 "another state or dataset; make a new step")
+            metrics = graph.run(steps_per_call)
+        else:
+            raise ValueError(f"the train step runs on cpu or cuda, got {dev}")
+        state.step += steps_per_call
+        return state, metrics
 
     return train_step

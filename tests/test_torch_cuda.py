@@ -273,3 +273,196 @@ def test_gather_kernel_refuses_what_it_cannot_take(cuda):
         gather.gather_patches(data.transpose(2, 3), idx, 16)
     with pytest.raises(ValueError, match="does not fit"):
         gather.gather_patches(data, idx, 33)
+
+
+# --------------------------------------------------------------------------
+# the train step as a CUDA graph (smoke width, float32)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def graph_setup(cuda):
+    import dataclasses
+
+    from prdisagg_torch.core import config as tcfg
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.data.synthetic import make_synthetic_dataset
+
+    data, idx, dcfg = make_synthetic_dataset(n_days=4, ny=32, nx=32, seed=5)
+    ds = DeviceDataset.from_numpy(data, idx, dcfg, device=cuda)
+    mc = dataclasses.replace(tcfg.smoke_model_config(compute_dtype="float32"),
+                             dropout_rate=0.25)
+    return ds, mc, tcfg.TrainConfig(n_disc=2)
+
+
+@pytest.fixture
+def drawn(monkeypatch):
+    """Every StepDraws the step makes; the one made under capture holds the
+    graph's static buffers, which each replay refills."""
+    from prdisagg_torch.train import wgan_gp
+
+    made, real = [], wgan_gp.draw_step_inputs
+
+    def recording(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    monkeypatch.setattr(wgan_gp, "draw_step_inputs", recording)
+    return made
+
+
+DRAW_FIELDS = ("real_rows", "latent", "eps", "gen_latent", "gen_rows")
+
+
+def _draws_equal(a, b) -> bool:
+    masks = zip([*a.masks, *a.gp_masks, a.gen_masks],
+                [*b.masks, *b.gp_masks, b.gen_masks])
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in DRAW_FIELDS)
+            and all(torch.equal(x, y) for ma, mb in masks
+                    for x, y in zip(ma, mb)))
+
+
+def _max_param_err(a, b) -> float:
+    err = 0.0
+    for net in ("gen", "critic"):
+        sa, sb = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        pmax = max(v.abs().max().item() for v in sb.values())
+        err = max(err, max((sa[k] - sb[k]).abs().max().item()
+                           for k in sb) / pmax)
+    return err
+
+
+def test_graphed_step_matches_eager_steps(graph_setup, drawn):
+    """Each replay draws what the eager step draws from the same generator
+    state, bit for bit, and trains to the same parameters (1e-4 of their
+    scale) and losses; the graph holds K1's 6 launches, 3 backward passes
+    and K2's 2 launches per step."""
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import clone_train_state, \
+        create_train_state
+
+    ds, mc, cfg = graph_setup
+    state = create_train_state(mc, cfg, device=ds.device)
+    eager = clone_train_state(state, mc, cfg, ds.device)
+    eager.rng.set_state(state.rng.get_state())
+    before = dict(wgan_gp.graph_launches)
+    step = wgan_gp.make_train_step(mc, cfg, 4)
+    for i in range(3):
+        _, got = step(state, ds)
+        static = drawn[wgan_gp.WARMUP_STEPS]
+        ed = wgan_gp.draw_step_inputs(eager, ds, 4, cfg.n_disc)
+        drawn.pop()
+        assert _draws_equal(ed, static), f"step {i}: draws differ"
+        want = wgan_gp.train_step_on(eager, ds, ed, cfg)
+        g, w = got["packed"][:-1], want["packed"][:-1]
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    assert state.step == eager.step == 3
+    assert torch.equal(state.rng.get_state(), eager.rng.get_state())
+    assert _max_param_err(state, eager) <= 1e-4
+    grew = {k: n - before.get(k, 0)
+            for k, n in wgan_gp.graph_launches.items()}
+    assert grew["upsample2_conv3"] == 18 and grew["gather_patches"] == 6
+    assert grew["upsample2_conv3_backward"] == 9
+
+
+def test_replays_draw_different_rows_and_latents(graph_setup, drawn):
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import create_train_state
+
+    ds, mc, cfg = graph_setup
+    state = create_train_state(mc, cfg, device=ds.device)
+    step = wgan_gp.make_train_step(mc, cfg, 4)
+    step(state, ds)
+    static = drawn[wgan_gp.WARMUP_STEPS]
+    first = {f: getattr(static, f).clone() for f in DRAW_FIELDS}
+    step(state, ds)
+    assert len(drawn) == wgan_gp.WARMUP_STEPS + 1  # replays draw in-graph
+    for f in DRAW_FIELDS:
+        assert not torch.equal(first[f], getattr(static, f)), f
+
+
+def test_graph_reads_restored_tensors(graph_setup, tmp_path):
+    """A checkpoint restored in place is seen by a graph captured before the
+    restore and by one captured after it: both then step as the saved
+    state steps."""
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.artifacts import snapshot
+    from prdisagg_torch.train.checkpoint import CheckpointManager
+    from prdisagg_torch.train.state import create_train_state
+
+    ds, mc, cfg = graph_setup
+    mgr = CheckpointManager(str(tmp_path))
+    src = create_train_state(mc, cfg, device=ds.device)
+    src_step = wgan_gp.make_train_step(mc, cfg, 4)
+    src_step(src, ds)
+    mgr.save(1, snapshot(src))
+    early = create_train_state(mc, cfg, seed=7, device=ds.device)
+    early_step = wgan_gp.make_train_step(mc, cfg, 4)
+    early_step(early, ds)  # captured before the restore
+    ptrs = [p.data_ptr() for p in early.gen.parameters()]
+    mgr.restore(early)
+    late = create_train_state(mc, cfg, seed=8, device=ds.device)
+    mgr.restore(late)
+    late_step = wgan_gp.make_train_step(mc, cfg, 4)
+    _, want = src_step(src, ds)
+    for st, fn in ((early, early_step), (late, late_step)):
+        _, got = fn(st, ds)
+        assert st.step == 2
+        assert torch.allclose(got["packed"], want["packed"], rtol=1e-4,
+                              atol=1e-6)
+        assert _max_param_err(st, src) <= 1e-4
+    assert [p.data_ptr() for p in early.gen.parameters()] == ptrs
+    with pytest.raises(ValueError, match="another state"):
+        late_step(src, ds)
+
+
+def test_schedule_change_recaptures(graph_setup, tmp_path, monkeypatch):
+    from prdisagg_torch.core import config as tcfg
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.loop import Trainer
+
+    ds, mc, _ = graph_setup
+    graphs = []
+
+    class Recording(wgan_gp._StepGraph):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            graphs.append(self)
+
+    monkeypatch.setattr(wgan_gp, "_StepGraph", Recording)
+    exp = tcfg.ExperimentConfig(
+        train=tcfg.TrainConfig(n_disc=1, schedule=((1, 2), (1, 4)),
+                               log_every_steps=2),
+        model_override=mc)
+    tr = Trainer(exp, ds, str(tmp_path), steps_per_epoch=2,
+                 plot_every_epochs=0, export_format="npz")
+    tr.fit(progress=False)
+    assert len(graphs) == 2 and tr.state.step == 4
+    assert [g.metrics["packed"].shape for g in graphs] == [(8,), (8,)]
+    assert all(np.isfinite(v) for v in tr.hist["d_loss"])
+    assert tr.ckpt.epochs() == [2]
+
+
+def test_failing_capture_raises(graph_setup, monkeypatch):
+    """A step that syncs with the host cannot be captured: the call raises
+    and nothing ran on the state (no eager fallback)."""
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import create_train_state
+
+    ds, mc, cfg = graph_setup
+    real = wgan_gp._train_step_on
+
+    def host_sync(*args, **kw):
+        m = real(*args, **kw)
+        m["packed"].sum().item()
+        return m
+
+    monkeypatch.setattr(wgan_gp, "_train_step_on", host_sync)
+    state = create_train_state(mc, cfg, device=ds.device)
+    before = [p.detach().clone() for p in state.gen.parameters()]
+    with pytest.raises(RuntimeError):
+        wgan_gp.make_train_step(mc, cfg, 4)(state, ds)
+    torch.cuda.synchronize()
+    assert state.step == 0
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, state.gen.parameters()))

@@ -740,7 +740,8 @@ def test_trainer_fit_exports_and_nan_guard(tmp_path):
         train=tcfg.TrainConfig(n_disc=2, schedule=((2, 4),),
                                log_every_steps=3),
         model_override=tc)
-    tr = Trainer(exp, ds, str(tmp_path), steps_per_epoch=3)
+    tr = Trainer(exp, ds, str(tmp_path), steps_per_epoch=3,
+                 plot_every_epochs=0, export_format="npz")
     before = [p.detach().clone() for p in tr.state.gen.parameters()]
     hist = tr.fit(progress=False)
     assert tr.epoch == 2 and tr.state.step == 6
