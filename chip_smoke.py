@@ -43,22 +43,34 @@ Run from the repository root.  Phases:
    metrics, changed parameters, the kernel counts (6 K1 launches, all fast,
    3 K1 backward passes and 2 K2 launches per step, through the wrappers
    at warm-up and capture and per replay after), the checkpoint and
-   exports; then the same number of eager steps (draw_step_inputs +
+   exports; then EAGER_STEPS eager steps (draw_step_inputs +
    train_step_on) for the eager rate, the graphed step's peak memory (it
    must not copy the data), conservation of the trained generator, a
    profile of one call of 10 replays (device busy and idle share, and the
    hand-written kernels counted by name inside the graph), a profile of one
    eager step (with K1's backward device time) and one float32 step on the
    card against the same step on the CPU path;
-9. graph check: float32, smoke width, dropout on: the graphed step against
-   eager steps from the same state and generator state, draws bit for bit,
-   losses and parameters within 1e-4 of their scale, and successive
+9. graph check: float32, smoke width, dropout on, from mid-training Adam
+   moments: the graphed step against eager steps from the same state and
+   generator state, draws bit for bit, losses and parameters within 1e-4
+   of their scale (and the parameter that moved most), and successive
    replays drawing different rows and latents;
 10. resume check: flagship bf16, 2 epochs with a checkpoint each, resumed
    by a new Trainer to epoch 3, against an uninterrupted 3-epoch run
    (parameters within 1e-4 of their scale, the same hist.csv epochs);
 11. cli: ``python -m prdisagg_torch.cli train --synthetic`` at the flagship
-   width for 2 epochs, then ``--resume`` to a third, as subprocesses.
+   width for 2 epochs, then ``--resume`` to a third, as subprocesses;
+12. eval: the slice phase's flagship float32 generator scored on the
+   card-resident dataset at the reference protocol's sizes, plots off:
+   crps_gan (50 samples x 1000 members, K1 launches counted), the random
+   baseline against a 5000-patch ensemble drawn by K2, Evaluator phases 2
+   (1000 samples) and 5 (2 pairs x 1000 members) with conservation of
+   every generated field and the daily-cycle correlation, the n = 1000
+   pairwise-LSD summary (24,000 spectra; seconds and peak memory); then
+   CRPS and LSD against float64 on the CPU with TF32 allowed globally (and
+   the TF32 value beside), the device median against the full reduction's
+   at n = 20, and ``cli evaluate --smoke --no-plots`` and ``cli crps`` as
+   subprocesses.
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -67,6 +79,7 @@ printing no result, if any phase fails or no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -110,11 +123,23 @@ ND_LARGE = 64  # the 64x64 domain's patch, gathered from the same tensor
 # steps timed, one call of 50 replays an epoch
 WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 4, 50
 PROFILE_REPLAYS = 10  # the profiled call of the graphed step
+EAGER_STEPS = 100  # timed eager steps, for the eager rate
 GRAPH_CHECK_STEPS = 4  # graphed vs eager steps
 RESUME_STEPS = 4  # steps per epoch of the resume check
 CLI_STEPS = 4  # steps per epoch of the CLI runs
 CARD = "cuda"  # where the dataset and the train phase live
 F32_CHECK = dict(n_disc=2, batch=8, rtol=1e-4)
+# evaluation at the reference protocol's sizes: 1000-member ensembles in
+# batches of 500, a 5000-patch random baseline, n = 1000 LSD populations
+# (24,000 spectra each) and phase 5's 2 pairs x 1000 members
+EVAL_SAMPLES, EVAL_MEMBERS, EVAL_MEMBER_BATCH = 50, 1000, 500
+EVAL_BASELINE = 5000
+EVAL_N = 1000  # Evaluator phase-2 samples, and the LSD populations' n
+EVAL_KS_PAIRS, EVAL_KS_MEMBERS = 2, 1000
+CRPS_F64 = dict(samples=4, rtol=1e-5)  # card vs float64, relative
+LSD_F64 = dict(spectra=256, rtol=2e-5)  # card vs float64, of the largest
+MEDIAN_CHECK = dict(n=20, rtol=2e-5)  # device vs full reduction
+CLI_CRPS = dict(samples=10, baseline=1000)
 
 
 def check(ok: bool, what) -> None:
@@ -587,7 +612,7 @@ def _executed_counts(wrappers: dict, captured: dict, replayed: dict) -> dict:
 
 def phase_train(ds, seed: int, workdir: str) -> dict:
     """Trainer.fit at the flagship defaults on the card-resident dataset,
-    the step running as a CUDA graph, then the same number of eager steps
+    the step running as a CUDA graph, then EAGER_STEPS eager steps
     in this process, the graphed step's memory and profile, and an eager
     step's profile."""
     import numpy as np
@@ -664,24 +689,24 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
         exports)
     check(trainer.ckpt.epochs() == [epochs], trainer.ckpt.epochs())
 
-    # the same number of eager steps, after two to warm up
+    # EAGER_STEPS eager steps, after two to warm up
     for _ in range(2):
         train_step_on(state, ds, draw_step_inputs(state, ds, TRAIN_BATCH,
                                                   N_DISC), exp.train)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_timed):
+    for _ in range(EAGER_STEPS):
         train_step_on(state, ds, draw_step_inputs(state, ds, TRAIN_BATCH,
                                                   N_DISC), exp.train)
     torch.cuda.synchronize()
-    eager = n_timed / (time.perf_counter() - t0)
-    print(f"[train] {n_timed} steps: graphed {graphed:.2f} fused steps/s "
+    eager = EAGER_STEPS / (time.perf_counter() - t0)
+    print(f"[train] graphed {graphed:.2f} fused steps/s "
           f"({graphed * TRAIN_BATCH * (N_DISC + 1):.1f} sample-updates/s; "
           f"Trainer.fit, {TIMED_EPOCHS} calls of {STEPS_PER_EPOCH} replays "
           f"in {timed:.3f} s, warm epoch {trainer.epoch_seconds[0]:.3f} s "
           f"with the warm-up and capture), eager {eager:.2f} fused steps/s "
-          f"(draw_step_inputs + train_step_on), graphed/eager "
-          f"{graphed / eager:.2f}")
+          f"({EAGER_STEPS} steps of draw_step_inputs + train_step_on), "
+          f"graphed/eager {graphed / eager:.2f}")
 
     # a new graphed step: its first call's peak memory (warm-up on a clone,
     # capture, replays), then a call of replays alone
@@ -750,9 +775,31 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
             "k1_backward_ms": k1_bwd}
 
 
+def _warm_adam(state, seed: int) -> None:
+    """Mid-training Adam moments in place, as the full-step parity test
+    sets them (tests/test_torch_train.py): step 1, first moments 0, second
+    moments 1e-2 * (1 + U[0, 1)).  From step 0 Adam's first update is about
+    lr * sign(gradient), so a gradient near 0 whose sign differs between
+    two runs by rounding moves a parameter by 2 lr; with these moments the
+    update is linear in the gradient."""
+    import torch
+
+    g = torch.Generator(device=state.device).manual_seed(seed + 6)
+    with torch.no_grad():
+        for opt in (state.gen_opt, state.critic_opt):
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    st = opt.state[p]
+                    st["step"].fill_(1.0)
+                    st["exp_avg"].zero_()
+                    st["exp_avg_sq"].copy_(1e-2 * (1.0 + torch.rand(
+                        p.shape, generator=g, device=p.device)))
+
+
 def phase_graph_check(ds, seed: int) -> dict:
-    """The graphed step against eager steps from the same state and
-    generator state, float32 with TF32 off, smoke width, dropout on: the
+    """The graphed step against eager steps from the same state (Adam's
+    moments mid-training) and generator state, float32 with TF32 off,
+    smoke width, dropout on: the
     draws of every replay bit for bit, the losses of every step and the
     parameters after GRAPH_CHECK_STEPS steps within 1e-4 of their scale;
     successive replays draw different rows and latents."""
@@ -769,6 +816,7 @@ def phase_graph_check(ds, seed: int) -> dict:
     cfg = TrainConfig(n_disc=2, seed=seed)
     b, rtol = 8, 1e-4
     state = create_train_state(mc, cfg, device=CARD)
+    _warm_adam(state, seed)
     eager = clone_train_state(state, mc, cfg, CARD)
     eager.rng.set_state(state.rng.get_state())
     made, real = [], wgan_gp.draw_step_inputs
@@ -806,19 +854,23 @@ def phase_graph_check(ds, seed: int) -> dict:
                                       / w.abs().max()).item())
     finally:
         wgan_gp.draw_step_inputs = real
-    param_err = 0.0
+    param_err, worst = 0.0, None
     for net in ("gen", "critic"):
         a, c = getattr(state, net).state_dict(), getattr(eager, net).state_dict()
         pmax = max(v.abs().max().item() for v in c.values())
-        param_err = max(param_err, max(
-            (a[k] - c[k]).abs().max().item() for k in c) / pmax)
+        for k in c:
+            err = (a[k] - c[k]).abs().max().item() / pmax
+            if worst is None or err > param_err:
+                param_err, worst = err, f"{net}.{k}"
     row = {"steps": GRAPH_CHECK_STEPS, "batch": b, "n_disc": cfg.n_disc,
-           "dropout": mc.dropout_rate, "draws_bit_identical": identical,
+           "dropout": mc.dropout_rate, "adam": "mid-training moments",
+           "draws_bit_identical": identical,
            "successive_replays_differ": differ,
            "rng_state_equal": bool(torch.equal(state.rng.get_state(),
                                                eager.rng.get_state())),
            "metric_err_over_scale": loss_err,
-           "param_err_over_max": param_err, "tolerance": rtol}
+           "param_err_over_max": param_err, "worst_param": worst,
+           "tolerance": rtol}
     print("[graph] graphed vs eager steps: " + json.dumps(row))
     check(all(identical) and all(differ) and row["rng_state_equal"]
           and loss_err <= rtol and param_err <= rtol,
@@ -1073,7 +1125,8 @@ def phase_slice(seed: int, workdir: str) -> dict:
           f" (bound 1e-5 * max(cond) = {1e-5 * cond.max():.3e})")
     check(cpu_err <= 1e-5 * cond.max(), f"card vs CPU differ by {cpu_err}")
 
-    result = {"launches": launches, "conservation": cons, "cpu_err": cpu_err,
+    result = {"launches": launches, "by_variant": by_variant,
+              "conservation": cons, "cpu_err": cpu_err,
               "npz": npz, "gen": gen, "cond": cond}
     for n in (SCENARIOS, gen.max_batch):
         t0 = time.perf_counter()
@@ -1165,8 +1218,376 @@ def phase_serve(sl: dict) -> None:
           f"{upsample_conv.launches_by_variant}")
 
 
-def _kernel_lines(kc: dict, gc: dict, counts: dict,
-                  slice_launches: int) -> list:
+def _eval_item(name: str, row: dict) -> dict:
+    print(f"[eval] {name}: " + json.dumps(row))
+    return row
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """TF32 allowed for every cuBLAS and cuDNN float32 call, as code run
+    before may leave it; the port's contractions must turn it off
+    themselves."""
+    import torch
+
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+
+
+def _crps_f64_check(pg, reals, seed: int) -> dict:
+    """CRPS of CRPS_F64["samples"] GAN ensembles of EVAL_MEMBERS members on
+    the card with TF32 allowed globally, against the same ensembles in
+    float64 on the CPU: the area-mean rows within the relative bound.  Also
+    the spread taken as a GEMM with TF32 on, the gap the port's guard
+    closes."""
+    import torch
+
+    from prdisagg_torch.ops.stats import crps_ensemble
+
+    n, rtol = CRPS_F64["samples"], CRPS_F64["rtol"]
+    g = torch.Generator(device=reals.device).manual_seed(seed + 8)
+    rows = {"card": [], "f64": [], "tf32": []}
+    with _tf32_on(), torch.inference_mode():
+        for real in reals[:n]:
+            dsum = real.sum(dim=0)
+            cond = (dsum / pg.norm_scale)[None, ..., None]
+            lat = torch.randn((EVAL_MEMBERS, pg.cfg.latent_dim), generator=g,
+                              device=reals.device)
+            ens = pg.predict_fractions(
+                lat, cond.expand(EVAL_MEMBERS, *cond.shape[1:]))[..., 0] * dsum
+            rows["card"].append(crps_ensemble(real, ens).mean(dim=(1, 2)))
+            rows["f64"].append(crps_ensemble(real.double().cpu(),
+                                             ens.double().cpu()).mean(
+                dim=(1, 2)))
+            # the spread contraction as a GEMM with TF32 allowed
+            m = ens.shape[0]
+            xs = torch.sort(ens.reshape(m, -1).T, dim=-1).values
+            w = 2.0 * torch.arange(m, device=xs.device) - m + 1.0
+            spread = (xs @ w[:, None].expand(m, 8))[:, 0] / (m * m)
+            term1 = (ens - real[None]).abs().mean(dim=0).reshape(-1)
+            rows["tf32"].append((term1 - spread).reshape(real.shape)
+                                .mean(dim=(1, 2)))
+    card, f64, tf32 = (torch.stack(rows[k]).double().cpu()
+                       for k in ("card", "f64", "tf32"))
+    err = ((card - f64).abs() / f64.abs()).max().item()
+    err_tf32 = ((tf32 - f64).abs() / f64.abs()).max().item()
+    row = {"samples": n, "members": EVAL_MEMBERS,
+           "max_rel_err_tf32_off": err, "max_rel_err_tf32_gemm": err_tf32,
+           "mean_crps_f64": f64.mean().item(), "rtol": rtol}
+    check(err <= rtol, f"card CRPS differs from float64: {row}")
+    return _eval_item("crps card vs float64", row)
+
+
+def _lsd_f64_check(sp_a, sp_b) -> dict:
+    """pairwise_lsd of a LSD_F64["spectra"] block on the card with TF32
+    allowed globally, against the direct per-pair float64 form on the CPU,
+    within the bound of the block's largest distance; also the same GEMM
+    expansion with TF32 on."""
+    import torch
+
+    from prdisagg_torch.ops.stats import pairwise_lsd
+
+    n, rtol = LSD_F64["spectra"], LSD_F64["rtol"]
+    a, b = sp_a[:n], sp_b[:n]
+    nbins = a.shape[-1]
+    with _tf32_on():
+        card = pairwise_lsd(a, b).double().cpu()
+        la, lb = 10.0 * torch.log10(a), 10.0 * torch.log10(b)
+        center = la.mean(dim=0)
+        la, lb = la - center, lb - center
+        d2 = ((la * la).sum(-1)[:, None] + (lb * lb).sum(-1)[None]
+              - 2.0 * la @ lb.T)
+        tf32 = (torch.sqrt(torch.clamp(d2, min=0.0)) / nbins).double().cpu()
+    la64 = 10.0 * torch.log10(a.double().cpu())
+    lb64 = 10.0 * torch.log10(b.double().cpu())
+    f64 = torch.sqrt(((la64[:, None] - lb64[None]) ** 2).sum(-1)) / nbins
+    scale = f64.abs().max().item()
+    err = (card - f64).abs().max().item() / scale
+    row = {"block": [n, n], "bins": nbins,
+           "max_err_over_max_tf32_off": err,
+           "max_rel_err_tf32_off": ((card - f64).abs() / f64).max().item(),
+           "max_err_over_max_tf32_gemm":
+               (tf32 - f64).abs().max().item() / scale,
+           "max_distance": scale, "rtol": rtol}
+    check(err <= rtol, f"card LSD differs from float64: {row}")
+    return _eval_item("lsd card vs float64", row)
+
+
+def _median_check(sp_gen, sp_real) -> dict:
+    """The device reduction's median against np.median of the full
+    reduction's population at n = MEDIAN_CHECK["n"] (24 spectra a
+    sample)."""
+    import numpy as np
+
+    from prdisagg_torch.ops.stats import (
+        pairwise_lsd_offdiag,
+        pairwise_lsd_summary,
+    )
+
+    m, rtol = 24 * MEDIAN_CHECK["n"], MEDIAN_CHECK["rtol"]
+    row = {"n": MEDIAN_CHECK["n"], "rtol": rtol}
+    for name, a, b in (("gen", sp_gen[:m], sp_gen[:m]),
+                       ("between_gen_real", sp_gen[:m], sp_real[:m])):
+        s = pairwise_lsd_summary(a, b)
+        full = pairwise_lsd_offdiag(a, b)
+        finite = full[np.isfinite(full)]
+        want = float(np.median(finite))
+        row[name] = {"device_median": s["median"], "full_median": want,
+                     "rel_err": abs(s["median"] - want) / want,
+                     "n_valid": s["n_valid"], "full_finite": len(finite)}
+        check(s["n_valid"] == len(finite)
+              and row[name]["rel_err"] <= rtol, f"medians differ: {row}")
+    return _eval_item("lsd device vs full median", row)
+
+
+def _eval_cli(npz: str, reals, baseline, workdir: str) -> dict:
+    """``cli evaluate --smoke --no-plots`` on the synthetic dataset and
+    ``cli crps`` on the eval phase's real samples and baseline patches, as
+    two subprocesses run side by side: both exit 0 and write their
+    artifacts."""
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(workdir, exist_ok=True)
+    real, base = (os.path.join(workdir, f"{n}.npy") for n in ("real", "base"))
+    np.save(real, reals)
+    np.save(base, baseline)
+    crps_out = os.path.join(workdir, "crps")
+    cmds = {
+        "evaluate": ["evaluate", "--synthetic", "--weights", npz, "--smoke",
+                     "--no-plots", "--workdir", workdir],
+        "crps": ["crps", "--weights", npz, "--real", real, "--baseline", base,
+                 "--n-members", str(EVAL_MEMBERS),
+                 "--n-samples", str(CLI_CRPS["samples"]), "--out", crps_out],
+    }
+    t0 = time.perf_counter()
+    procs, ends = {}, {}
+    try:
+        for name, args in cmds.items():
+            with open(os.path.join(workdir, f"{name}.out"), "w") as fo, \
+                    open(os.path.join(workdir, f"{name}.err"), "w") as fe:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "prdisagg_torch.cli", *args],
+                    cwd=root, stdout=fo, stderr=fe, text=True)
+        while len(ends) < len(procs):
+            check(time.perf_counter() - t0 < 600, "cli runs timed out")
+            for name, proc in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, proc in procs.items():
+        with open(os.path.join(workdir, f"{name}.out")) as fo, \
+                open(os.path.join(workdir, f"{name}.err")) as fe:
+            stdout, stderr = fo.read(), fe.read()
+        out[name] = _eval_item(f"cli {name}", {
+            "rc": proc.returncode, "seconds": ends[name],
+            "last_line": stdout.strip().splitlines()[-1:]})
+        check(proc.returncode == 0, f"cli {name} failed:\n{stdout[-2000:]}"
+              f"\n{stderr[-4000:]}")
+    written = os.path.join(workdir, "data", "real_samples.npy")
+    plotdir = os.path.join(workdir, "plots_generated_wgancp_pixelnorm")
+    pvals = [n for n in os.listdir(plotdir) if n.endswith(".txt")]
+    check(np.load(written).shape == (50, 24, 16, 16) and len(pvals) == 2,
+          (np.load(written).shape, pvals))
+    with open(os.path.join(crps_out, "crps_results.json")) as fh:
+        out["crps"]["analysis"] = json.load(fh)
+    check(os.path.exists(os.path.join(
+        crps_out, f"crps_results_n_sample{CLI_CRPS['samples']}.pkl")),
+        "no crps pickle")
+    return out
+
+
+def phase_eval(ds, sl: dict, seed: int, workdir: str) -> dict:
+    """Evaluation of the flagship float32 generator of the slice phase on
+    the card-resident dataset, through the eval entry points at the
+    reference protocol's sizes, plots off: crps_gan, crps_random_baseline,
+    Evaluator phases 2 and 5 and the n = 1000 LSD summary (the counted
+    run), then the float64 and median checks and the two CLI
+    subprocesses."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.core.config import ExperimentConfig
+    from prdisagg_torch.eval import Evaluator, daily_cycle_correlation
+    from prdisagg_torch.eval.crps import crps_gan, crps_random_baseline
+    from prdisagg_torch.eval.lsd import run_lsd_evaluation, spectra_of_fields
+    from prdisagg_torch.ops import gather, upsample_conv
+    from prdisagg_torch.ops.stats import pairwise_lsd_summary
+
+    check(importlib.util.find_spec("scipy") is not None,
+          "phase 5's KS test and the CRPS analysis need scipy, which is not "
+          "installed")
+    import scipy.stats  # noqa: F401 - imported here, not in phase 5's time
+    pg = sl["gen"]
+    check(pg.cfg.compute_dtype == "float32", pg.cfg)
+    g = torch.Generator(device=ds.device).manual_seed(seed + 7)
+    # cuDNN's plans for the head conv at batch 500, outside the counted run
+    crps_gan(pg, ds.sample_patches_raw(1, g), n_members=EVAL_MEMBERS,
+             member_batch=EVAL_MEMBER_BATCH)
+    ev = Evaluator(ExperimentConfig(data=ds.cfg), ds, pg,
+                   workdir=os.path.join(workdir, "evaluator"))
+    items: dict = {}
+
+    def timed(name, fn):
+        k1, k2 = upsample_conv.launches, gather.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        items[name] = {"seconds": time.perf_counter() - t0,
+                       "k1_launches": upsample_conv.launches - k1,
+                       "k2_launches": gather.launches - k2}
+        return r
+
+    # conservation of every field the Evaluator generates
+    frac_err = []
+    predict = pg.predict_fractions
+
+    def recording(latent, cond):
+        out = predict(latent, cond)
+        frac_err.append((out.sum(dim=1) - 1.0).abs().max().item())
+        return out
+
+    torch.cuda.synchronize()
+    reset_k1_counts()
+    gather.launches = 0
+    pg.predict_fractions = recording
+    try:
+        reals = timed("draw_reals", lambda: ds.sample_patches_raw(
+            EVAL_SAMPLES, g))
+        gan = timed("crps_gan", lambda: crps_gan(
+            pg, reals, n_members=EVAL_MEMBERS, seed=seed,
+            member_batch=EVAL_MEMBER_BATCH))
+        ens = timed("draw_baseline", lambda: ds.sample_patches_raw(
+            EVAL_BASELINE, g))
+        rnd = timed("crps_random_baseline", lambda: crps_random_baseline(
+            reals, ens, device=ds.device))
+        res = timed("sample_statistics", lambda: ev.sample_statistics(
+            n_samples=EVAL_N, make_plots=False))
+        pvals = timed("conditional_distribution_check",
+                      lambda: ev.conditional_distribution_check(
+                          n_pairs=EVAL_KS_PAIRS, n_members=EVAL_KS_MEMBERS,
+                          make_plots=False))
+        sp_gen, sp_real = timed("spectra", lambda: (
+            spectra_of_fields(res["generated_samples"], device=ds.device),
+            spectra_of_fields(res["real_samples"], device=ds.device)))
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        summary = timed("pairwise_lsd_summary", lambda: pairwise_lsd_summary(
+            sp_gen, sp_real))
+        lsd_peak = torch.cuda.max_memory_allocated() - resident
+        lsd = timed("run_lsd_evaluation", lambda: run_lsd_evaluation(
+            res["real_samples"], res["generated_samples"], n_samples=EVAL_N,
+            outdir=os.path.join(workdir, "lsd"), make_plot=False,
+            reduction="device", device=ds.device))
+    finally:
+        del pg.predict_fractions
+    counts = {"upsample2_conv3": upsample_conv.launches,
+              "upsample2_conv3_by_variant": dict(
+                  upsample_conv.launches_by_variant),
+              "gather_patches": gather.launches}
+
+    want = {"draw_reals": (0, 1),
+            "crps_gan": (3 * EVAL_MEMBERS // EVAL_MEMBER_BATCH
+                         * EVAL_SAMPLES, 0),
+            "draw_baseline": (0, 1), "crps_random_baseline": (0, 0),
+            "sample_statistics": (3 * -(-EVAL_N // 500), -(-EVAL_N // 500)),
+            "conditional_distribution_check": (3 * 2 * EVAL_KS_PAIRS,
+                                               2 * EVAL_KS_PAIRS),
+            "spectra": (0, 0), "pairwise_lsd_summary": (0, 0),
+            "run_lsd_evaluation": (0, 0)}
+    got = {k: (v["k1_launches"], v["k2_launches"]) for k, v in items.items()}
+    print(f"[eval] main path: launches by item (K1, K2) {got}, in all "
+          f"{counts}")
+    check(got == want, f"eval launches {got}, expected {want}")
+    check(counts["upsample2_conv3_by_variant"]
+          == fast_only(counts["upsample2_conv3"]), counts)
+
+    t = items["crps_gan"]["seconds"]
+    _eval_item("crps_gan", {
+        "samples": EVAL_SAMPLES, "members": EVAL_MEMBERS,
+        "member_batch": EVAL_MEMBER_BATCH, "seconds": t,
+        "samples_per_s": EVAL_SAMPLES / t,
+        "k1_launches": items["crps_gan"]["k1_launches"],
+        "mean_crps": float(gan.mean())})
+    check(gan.shape == (EVAL_SAMPLES, 24) and np.isfinite(gan).all(),
+          "crps_gan: bad rows")
+    _eval_item("crps_random_baseline", {
+        "samples": EVAL_SAMPLES, "ensemble": EVAL_BASELINE,
+        "seconds": items["crps_random_baseline"]["seconds"],
+        "k2_launches_for_the_ensemble": items["draw_baseline"]["k2_launches"],
+        "mean_crps": float(rnd.mean())})
+    check(rnd.shape == (EVAL_SAMPLES, 24) and np.isfinite(rnd).all()
+          and (rnd >= -1e-6).all(), "crps_random_baseline: bad rows")
+    t = items["sample_statistics"]["seconds"]
+    corr = daily_cycle_correlation(res)
+    _eval_item("sample_statistics", {
+        "samples": EVAL_N, "seconds": t, "samples_per_s": EVAL_N / t,
+        "k1_launches": items["sample_statistics"]["k1_launches"],
+        "k2_launches": items["sample_statistics"]["k2_launches"],
+        "daily_cycle_correlation": corr})
+    check(res["generated_samples"].shape == (EVAL_N, 24, 16, 16)
+          and np.isfinite(res["generated_samples"]).all()
+          and np.isfinite(corr), "sample_statistics: bad output")
+    _eval_item("conditional_distribution_check", {
+        "pairs": EVAL_KS_PAIRS, "members": EVAL_KS_MEMBERS,
+        "seconds": items["conditional_distribution_check"]["seconds"],
+        "k2_launches": items["conditional_distribution_check"]["k2_launches"],
+        "min_p": [float(p.min()) for p in pvals]})
+    check(len(pvals) == EVAL_KS_PAIRS
+          and all(p.shape == (24,) and ((p >= 0) & (p <= 1)).all()
+                  for p in pvals), "bad KS p-values")
+    cons = max(frac_err)
+    _eval_item("conservation", {
+        "fields_checked": EVAL_N + 2 * EVAL_KS_PAIRS * EVAL_KS_MEMBERS,
+        "max_abs_sum_frac_minus_1": cons, "bound": CONSERVATION_RTOL})
+    check(cons <= CONSERVATION_RTOL, f"conservation {cons}")
+    _eval_item("pairwise_lsd_summary", {
+        "n": EVAL_N, "spectra": [len(sp_gen), len(sp_real)],
+        "seconds": items["pairwise_lsd_summary"]["seconds"],
+        "peak_bytes": lsd_peak, "median": summary["median"],
+        "n_valid": summary["n_valid"],
+        "run_lsd_evaluation_seconds": items["run_lsd_evaluation"]["seconds"],
+        "medians": lsd.medians,
+        "spectra_seconds": items["spectra"]["seconds"]})
+    check(summary["n_valid"] > 0 and np.isfinite(summary["median"])
+          and all(np.isfinite(v) for v in lsd.medians.values()),
+          "LSD summary: no finite median")
+    profile_breakdown(
+        lambda: crps_gan(pg, reals[:2], n_members=EVAL_MEMBERS,
+                         member_batch=EVAL_MEMBER_BATCH),
+        f"crps_gan, 2 samples x {EVAL_MEMBERS} members")
+    profile_breakdown(lambda: pairwise_lsd_summary(sp_gen, sp_real),
+                      f"pairwise_lsd_summary at n = {EVAL_N}", host_top=4)
+
+    checks = {"crps_f64": _crps_f64_check(pg, reals, seed),
+              "lsd_f64": _lsd_f64_check(sp_gen, sp_real),
+              "median": _median_check(sp_gen, sp_real),
+              "cli": _eval_cli(sl["npz"], reals.cpu().numpy(),
+                               ens[:CLI_CRPS["baseline"]].cpu().numpy(),
+                               os.path.join(workdir, "cli"))}
+    return {"counts": counts, "items": items, "conservation": cons,
+            "daily_cycle_correlation": corr, "lsd_peak_bytes": lsd_peak,
+            **checks}
+
+
+def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
+                  slice_by_variant: dict, eval_counts: dict) -> list:
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
@@ -1181,11 +1602,16 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/upsample_conv.cu",
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:37",
-        # the train path's launches (6 a step); the serving path's beside
-        "launches": counts["upsample2_conv3"],
+        # the launches of the serving, training and evaluation paths
+        "launches": (slice_launches + counts["upsample2_conv3"]
+                     + eval_counts["upsample2_conv3"]),
         "launches_by_path": {"slice": slice_launches,
-                             "train": counts["upsample2_conv3"]},
-        "launches_by_variant": counts["upsample2_conv3_by_variant"],
+                             "train": counts["upsample2_conv3"],
+                             "eval": eval_counts["upsample2_conv3"]},
+        "launches_by_variant": {
+            v: n + slice_by_variant[v]
+            + eval_counts["upsample2_conv3_by_variant"][v]
+            for v, n in counts["upsample2_conv3_by_variant"].items()},
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
@@ -1217,7 +1643,10 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/gather.cu",
         "replaces": "prdisagg_tpu/ops/pallas_gather.py:30",
-        "launches": counts["gather_patches"],
+        # the launches of the training and evaluation paths
+        "launches": counts["gather_patches"] + eval_counts["gather_patches"],
+        "launches_by_path": {"train": counts["gather_patches"],
+                             "eval": eval_counts["gather_patches"]},
         # one train step's two launches: the n_disc*B real patches and the
         # generator update's conditions (every gather checked is in the
         # [kernel] lines)
@@ -1259,11 +1688,13 @@ def main() -> int:
         if missing:
             failed.append(f"{name} (skipped: {', '.join(missing)} failed)")
             return
+        t0 = time.perf_counter()
         try:
             out[name] = fn()
         except Exception:  # noqa: BLE001 — report, run the other phases
             traceback.print_exc()
             failed.append(name)
+        print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     run("kernel_check", lambda: phase_kernel_check(args.seed))
     run("dataset", lambda: phase_dataset(args.seed))
@@ -1280,13 +1711,17 @@ def main() -> int:
         out["dataset"], args.seed, os.path.join(workdir.name, "resume")),
         needs=("dataset",))
     run("cli", lambda: phase_cli(args.seed, os.path.join(workdir.name, "cli")))
+    run("eval", lambda: phase_eval(out["dataset"], out["slice"], args.seed,
+                                   os.path.join(workdir.name, "eval")),
+        needs=("dataset", "slice"))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
     kernels = _kernel_lines(out["kernel_check"], out["gather_check"],
-                            out["train"]["counts"], out["slice"]["launches"])
+                            out["train"]["counts"], out["slice"]["launches"],
+                            out["slice"]["by_variant"], out["eval"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

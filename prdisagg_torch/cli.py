@@ -5,13 +5,21 @@ for subcommand as they are ported):
   python -m prdisagg_torch.cli train --data d.npy --indices i.pkl
   python -m prdisagg_torch.cli train --synthetic --device cpu --model-preset tiny
   python -m prdisagg_torch.cli train ... --resume
+  python -m prdisagg_torch.cli evaluate --synthetic --weights g.npz --smoke
+  python -m prdisagg_torch.cli crps --weights g.npz --real data/real_samples.npy \\
+      --baseline rainfarm_calibration_data.npy
+  python -m prdisagg_torch.cli lsd --real r.npy --generated g.npy --reduction device
+  python -m prdisagg_torch.cli crps-analyze --results data/crps_results_n_sample10000.pkl
+  python -m prdisagg_torch.cli parity-report --ours DIR --reference DIR
 
-``train`` takes the JAX package's flags, plus ``--device`` (default
-``cuda``: the port runs on the card unless asked otherwise),
-``--export-format`` and ``--plot-every-epochs``.  The per-epoch ``.h5``
-exports (the default format) need ``h5py`` and the plots ``matplotlib``;
-where one is missing the command refuses to start and names the flag that
-turns the artifact off.
+Each takes the JAX package's flags, plus ``--device`` where it computes
+(default ``cuda``: the port runs on the card unless asked otherwise);
+``train`` also ``--export-format`` and ``--plot-every-epochs``, and
+``evaluate`` and ``lsd`` ``--no-plots``.  The per-epoch ``.h5`` exports
+(the default format) need ``h5py``, and figures ``matplotlib`` (the
+evaluation's also ``seaborn`` and ``pandas``); where one is missing the
+command refuses to start and names the flag that turns the artifact off.
+The JAX package's ``--dp`` (data-parallel evaluation) is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,9 +86,40 @@ def _add_data_args(p, with_dataset=True):
         p.add_argument("--synthetic-size", type=int, default=64)
 
 
-def _missing_artifact_modules(args) -> list:
-    """What the requested artifacts need and this installation lacks, with
-    the flag that turns each off."""
+def _refuse_missing(needs) -> None:
+    """Exit, before any work, if a (module, what needs it, flag that turns
+    it off or None) of `needs` is not installed, naming the flags."""
+    missing = [
+        f"{what} need the '{mod}' package, which is not installed"
+        + (f"; pass {flag} to run without them" if flag else "")
+        for mod, what, flag in needs
+        if importlib.util.find_spec(mod) is None]
+    if missing:
+        sys.exit("; ".join(missing))
+
+
+def _figure_needs(args, mods, what) -> list:
+    """The modules figures need, unless --no-plots turned them off."""
+    if args.no_plots:
+        return []
+    return [(mod, what, "--no-plots") for mod in mods]
+
+
+def _load_generator(args, n_cond_channels: int = 1):
+    """The generator of --weights (.npz or the reference's .h5) on
+    --device, its architecture inferred from the file."""
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+
+    kw = dict(n_cond_channels=n_cond_channels, device=args.device)
+    if args.weights.endswith(".h5"):
+        return PretrainedGenerator.from_keras_h5(args.weights, None, **kw)
+    return PretrainedGenerator.from_npz(args.weights, None, **kw)
+
+
+def cmd_train(args):
+    from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
+    from prdisagg_torch.train.loop import Trainer
+
     needs = []
     if args.export_format in ("h5", "both"):
         needs.append(("h5py", "the .h5 weight exports",
@@ -88,19 +127,7 @@ def _missing_artifact_modules(args) -> list:
     if args.plot_every_epochs:
         needs.append(("matplotlib", "the per-epoch plots",
                       "--plot-every-epochs 0"))
-    return [f"{what} need the '{mod}' package, which is not installed; "
-            f"pass {flag} to run without them"
-            for mod, what, flag in needs
-            if importlib.util.find_spec(mod) is None]
-
-
-def cmd_train(args):
-    from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
-    from prdisagg_torch.train.loop import Trainer
-
-    missing = _missing_artifact_modules(args)
-    if missing:
-        sys.exit("; ".join(missing))
+    _refuse_missing(needs)
     if args.f32_parity and args.compute_dtype == "bfloat16":
         sys.exit("--f32-parity contradicts --compute-dtype bfloat16: "
                  "pass exactly one precision request")
@@ -171,16 +198,100 @@ def cmd_train(args):
     print(f"finished at epoch {tr.epoch}; artifacts in {tr.outdir}")
 
 
+def cmd_evaluate(args):
+    from prdisagg_torch.core.config import ExperimentConfig
+    from prdisagg_torch.eval import Evaluator
+
+    _refuse_missing([("scipy", "the KS check (phase 5)", None)]
+                    + _figure_needs(args, ("matplotlib", "seaborn", "pandas"),
+                                    "the evaluation's figures"))
+    if args.weights is None:
+        sys.exit("evaluate requires --weights")
+    dcfg = _data_config(args)
+    ds, dcfg = _load_dataset(args, dcfg)
+    exp = ExperimentConfig(data=dcfg, name=args.name)
+    # the architecture from the weight file (the reference loads the .h5
+    # with no config, generate_and_evaluate.py:60-63)
+    gen = _load_generator(args, n_cond_channels=dcfg.n_cond_channels)
+    ev = Evaluator(exp, ds, gen, workdir=args.workdir, epoch=args.epoch)
+    overrides = {}
+    if args.smoke:
+        overrides = dict(n_map_conditions=2, n_fake_per_real=2,
+                         n_stat_samples=50, n_line_conditions=1,
+                         n_line_free_noise=10, n_line_shared_noise=2,
+                         n_ks_conditions=2, n_ks_members=100)
+    ev.run_all(make_plots=not args.no_plots, **overrides)
+    print(f"evaluation artifacts in {ev.plotdir} and {ev.datadir}")
+
+
+def cmd_crps(args):
+    from prdisagg_torch.eval.crps import run_crps_evaluation
+
+    _refuse_missing([("scipy", "the CRPS analysis", None)])
+    gen = _load_generator(args)
+    reals = np.load(args.real)[: args.n_samples]
+    baseline = np.load(args.baseline)
+    res = run_crps_evaluation(gen, reals, baseline,
+                              n_members=args.n_members, outdir=args.out)
+    print(res["analysis"])
+
+
+def cmd_lsd(args):
+    from prdisagg_torch.eval.lsd import run_lsd_evaluation
+
+    _refuse_missing(_figure_needs(args, ("matplotlib", "seaborn"),
+                                  "the KDE plot"))
+    rf = np.load(args.rainfarm) if args.rainfarm else None
+    dists = run_lsd_evaluation(
+        np.load(args.real), np.load(args.generated), rf,
+        n_samples=args.n_samples, outdir=args.out, plotdir=args.plotdir,
+        make_plot=not args.no_plots, reduction=args.reduction,
+        device=args.device,
+    )
+    print({k: round(v, 4) for k, v in dists.medians.items()})
+    print(f"LSD artifacts in {args.out}")
+
+
+def cmd_crps_analyze(args):
+    """Standalone analysis of saved CRPS pickles (analyze_crps_results.py)."""
+    from prdisagg_torch.eval.crps import analyze
+
+    with open(args.results, "rb") as f:
+        gan, random_baseline = pickle.load(f)
+    rainfarm = None
+    if args.rainfarm:
+        with open(args.rainfarm, "rb") as f:
+            rainfarm = pickle.load(f)
+    print(analyze(gan, random_baseline, rainfarm, outdir=args.out))
+
+
+def cmd_parity_report(args):
+    """Statistical-parity verdict against the reference's published
+    artifacts."""
+    import json
+
+    from prdisagg_torch.eval.parity import parity_report
+
+    res = parity_report(args.ours, args.reference, out_path=args.out,
+                        ks_p_threshold=args.ks_p_threshold,
+                        cycle_rtol=args.cycle_rtol)
+    print(json.dumps(res, indent=2))
+    print(f"verdict: {'PASS' if res['passes'] else 'FAIL'} -> {args.out}")
+
+
+def _add_device_arg(p, what: str) -> None:
+    p.add_argument("--device", default="cuda",
+                   help=f"where {what} (default cuda; 'cpu' runs the plain "
+                        "versions of the kernels)")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="prdisagg_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train")
     _add_data_args(t)
-    t.add_argument("--device", default="cuda",
-                   help="where the dataset and the training run live "
-                        "(default cuda; 'cpu' runs the plain versions of "
-                        "the kernels)")
+    _add_device_arg(t, "the dataset and the training run live")
     t.add_argument("--epochs", type=int, default=50)
     t.add_argument("--batch-size", type=int, default=32)
     t.add_argument("--schedule", default=None,
@@ -243,6 +354,65 @@ def build_parser():
                    help="sample and loss plots every N epochs (needs "
                         "matplotlib); 0 = none")
     t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("evaluate")
+    _add_data_args(e)
+    _add_device_arg(e, "the dataset and the generator live")
+    e.add_argument("--weights", required=False)
+    e.add_argument("--epoch", type=int, default=20)
+    e.add_argument("--workdir", default=".")
+    e.add_argument("--name", default="wgancp_pixelnorm")
+    e.add_argument("--smoke", action="store_true")
+    e.add_argument("--no-plots", dest="no_plots", action="store_true",
+                   help="write the arrays and KS p-values but no figures "
+                        "(figures need matplotlib, seaborn and pandas); "
+                        "leaves out phase 4, which makes only figures")
+    e.set_defaults(fn=cmd_evaluate)
+
+    cr = sub.add_parser("crps")
+    _add_device_arg(cr, "the generator and both arms run")
+    cr.add_argument("--weights", required=True)
+    cr.add_argument("--real", required=True, help="real_samples.npy")
+    cr.add_argument("--baseline", required=True,
+                    help="rainfarm_calibration_data.npy")
+    cr.add_argument("--n-members", type=int, default=1000)
+    cr.add_argument("--n-samples", type=int, default=10000)
+    cr.add_argument("--out", default="data")
+    cr.set_defaults(fn=cmd_crps)
+
+    lsd = sub.add_parser("lsd")
+    _add_device_arg(lsd, "the spectra and distances are computed")
+    lsd.add_argument("--real", required=True)
+    lsd.add_argument("--generated", required=True)
+    lsd.add_argument("--rainfarm")
+    lsd.add_argument("--n-samples", type=int, default=1000)
+    lsd.add_argument("--out", default=".")
+    lsd.add_argument("--plotdir", default="plots")
+    lsd.add_argument("--reduction", choices=("full", "device"),
+                     default="full",
+                     help="full = save complete distance populations "
+                          "(reference artifact contract); device = on-device "
+                          "reduction, exact medians + subsample artifacts")
+    lsd.add_argument("--no-plots", dest="no_plots", action="store_true",
+                     help="no KDE plot (it needs matplotlib and seaborn)")
+    lsd.set_defaults(fn=cmd_lsd)
+
+    ca = sub.add_parser("crps-analyze")
+    ca.add_argument("--results", required=True,
+                    help="crps_results_n_sample*.pkl (gan, random)")
+    ca.add_argument("--rainfarm", help="crps_results_rainfarm.pkl")
+    ca.add_argument("--out", default="data")
+    ca.set_defaults(fn=cmd_crps_analyze)
+
+    pr = sub.add_parser("parity-report")
+    pr.add_argument("--ours", required=True,
+                    help="our plots_generated_* artifact directory")
+    pr.add_argument("--reference", required=True,
+                    help="reference plots_generated_wgancp_pixelnorm* dir")
+    pr.add_argument("--out", default="data/parity_report.json")
+    pr.add_argument("--ks-p-threshold", type=float, default=0.01)
+    pr.add_argument("--cycle-rtol", type=float, default=0.25)
+    pr.set_defaults(fn=cmd_parity_report)
     return p
 
 

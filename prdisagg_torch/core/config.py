@@ -258,3 +258,31 @@ class ExperimentConfig:
             n_cond_channels=self.data.n_cond_channels,
             **kw,
         )
+
+
+def large_domain_experiment() -> ExperimentConfig:
+    """The 64x64 large-domain variant
+    (alternative_domains/gan_train_cwgangp_pixelnorm_largedomain.py:59,65),
+    evaluated at epoch 8 with 15 fakes per real and the magma_r fraction
+    colormap (generate_and_evaluate_largedomain.py:51,205,237)."""
+    return ExperimentConfig(
+        data=DataConfig(ndomain=64, n_thresh=40),
+        eval=EvalConfig(epoch=8, n_fake_per_real=15, fraction_cmap="magma_r"),
+        name="wgancp_pixelnorm_largedomain",
+    )
+
+
+def doy_experiment() -> ExperimentConfig:
+    """Day-of-year conditioning variant (revision1/additional_inputs)."""
+    return ExperimentConfig(
+        data=DataConfig(conditioning=Conditioning.DOY),
+        name="wgancp_pixelnorm_doy",
+    )
+
+
+def lon_experiment() -> ExperimentConfig:
+    """Longitude conditioning variant (revision1/additional_inputs)."""
+    return ExperimentConfig(
+        data=DataConfig(conditioning=Conditioning.LON),
+        name="wgancp_pixelnorm_lon",
+    )

@@ -7,8 +7,9 @@ is vectorized with 2-D summed-area tables over boolean masks, as in the JAX
 package.
 
 Boundary semantics: the reference iterates ``range(0, ny - ndomain, stride)``,
-which EXCLUDES the last fitting box row and column.  That off-by-one is kept,
-so the index lists match the reference's.
+which EXCLUDES the last fitting box row and column.  That off-by-one is kept
+by default, so the index lists match the reference's; pass
+``include_last_box=True`` for the corrected sweep.
 """
 
 from __future__ import annotations
@@ -30,10 +31,13 @@ def _box_sums(m: np.ndarray, nd: int) -> np.ndarray:
             + sat[:, :-nd, :-nd])
 
 
-def sweep_starts(n: int, ndomain: int, stride: int) -> np.ndarray:
-    """Box starts along one axis, ``range(0, n - ndomain, stride)``: the
-    reference's sweep, which leaves out the last box that fits."""
-    return np.arange(0, max(n - ndomain, 0), stride)
+def sweep_starts(n: int, ndomain: int, stride: int,
+                 include_last_box: bool = False) -> np.ndarray:
+    """Box starts along one axis: ``range(0, n - ndomain, stride)``, the
+    reference's sweep, which leaves out the last box that fits, or with
+    `include_last_box` ``range(0, n - ndomain + 1, stride)``."""
+    stop = n - ndomain + (1 if include_last_box else 0)
+    return np.arange(0, max(stop, 0), stride)
 
 
 def _daily_sums(data) -> np.ndarray:
@@ -48,7 +52,8 @@ def _daily_sums(data) -> np.ndarray:
     return data.sum(dim=1, dtype=torch.float64).cpu().numpy()
 
 
-def compute_valid_indices(data, cfg: DataConfig) -> np.ndarray:
+def compute_valid_indices(data, cfg: DataConfig,
+                          include_last_box: bool = False) -> np.ndarray:
     """data: (days, nhours, ny, nx) float32 (NaN = missing), a numpy array
     or a torch tensor on any device.
 
@@ -67,8 +72,8 @@ def compute_valid_indices(data, cfg: DataConfig) -> np.ndarray:
         (np.nan_to_num(daily, nan=0.0) > cfg.tp_thresh_daily)
         .astype(np.float64), nd)
 
-    ys = sweep_starts(ny, nd, stride)
-    xs = sweep_starts(nx, nd, stride)
+    ys = sweep_starts(ny, nd, stride, include_last_box)
+    xs = sweep_starts(nx, nd, stride, include_last_box)
     if len(ys) == 0 or len(xs) == 0:
         return np.zeros((0, 3), dtype=np.int32)
 

@@ -14,6 +14,8 @@ voxels, patches at the tensor's last row and column, x offsets that rule out
 test asserts, through ``launches_by_variant``, which kernel variant ran.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -466,3 +468,137 @@ def test_failing_capture_raises(graph_setup, monkeypatch):
     assert state.step == 0
     assert all(torch.equal(a, b) for a, b in
                zip(before, state.gen.parameters()))
+
+
+# --------------------------------------------------------------------------
+# evaluation on the card: contractions in full float32, the flagship
+# crps_gan through K1, the Evaluator through K2
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def tf32_on():
+    """TF32 allowed for every float32 cuBLAS and cuDNN call, as earlier
+    code may leave it: the port's contractions must turn it off."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = before
+
+
+@pytest.mark.parametrize("m", [1000, 5000])
+def test_crps_on_the_card_in_full_float32(cuda, tf32_on, m):
+    """crps_ensemble and crps_ensemble_fixed with TF32 allowed globally
+    against the same ensemble in float64 on the CPU, within 1e-5 relative
+    per value; the caller's TF32 setting survives."""
+    from prdisagg_torch.ops import stats
+
+    rng = np.random.RandomState(m)
+    obs = rng.gamma(0.5, 4.0, size=(3, 24, 4, 4)).astype("f4")
+    ens = rng.gamma(0.5, 4.0, size=(m, 24, 4, 4)).astype("f4")
+    got = stats.crps_ensemble(torch.tensor(obs[0], device=cuda),
+                              torch.tensor(ens, device=cuda))
+    fixed = stats.crps_ensemble_fixed(torch.tensor(obs, device=cuda),
+                                      torch.tensor(ens, device=cuda))
+    assert torch.backends.cuda.matmul.allow_tf32
+    ens64 = torch.tensor(ens, dtype=torch.float64)
+    want = stats.crps_ensemble_fixed(torch.tensor(obs, dtype=torch.float64),
+                                     ens64).numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want[0], rtol=1e-5)
+    np.testing.assert_allclose(fixed.cpu().numpy(), want, rtol=1e-5)
+
+
+def test_pairwise_lsd_on_the_card_in_full_float32(cuda, tf32_on):
+    """pairwise_lsd with TF32 allowed globally against the per-pair float64
+    form, within 2e-5 of the largest distance; the summary's count and
+    median equal the full population's on the card."""
+    from prdisagg_torch.ops import stats
+
+    rng = np.random.RandomState(3)
+    fields = rng.gamma(0.5, 2.0, size=(512, 16, 16)).astype("f4")
+    sp = stats.radial_spectra(torch.tensor(fields, device=cuda))
+    a, b = sp[:256], sp[256:]  # no pair of one spectrum with itself
+    got = stats.pairwise_lsd(a, b).double().cpu()
+    la = 10.0 * torch.log10(a.double().cpu())
+    lb = 10.0 * torch.log10(b.double().cpu())
+    want = torch.sqrt(((la[:, None] - lb[None]) ** 2).sum(-1)) / a.shape[-1]
+    scale = want.max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    s = stats.pairwise_lsd_summary(a, b, block=64)
+    full = stats.pairwise_lsd_offdiag(a, b, block=64)
+    assert s["n_valid"] == len(full) == 256 * 256 - 256
+    np.testing.assert_allclose(s["median"], np.median(full), rtol=2e-5)
+    np.testing.assert_allclose(s["mean"], full.mean(), rtol=1e-5)
+
+
+def _flagship_generator(device):
+    """A flagship float32 PretrainedGenerator, N(0, 0.02) weights."""
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+    from prdisagg_torch.core.config import ModelConfig
+    from prdisagg_torch.models.generator import Generator
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(compute_dtype="float32")
+    return PretrainedGenerator(Generator(cfg).state_dict(), cfg,
+                               device=device)
+
+
+def test_crps_gan_flagship_on_the_card(cuda):
+    """crps_gan at 1000 members through K1 (3 fast launches per 500-member
+    batch), independent of sample_chunk; one sample's row equals the CPU
+    path's on the same latents within 1e-5 relative."""
+    from prdisagg_torch.eval import crps
+    from prdisagg_torch.ops import upsample_conv
+
+    pg = _flagship_generator(cuda)
+    rng = np.random.RandomState(1)
+    reals = rng.gamma(0.5, 1.0, size=(3, 24, 16, 16)).astype("f4")
+    before = dict(upsample_conv.launches_by_variant)
+    out = crps.crps_gan(pg, reals, n_members=1000, sample_chunk=2)
+    ran = {v: n - before[v] for v, n in
+           upsample_conv.launches_by_variant.items()}
+    assert ran == {"fast": 3 * 2 * 3, "general": 0}
+    assert out.shape == (3, 24) and np.isfinite(out).all()
+    np.testing.assert_array_equal(
+        out, crps.crps_gan(pg, reals, n_members=1000, sample_chunk=3))
+    cpu = _flagship_generator("cpu")
+    lat = rng.randn(8, pg.cfg.latent_dim).astype("f4")
+    real = torch.tensor(reals[0])
+    rows = []
+    for gen, dev in ((pg, cuda), (cpu, "cpu")):
+        with torch.inference_mode():
+            rows.append(crps._score_one_sample(
+                gen._gen, real.to(dev), real.to(dev).sum(0),
+                torch.tensor(lat, device=dev), 8, 4, 127.4).cpu().numpy())
+    np.testing.assert_allclose(rows[0], rows[1], rtol=1e-5)
+
+
+def test_evaluator_on_the_card(cuda, tmp_path):
+    """Evaluator phases 2 and 5 on a card-resident dataset with plots off:
+    K2 draws the rows (one launch per phase-2 chunk, two per phase-5 pair),
+    every generated field conserves, the KS p-values are written."""
+    from prdisagg_torch.core.config import ExperimentConfig
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.data.synthetic import make_synthetic_dataset
+    from prdisagg_torch.eval import Evaluator, daily_cycle_correlation
+    from prdisagg_torch.ops import gather
+
+    data, idx, dcfg = make_synthetic_dataset(n_days=4, ny=48, nx=48, seed=2)
+    ds = DeviceDataset.from_numpy(data, idx, dcfg, device=cuda)
+    ev = Evaluator(ExperimentConfig(data=dcfg), ds, _flagship_generator(cuda),
+                   workdir=str(tmp_path))
+    before = gather.launches
+    res = ev.sample_statistics(n_samples=600, make_plots=False)
+    assert gather.launches - before == 2
+    assert res["generated_samples"].shape == (600, 24, 16, 16)
+    np.testing.assert_allclose(res["amean_fraction_gen"].sum(1), 1.0,
+                               rtol=1e-5)
+    assert np.isfinite(daily_cycle_correlation(res))
+    before = gather.launches
+    pvals = ev.conditional_distribution_check(n_pairs=2, n_members=200,
+                                              make_plots=False)
+    assert gather.launches - before == 4
+    assert [p.shape for p in pvals] == [(24,), (24,)]
+    assert len([n for n in os.listdir(ev.plotdir) if n.endswith(".txt")]) == 2

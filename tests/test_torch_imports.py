@@ -40,6 +40,9 @@ def test_port_files_found():
     assert "prdisagg_torch/api/server.py" in names
     assert "prdisagg_torch/ops/gather.py" in names
     assert "prdisagg_torch/train/wgan_gp.py" in names
+    assert "prdisagg_torch/ops/stats.py" in names
+    for module in ("crps", "lsd", "evaluate", "parity"):
+        assert f"prdisagg_torch/eval/{module}.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -187,6 +187,37 @@ def test_synthetic_dataset_and_indices_match_jax():
             want)
 
 
+@pytest.mark.parametrize("include_last_box", [False, True])
+def test_include_last_box_matches_jax(include_last_box):
+    """The reference's sweep leaves out the last box that fits; the flag
+    adds it.  Both settings against the JAX package's vectorised scan and
+    its triple-loop oracle, on a grid where the last box starts on the
+    stride (48 - 16 = 32 rows, 40 - 16 = 24 columns, stride 8)."""
+    from prdisagg_torch.data.indices import sweep_starts
+    from prdisagg_tpu.data import indices as jidx
+
+    data, _, _ = make_synthetic_dataset(n_days=3, ny=48, nx=40, seed=6)
+    data[2, :, 30:34, 0:5] = np.nan
+    kw = dict(stride=8, n_thresh=10)
+    got = compute_valid_indices(data, tcfg.DataConfig(**kw),
+                                include_last_box=include_last_box)
+    jc = jcfg.DataConfig(**kw)
+    np.testing.assert_array_equal(
+        got, jidx.compute_valid_indices(data, jc, include_last_box))
+    np.testing.assert_array_equal(
+        got, jidx.compute_valid_indices_bruteforce(data, jc,
+                                                   include_last_box))
+    for n in (48, 40, 16, 15):
+        np.testing.assert_array_equal(
+            sweep_starts(n, 16, 8, include_last_box),
+            jidx.sweep_starts(n, 16, 8, include_last_box))
+    assert (32 in got[:, 1]) == include_last_box
+    assert (24 in got[:, 2]) == include_last_box
+    if not include_last_box:  # the default is the reference's sweep
+        np.testing.assert_array_equal(
+            got, compute_valid_indices(data, tcfg.DataConfig(**kw)))
+
+
 def test_synthetic_dataset_on_a_device_follows_the_recipe():
     """The chunked on-device recipe (its own random numbers) makes what the
     numpy recipe makes: the same floor, the same mean and spread to a few
