@@ -70,7 +70,23 @@ Run from the repository root.  Phases:
    CRPS and LSD against float64 on the CPU with TF32 allowed globally (and
    the TF32 value beside), the device median against the full reduction's
    at n = 20, and ``cli evaluate --smoke --no-plots`` and ``cli crps`` as
-   subprocesses.
+   subprocesses;
+13. rainfarm: RainFARM on the card-resident dataset: calibrate at
+   RainFarmConfig's defaults (10 repeats of 5000 patches drawn by K2),
+   1000 real test patches drawn by K2 scored by crps_rainfarm at 1000
+   members (cut from the protocol's 10,000 samples; samples/s, peak
+   memory), generate_for_daily_sums of their 1000 daily sums
+   (conservation), the three-arm CRPS protocol (GAN, random, RainFARM) on
+   50 of them, a profile of crps_rainfarm on 20 samples, then the
+   estimators on the CPU against the card (float64,
+   1e-8 relative) and the downscaling on the card against the CPU on
+   identical phases (1e-5 of the maximum);
+14. serve_cli: ``cli inspect``, ``cli generate`` (one condition, a stack
+   of 8, the float16 wire; 1000 scenarios each), ``cli serve`` answering a
+   client and a second one stopped by SIGTERM, ``cli rainfarm-calibrate``
+   then ``rainfarm-crps``, and ``example`` / ``rainfarm-generate``, which
+   must refuse to start, naming matplotlib, where it is not installed; all
+   as subprocesses started together.
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -84,6 +100,8 @@ import dataclasses
 import itertools
 import json
 import os
+import pickle
+import signal
 import statistics
 import subprocess
 import sys
@@ -140,6 +158,16 @@ CRPS_F64 = dict(samples=4, rtol=1e-5)  # card vs float64, relative
 LSD_F64 = dict(spectra=256, rtol=2e-5)  # card vs float64, of the largest
 MEDIAN_CHECK = dict(n=20, rtol=2e-5)  # device vs full reduction
 CLI_CRPS = dict(samples=10, baseline=1000)
+# RainFARM: calibration at RainFarmConfig's defaults (10 repeats of 5000
+# patches), the CRPS protocol's 1000 members on 1000 samples (cut from
+# 10,000), the three-arm protocol on EVAL_SAMPLES samples
+RAINFARM_SAMPLES, RAINFARM_MEMBERS = 1000, 1000
+RAINFARM_PROFILED = 20  # samples in the profiled crps_rainfarm call
+RAINFARM_CHECK = dict(members=8, ds_factor=4, rtol=1e-5, slope_rtol=1e-8)
+# the serving CLI: --n-scenarios for generate; the stack's conditions and
+# its per-forward cap (4 forwards of 2000); f16 wire conservation
+CLI_SCENARIOS, CLI_STACK, CLI_STACK_MAX_BATCH = 1000, 8, 2000
+WIRE_F16_RTOL = 1e-3
 
 
 def check(ok: bool, what) -> None:
@@ -1218,8 +1246,8 @@ def phase_serve(sl: dict) -> None:
           f"{upsample_conv.launches_by_variant}")
 
 
-def _eval_item(name: str, row: dict) -> dict:
-    print(f"[eval] {name}: " + json.dumps(row))
+def _eval_item(name: str, row: dict, phase: str = "eval") -> dict:
+    print(f"[{phase}] {name}: " + json.dumps(row))
     return row
 
 
@@ -1586,8 +1614,364 @@ def phase_eval(ds, sl: dict, seed: int, workdir: str) -> dict:
             **checks}
 
 
+def _rainfarm_checks(batch0: str, slopes0, daily, seed: int) -> dict:
+    """Outside the counted run: the estimators on the CPU against the card
+    on the same calibration batch (both float64), and downscale_from_phase
+    and downscale_spatial_from_phase on the card against the CPU on
+    identical phases."""
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.baselines.rainfarm import core
+
+    batch = torch.from_numpy(np.load(batch0))
+    cpu = (core.estimate_alpha(batch), core.estimate_beta(batch))
+    slope_err = max(abs(c - g) / abs(c) for c, g in zip(cpu, slopes0))
+    out = {"estimators": _eval_item("estimators card vs cpu", {
+        "card": list(slopes0), "cpu": list(cpu), "max_rel_err": slope_err,
+        "bound": RAINFARM_CHECK["slope_rtol"]}, "rainfarm")}
+    check(slope_err <= RAINFARM_CHECK["slope_rtol"],
+          f"estimators: card and CPU differ by {slope_err}")
+    g = torch.Generator(device=daily.device).manual_seed(seed + 12)
+    alpha, beta = slopes0
+    m, ds_f = RAINFARM_CHECK["members"], RAINFARM_CHECK["ds_factor"]
+    cases = {
+        "downscale_from_phase": (
+            lambda p, ph: core.downscale_from_phase(p, alpha, beta, ph),
+            daily[0], torch.rand((m, 24, *daily.shape[1:]), generator=g,
+                                 device=daily.device)),
+        f"downscale_spatial ds_factor {ds_f}": (
+            lambda p, ph: core.downscale_spatial_from_phase(p, alpha, ds_f,
+                                                            ph),
+            daily[1], torch.rand((m, *(ds_f * s for s in daily.shape[1:])),
+                                 generator=g, device=daily.device))}
+    with _tf32_on():
+        for name, (fn, p, ph) in cases.items():
+            got = fn(p, ph).cpu().numpy()
+            want = fn(p.cpu(), ph.cpu()).numpy()
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            out[name] = _eval_item(f"{name} card vs cpu", {
+                "shape": list(got.shape), "max_abs_err_over_max": err,
+                "bound": RAINFARM_CHECK["rtol"]}, "rainfarm")
+            check(np.isfinite(got).all() and err <= RAINFARM_CHECK["rtol"],
+                  f"{name}: card and CPU differ by {err}")
+    return out
+
+
+def phase_rainfarm(ds, sl: dict, seed: int, workdir: str) -> dict:
+    """RainFARM on the card-resident dataset (the counted run): calibrate
+    at RainFarmConfig's defaults (K2 draws the 10 x 5000 patches),
+    RAINFARM_SAMPLES real test patches drawn by K2, crps_rainfarm on them
+    at RAINFARM_MEMBERS members, generate_for_daily_sums of their daily
+    sums, and the three-arm CRPS protocol (the slice phase's generator, the
+    repeat-0 calibration batch as the random baseline) on EVAL_SAMPLES of
+    them; then the card-vs-CPU checks."""
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.baselines.rainfarm.pipeline import (
+        calibrate,
+        crps_rainfarm,
+        generate_for_daily_sums,
+    )
+    from prdisagg_torch.core.config import RainFarmConfig
+    from prdisagg_torch.eval.crps import run_crps_evaluation
+    from prdisagg_torch.ops import gather, upsample_conv
+
+    cfg = RainFarmConfig()
+    calib_dir = os.path.join(workdir, "calibration")
+    g = torch.Generator(device=ds.device).manual_seed(seed + 11)
+    items: dict = {}
+
+    def timed(name, fn):
+        k1, k2 = upsample_conv.launches, gather.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        items[name] = {"seconds": time.perf_counter() - t0,
+                       "k1_launches": upsample_conv.launches - k1,
+                       "k2_launches": gather.launches - k2}
+        return r
+
+    torch.cuda.synchronize()
+    reset_k1_counts()
+    gather.launches = 0
+    slopes = timed("calibrate", lambda: calibrate(ds, cfg, outdir=calib_dir))
+    reals = timed("draw_reals", lambda: ds.sample_patches_raw(
+        RAINFARM_SAMPLES, g))
+    alpha, beta = slopes[0]
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    crps = timed("crps_rainfarm", lambda: crps_rainfarm(
+        reals, alpha, beta, cfg, n_members=RAINFARM_MEMBERS, seed=seed,
+        device=ds.device))
+    crps_peak = torch.cuda.max_memory_allocated() - resident
+    daily = reals.sum(dim=1)
+    generated = timed("generate_for_daily_sums", lambda: (
+        generate_for_daily_sums(daily, alpha, beta, cfg, seed=seed,
+                                device=ds.device)))
+    baseline = np.load(os.path.join(calib_dir,
+                                    "rainfarm_calibration_data.npy"))
+    protocol_dir = os.path.join(workdir, "protocol")
+    res = timed("run_crps_evaluation", lambda: run_crps_evaluation(
+        sl["gen"], reals[:EVAL_SAMPLES], baseline, n_members=EVAL_MEMBERS,
+        outdir=protocol_dir, seed=seed, rainfarm=(alpha, beta, cfg)))
+    counts = {"upsample2_conv3": upsample_conv.launches,
+              "upsample2_conv3_by_variant": dict(
+                  upsample_conv.launches_by_variant),
+              "gather_patches": gather.launches}
+
+    want = {"calibrate": (0, cfg.n_repeat), "draw_reals": (0, 1),
+            "crps_rainfarm": (0, 0), "generate_for_daily_sums": (0, 0),
+            "run_crps_evaluation": (
+                3 * EVAL_MEMBERS // EVAL_MEMBER_BATCH * EVAL_SAMPLES, 0)}
+    got = {k: (v["k1_launches"], v["k2_launches"]) for k, v in items.items()}
+    print(f"[rainfarm] main path: launches by item (K1, K2) {got}, in all "
+          f"{counts}")
+    check(got == want, f"rainfarm launches {got}, expected {want}")
+    check(counts["upsample2_conv3_by_variant"]
+          == fast_only(counts["upsample2_conv3"]), counts)
+
+    for i, (a, b) in enumerate(slopes):
+        print(f"[rainfarm] repeat {i}: alpha={a:.6f} beta={b:.6f}")
+    check(len(slopes) == cfg.n_repeat and np.isfinite(slopes).all(),
+          f"slopes {slopes}")
+    check(sorted(os.listdir(calib_dir)) == sorted(
+        ["rainfarm_calibration_data.npy"]
+        + [f"spectral_slopes_{i}.pkl" for i in range(cfg.n_repeat)]),
+        os.listdir(calib_dir))
+    _eval_item("calibrate", {
+        "n_calib": cfg.n_calib, "n_repeat": cfg.n_repeat, "seed": cfg.seed,
+        "seconds": items["calibrate"]["seconds"],
+        "k2_launches": items["calibrate"]["k2_launches"],
+        "alpha": [a for a, _ in slopes], "beta": [b for _, b in slopes]},
+        "rainfarm")
+    t = items["crps_rainfarm"]["seconds"]
+    _eval_item("crps_rainfarm", {
+        "samples": RAINFARM_SAMPLES, "members": RAINFARM_MEMBERS,
+        "seconds": t, "samples_per_s": RAINFARM_SAMPLES / t,
+        "peak_bytes": crps_peak, "mean_crps": float(crps.mean()),
+        "k2_launches_for_the_reals": items["draw_reals"]["k2_launches"]},
+        "rainfarm")
+    check(crps.shape == (RAINFARM_SAMPLES, 24) and np.isfinite(crps).all()
+          and (crps >= 0).all(), "crps_rainfarm: bad rows")
+    cons = _conservation_err(generated, daily.cpu().numpy())
+    _eval_item("generate_for_daily_sums", {
+        "days": RAINFARM_SAMPLES,
+        "seconds": items["generate_for_daily_sums"]["seconds"],
+        "conservation": cons, "bound": CONSERVATION_RTOL}, "rainfarm")
+    check(generated.shape == (RAINFARM_SAMPLES, 24, 16, 16)
+          and np.isfinite(generated).all() and cons <= CONSERVATION_RTOL,
+          f"generate_for_daily_sums: conservation {cons}")
+    with open(os.path.join(protocol_dir, "crps_results_rainfarm.pkl"),
+              "rb") as fh:
+        pickled = pickle.load(fh)
+    _eval_item("run_crps_evaluation", {
+        "samples": EVAL_SAMPLES, "members": EVAL_MEMBERS,
+        "seconds": items["run_crps_evaluation"]["seconds"],
+        "arm_seconds": {k: res[f"{k}_seconds"]
+                        for k in ("gan", "random", "rainfarm")},
+        "analysis": res["analysis"]}, "rainfarm")
+    check(all(res[k].shape == (EVAL_SAMPLES, 24) and np.isfinite(res[k]).all()
+              for k in ("gan", "random", "rainfarm"))
+          and np.array_equal(pickled, res["rainfarm"])
+          and "rainfarm" in res["analysis"], "the three-arm protocol")
+    profile_breakdown(
+        lambda: crps_rainfarm(reals[:RAINFARM_PROFILED], alpha, beta, cfg,
+                              n_members=RAINFARM_MEMBERS, device=ds.device),
+        f"crps_rainfarm, {RAINFARM_PROFILED} samples x {RAINFARM_MEMBERS} "
+        "members", host_top=4)
+    checks = _rainfarm_checks(os.path.join(
+        calib_dir, "rainfarm_calibration_data.npy"), slopes[0], daily, seed)
+    return {"counts": counts, "items": items, "slopes": slopes,
+            "crps_peak_bytes": crps_peak, "conservation": cons, **checks}
+
+
+def _cli_proc(name: str, args: list, workdir: str):
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(workdir, f"{name}.out"), "w") as fo, \
+            open(os.path.join(workdir, f"{name}.err"), "w") as fe:
+        return subprocess.Popen(
+            [sys.executable, "-m", "prdisagg_torch.cli", *args], cwd=root,
+            stdout=fo, stderr=fe, text=True)
+
+
+def _cli_output(name: str, workdir: str):
+    with open(os.path.join(workdir, f"{name}.out")) as fo, \
+            open(os.path.join(workdir, f"{name}.err")) as fe:
+        return fo.read(), fe.read()
+
+
+def _wait_for_socket(path: str, proc, deadline: float) -> None:
+    while not os.path.exists(path):
+        check(proc.poll() is None, f"the server exited before binding {path}")
+        check(time.perf_counter() < deadline, f"no socket at {path}")
+        time.sleep(0.1)
+
+
+def phase_serve_cli(sl: dict, workdir: str) -> dict:
+    """The serving and RainFARM subcommands as subprocesses from the slice
+    phase's .npz, started together: ``inspect``; ``generate`` on one
+    condition, on a stack of CLI_STACK and with the float16 wire (their
+    scenarios' conservation checked from the saved .npy); ``serve
+    --max-requests 3`` answering a ping, a b64 map request and stats;
+    a second ``serve`` stopped by SIGTERM; ``rainfarm-calibrate
+    --synthetic --n-repeat 2`` and then ``rainfarm-crps`` on its output;
+    ``example`` and ``rainfarm-generate``, which need matplotlib: without
+    it they must exit non-zero naming it, with it exit 0."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.api.server import request, scenarios_array
+
+    torch.cuda.empty_cache()  # room for the subprocesses' forwards
+    os.makedirs(workdir, exist_ok=True)
+    npz, cond = sl["npz"], sl["cond"]
+    stack = np.stack([cond * (1 + 0.1 * i) for i in range(CLI_STACK)])
+    paths = {n: os.path.join(workdir, f"{n}.npy")
+             for n in ("cond", "stack", "single", "many", "f16")}
+    np.save(paths["cond"], cond)
+    np.save(paths["stack"], stack)
+    os.makedirs("build", exist_ok=True)  # short relative path: AF_UNIX limit
+    socks = {n: os.path.join("build", f"serve-cli-{os.getpid()}-{n}.sock")
+             for n in ("serve", "serve_sigterm")}
+    rf_dir = os.path.join(workdir, "rainfarm")
+    gen_args = ["generate", "--weights", npz, "--n-scenarios",
+                str(CLI_SCENARIOS)]
+    first = {
+        "inspect": ["inspect", "--weights", npz],
+        "generate_single": gen_args + ["--conds", paths["cond"], "--out",
+                                       paths["single"]],
+        "generate_stack": gen_args + ["--conds", paths["stack"], "--out",
+                                      paths["many"], "--max-batch",
+                                      str(CLI_STACK_MAX_BATCH)],
+        "generate_f16": gen_args + ["--conds", paths["cond"], "--out",
+                                    paths["f16"], "--wire-dtype", "float16"],
+        "serve": ["serve", "--weights", npz, "--socket", socks["serve"],
+                  "--max-requests", "3", "--max-batch", "1024",
+                  "--batch-window-ms", "5"],
+        "serve_sigterm": ["serve", "--weights", npz, "--socket",
+                          socks["serve_sigterm"], "--warm", "none"],
+        "rainfarm_calibrate": ["rainfarm-calibrate", "--synthetic",
+                               "--n-repeat", "2", "--out", rf_dir],
+        "example": ["example", "--out", os.path.join(workdir, "ex.png")],
+    }
+    slopes = os.path.join(rf_dir, "spectral_slopes_0.pkl")
+    batch = os.path.join(rf_dir, "rainfarm_calibration_data.npy")
+    second = {
+        "rainfarm_crps": ["rainfarm-crps", "--slopes", slopes, "--real",
+                          batch, "--n-samples", str(EVAL_SAMPLES), "--out",
+                          rf_dir],
+        "rainfarm_generate": ["rainfarm-generate", "--slopes", slopes,
+                              "--real", batch, "--n-samples", "4",
+                              "--n-map-conditions", "1", "--n-fake-per-real",
+                              "2", "--out", rf_dir, "--plotdir",
+                              os.path.join(workdir, "rf_plots")],
+    }
+    t0 = time.perf_counter()
+    deadline = t0 + 600
+    procs, ends, answers = {}, {}, {}
+
+    def reap():
+        for name, proc in procs.items():
+            if name not in ends and proc.poll() is not None:
+                ends[name] = time.perf_counter() - t0
+
+    try:
+        for name, args in first.items():
+            procs[name] = _cli_proc(name, args, workdir)
+        _wait_for_socket(socks["serve"], procs["serve"], deadline)
+        answers = {
+            "ping": request(socks["serve"], {"cmd": "ping"}, timeout=120),
+            "map_b64": request(socks["serve"], {
+                "cond": cond.tolist(), "n_scenarios": 16,
+                "encoding": "b64"}, timeout=120),
+            "stats": request(socks["serve"], {"cmd": "stats"}, timeout=120)}
+        _wait_for_socket(socks["serve_sigterm"], procs["serve_sigterm"],
+                         deadline)
+        answers["sigterm_ping"] = request(socks["serve_sigterm"],
+                                          {"cmd": "ping"}, timeout=120)
+        procs["serve_sigterm"].send_signal(signal.SIGTERM)
+        while "rainfarm_calibrate" not in ends:
+            check(time.perf_counter() < deadline, "cli runs timed out")
+            reap()
+            time.sleep(0.1)
+        check(procs["rainfarm_calibrate"].returncode == 0,
+              "rainfarm-calibrate failed:\n"
+              + "\n".join(_cli_output("rainfarm_calibrate", workdir)))
+        for name, args in second.items():
+            procs[name] = _cli_proc(name, args, workdir)
+        while len(ends) < len(procs):
+            check(time.perf_counter() < deadline, "cli runs timed out")
+            reap()
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = _cli_output(name, workdir)
+        row = {"rc": proc.returncode, "seconds": ends[name],
+               "last_line": stdout.strip().splitlines()[-1:]}
+        if name in ("example", "rainfarm_generate") and not has_mpl:
+            row["stderr"] = stderr.strip().splitlines()[-1:]
+            ok = proc.returncode != 0 and "'matplotlib'" in stderr
+        else:
+            ok = proc.returncode == 0
+        print("[serve_cli] " + name + ": " + json.dumps(row))
+        check(ok, f"cli {name}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        out[name] = dict(row, stdout=stdout)
+
+    info = json.loads(out["inspect"]["stdout"])
+    check(info["network"] == "generator" and info["n_params"] > 0, info)
+    cons = {}
+    for name, path, daily, rtol in (
+            ("single", paths["single"], cond, CONSERVATION_RTOL),
+            ("stack", paths["many"], stack[:, None], CONSERVATION_RTOL),
+            ("f16", paths["f16"], cond, WIRE_F16_RTOL)):
+        scen = np.load(path)
+        cons[name] = _conservation_err(scen, daily)
+        check(np.isfinite(scen).all() and cons[name] <= rtol,
+              f"cli generate {name}: conservation {cons[name]}")
+    check(np.load(paths["many"]).shape == (CLI_STACK, CLI_SCENARIOS, 24, 16,
+                                           16), "stack shape")
+    print(f"[serve_cli] generate conservation {json.dumps(cons)} (bounds "
+          f"{CONSERVATION_RTOL}, f16 {WIRE_F16_RTOL})")
+    for name, resp in answers.items():
+        check(resp.get("ok") is True, (name, resp))
+    one = scenarios_array(answers["map_b64"])
+    check(one.shape == (16, 24, 16, 16)
+          and _conservation_err(one, cond) <= CONSERVATION_RTOL,
+          "serve: bad scenarios")
+    print("[serve_cli] serve stats " + json.dumps(
+        {k: answers["stats"][k] for k in ("scenario_requests", "scenarios",
+                                          "latency_ms")}))
+    check("served 3 requests" in out["serve"]["stdout"]
+          and "shutting down" in out["serve_sigterm"]["stdout"]
+          and "bye" in out["serve_sigterm"]["stdout"]
+          and not any(os.path.exists(s) for s in socks.values()),
+          "the servers did not stop cleanly")
+    check(out["rainfarm_calibrate"]["stdout"].count("alpha=") == 2,
+          out["rainfarm_calibrate"]["stdout"])
+    with open(os.path.join(rf_dir, "crps_results_rainfarm.pkl"), "rb") as fh:
+        rows = pickle.load(fh)
+    check(rows.shape == (EVAL_SAMPLES, 24) and np.isfinite(rows).all()
+          and (rows >= 0).all(), "cli rainfarm-crps: bad rows")
+    return {"conservation": cons, "seconds": time.perf_counter() - t0,
+            **{k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+               for k, v in out.items()}}
+
+
 def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
-                  slice_by_variant: dict, eval_counts: dict) -> list:
+                  slice_by_variant: dict, eval_counts: dict,
+                  rf_counts: dict) -> list:
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
@@ -1602,15 +1986,19 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/upsample_conv.cu",
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:37",
-        # the launches of the serving, training and evaluation paths
+        # the launches of the serving, training, evaluation and RainFARM
+        # paths (the last: the GAN arm of the three-arm protocol)
         "launches": (slice_launches + counts["upsample2_conv3"]
-                     + eval_counts["upsample2_conv3"]),
+                     + eval_counts["upsample2_conv3"]
+                     + rf_counts["upsample2_conv3"]),
         "launches_by_path": {"slice": slice_launches,
                              "train": counts["upsample2_conv3"],
-                             "eval": eval_counts["upsample2_conv3"]},
+                             "eval": eval_counts["upsample2_conv3"],
+                             "rainfarm": rf_counts["upsample2_conv3"]},
         "launches_by_variant": {
             v: n + slice_by_variant[v]
             + eval_counts["upsample2_conv3_by_variant"][v]
+            + rf_counts["upsample2_conv3_by_variant"][v]
             for v, n in counts["upsample2_conv3_by_variant"].items()},
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
@@ -1643,10 +2031,13 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/gather.cu",
         "replaces": "prdisagg_tpu/ops/pallas_gather.py:30",
-        # the launches of the training and evaluation paths
-        "launches": counts["gather_patches"] + eval_counts["gather_patches"],
+        # the launches of the training, evaluation and RainFARM paths (the
+        # last: calibration's draws and the scored real patches)
+        "launches": (counts["gather_patches"] + eval_counts["gather_patches"]
+                     + rf_counts["gather_patches"]),
         "launches_by_path": {"train": counts["gather_patches"],
-                             "eval": eval_counts["gather_patches"]},
+                             "eval": eval_counts["gather_patches"],
+                             "rainfarm": rf_counts["gather_patches"]},
         # one train step's two launches: the n_disc*B real patches and the
         # generator update's conditions (every gather checked is in the
         # [kernel] lines)
@@ -1714,6 +2105,12 @@ def main() -> int:
     run("eval", lambda: phase_eval(out["dataset"], out["slice"], args.seed,
                                    os.path.join(workdir.name, "eval")),
         needs=("dataset", "slice"))
+    run("rainfarm", lambda: phase_rainfarm(
+        out["dataset"], out["slice"], args.seed,
+        os.path.join(workdir.name, "rainfarm")), needs=("dataset", "slice"))
+    run("serve_cli", lambda: phase_serve_cli(
+        out["slice"], os.path.join(workdir.name, "serve_cli")),
+        needs=("slice",))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -1721,7 +2118,8 @@ def main() -> int:
 
     kernels = _kernel_lines(out["kernel_check"], out["gather_check"],
                             out["train"]["counts"], out["slice"]["launches"],
-                            out["slice"]["by_variant"], out["eval"]["counts"])
+                            out["slice"]["by_variant"], out["eval"]["counts"],
+                            out["rainfarm"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

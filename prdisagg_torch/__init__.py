@@ -13,8 +13,10 @@ models     Generator, Critic and the weight files (.npz / Keras .h5)
 train      the train step (a CUDA graph on the card), Trainer, checkpoints
            and the background artifact writer
 api        PretrainedGenerator (generate_scenarios) and the serving daemon
+eval       CRPS, LSD, the evaluation battery and the parity report
+baselines  RainFARM, the non-ML baseline (calibration, downscaling, CRPS)
 utils      plots, TensorBoard and the heartbeat
-cli        ``python -m prdisagg_torch.cli train``
+cli        ``python -m prdisagg_torch.cli <subcommand>``
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; kernels are built by nvcc at first use (_build.py).

@@ -4,6 +4,8 @@
   generate_scenarios(cond, n_scenarios) : (nd, nd, 1) daily sums in mm
       -> (n_scenarios, 24, nd, nd) hourly mm scenarios whose per-gridpoint
       time-sum equals the input daily sum (softmax conservation).
+  plot_scenarios(scenarios) : n x 24 map grid, LogNorm(0.01, 50), shared
+      colorbar.
 
 Semantics: condition divided by norm_scale=127.4 before the network,
 latents ~ N(0,1), fractions rescaled by cond * norm_scale back to mm/h.
@@ -30,6 +32,8 @@ from prdisagg_torch.models.io import (
     load_keras_generator_h5,
     load_params_npz,
     params_from_jax,
+    params_to_jax,
+    save_params_npz,
 )
 
 NORM_SCALE = 127.4
@@ -60,7 +64,8 @@ class PretrainedGenerator:
     def __init__(self, params: Dict[str, torch.Tensor],
                  cfg: Optional[ModelConfig] = None,
                  norm_scale: float = NORM_SCALE, seed: int = 0,
-                 max_batch: Optional[int] = None, device="cuda"):
+                 max_batch: Optional[int] = None, device="cuda",
+                 wire_dtype: Optional[str] = None):
         """`params` is a ``Generator`` state_dict (models/io.py
         ``params_from_jax`` makes one from a JAX/Keras tree).
 
@@ -71,7 +76,19 @@ class PretrainedGenerator:
 
         Precision: inference defaults to float32 — the reference's predict
         path is implicit f32 and published weights expect it.  Pass a cfg
-        with compute_dtype="bfloat16" for throughput-first serving."""
+        with compute_dtype="bfloat16" for throughput-first serving.
+
+        `wire_dtype="float16"` casts the output fractions to float16 on the
+        device before the device->host copy, which halves its bytes; the mm
+        rescale then runs on the host in float32.  Fractions lie in [0, 1],
+        where float16's relative step of about 1e-3 costs about 5e-4
+        relative conservation error.  None or "float32" keeps the exact
+        float32 path."""
+        # checked before any device work
+        if wire_dtype not in (None, "float32", "float16"):
+            raise ValueError(f"wire_dtype must be None/'float32'/'float16', "
+                             f"got {wire_dtype!r}")
+        self.wire_dtype = None if wire_dtype == "float32" else wire_dtype
         self.cfg = cfg or ModelConfig(compute_dtype="float32")
         self.device = resolve_device(device)
         self.norm_scale = norm_scale
@@ -111,6 +128,11 @@ class PretrainedGenerator:
     def params(self) -> Dict[str, torch.Tensor]:
         """The served weights (state_dict of the current generator)."""
         return self._gen.state_dict()
+
+    def save_npz(self, path: str) -> None:
+        """Write the served weights as the JAX package's ``.npz``, which its
+        ``PretrainedGenerator.from_npz`` loads."""
+        save_params_npz(path, params_to_jax(self.params))
 
     # -- hot reload --------------------------------------------------------------
     def load_weights_file(self, path: str) -> Dict[str, torch.Tensor]:
@@ -240,11 +262,22 @@ class PretrainedGenerator:
                                  gen)
             for i0 in range(0, n, mb)])
 
+    @staticmethod
+    def _fetch(t: torch.Tensor) -> torch.Tensor:
+        """The device->host copy of a response."""
+        return t.cpu()
+
     def _to_mm(self, fractions: torch.Tensor, cond0: np.ndarray) -> np.ndarray:
         """fractions (..., nhours, nd, nd) times the unnormalized daily sum
-        cond0 (..., nd, nd), broadcast over the hour axis, on the device."""
-        c = torch.as_tensor(cond0, device=fractions.device)
-        return (fractions * c.unsqueeze(-3) * self.norm_scale).cpu().numpy()
+        cond0 (..., nd, nd), broadcast over the hour axis: on the device,
+        or with a float16 wire on the host after the copy, in float32."""
+        if self.wire_dtype is None:
+            c = torch.as_tensor(cond0, device=fractions.device)
+            return self._fetch(
+                fractions * c.unsqueeze(-3) * self.norm_scale).numpy()
+        frac = self._fetch(fractions.to(torch.float16)).float()
+        return (frac * torch.as_tensor(cond0).unsqueeze(-3)
+                * self.norm_scale).numpy()
 
     def generate_scenarios(
         self, cond: np.ndarray, n_scenarios: int,
@@ -326,7 +359,55 @@ class PretrainedGenerator:
         scenarios = self._to_mm(fractions, cond_batch[:total, ..., 0])
         return list(np.split(scenarios, np.cumsum(counts)[:-1]))
 
+    def plot_scenarios(self, scenarios: np.ndarray,
+                       hour_labels: str = "reference"):
+        return plot_scenarios(scenarios, hour_labels=hour_labels)
+
 
 def generate_scenarios(gen: PretrainedGenerator, cond, n_scenarios: int):
     """Free-function form of the reference API."""
     return gen.generate_scenarios(cond, n_scenarios)
+
+
+def plot_scenarios(scenarios: np.ndarray, hour_labels: str = "reference"):
+    """n x 24 map grid of (n, 24, nd, nd) mm scenarios, LogNorm(0.01, 50)
+    and a shared colorbar (raindisagg_gan_pretrained.py:68-90).  Needs
+    matplotlib.
+
+    hour_labels="reference" (default) reproduces the reference's off-by-one
+    panel indexing on purpose: panel ``jplot`` shows ``scenarios[:,
+    jplot-1]`` under the label ``{jplot:02d}:00``, so the column labelled
+    00:00 shows hour 23 (raindisagg_gan_pretrained.py:80 indexes with
+    ``plotidx-1`` from a 1-based plotidx).  hour_labels="aligned" shows
+    hour ``jplot`` under that label."""
+    from matplotlib.colors import LogNorm
+
+    from prdisagg_torch.utils.plotting import _pyplot
+
+    if hour_labels not in ("reference", "aligned"):
+        raise ValueError(f"unknown hour_labels {hour_labels!r}")
+    _, plt = _pyplot()
+    shift = -1 if hour_labels == "reference" else 0
+    scenarios = np.asarray(scenarios)
+    nrows = len(scenarios)
+    fig = plt.figure(figsize=(24, nrows))
+    plt.axis("off")
+    im = None
+    for iplot in range(nrows):
+        for jplot in range(24):
+            ax = plt.subplot(nrows, 24, iplot * 24 + jplot + 1)
+            if iplot == 0:
+                ax.annotate(
+                    f"{jplot:02d}:00", xy=(0.5, 1), xytext=(0, 5),
+                    xycoords="axes fraction", textcoords="offset points",
+                    size="large", ha="center", va="baseline")
+            im = plt.imshow(scenarios[iplot, jplot + shift, :, :],
+                            cmap=plt.cm.gist_earth_r,
+                            norm=LogNorm(vmin=0.01, vmax=50))
+            plt.axis("off")
+    fig.subplots_adjust(right=0.93)
+    cbar_ax = fig.add_axes([0.93, 0.15, 0.007, 0.7])
+    cbar = fig.colorbar(im, cax=cbar_ax)
+    cbar.set_label("fraction of daily precipitation", fontsize=16)
+    cbar.ax.tick_params(labelsize=16)
+    return fig

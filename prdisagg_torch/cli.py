@@ -11,15 +11,26 @@ for subcommand as they are ported):
   python -m prdisagg_torch.cli lsd --real r.npy --generated g.npy --reduction device
   python -m prdisagg_torch.cli crps-analyze --results data/crps_results_n_sample10000.pkl
   python -m prdisagg_torch.cli parity-report --ours DIR --reference DIR
+  python -m prdisagg_torch.cli rainfarm-calibrate --data d.npy --indices i.pkl
+  python -m prdisagg_torch.cli rainfarm-crps --slopes data/spectral_slopes_0.pkl \\
+      --real data/real_samples.npy
+  python -m prdisagg_torch.cli rainfarm-generate --slopes S.pkl --real R.npy
+  python -m prdisagg_torch.cli generate --weights gen.h5 --conds conds.npy --n-scenarios 1000
+  python -m prdisagg_torch.cli serve --weights gen.npz --socket /tmp/gen.sock
+  python -m prdisagg_torch.cli example [--weights gen.npz]
+  python -m prdisagg_torch.cli inspect --weights gen.h5 --layers
 
 Each takes the JAX package's flags, plus ``--device`` where it computes
-(default ``cuda``: the port runs on the card unless asked otherwise);
-``train`` also ``--export-format`` and ``--plot-every-epochs``, and
-``evaluate`` and ``lsd`` ``--no-plots``.  The per-epoch ``.h5`` exports
-(the default format) need ``h5py``, and figures ``matplotlib`` (the
-evaluation's also ``seaborn`` and ``pandas``); where one is missing the
-command refuses to start and names the flag that turns the artifact off.
-The JAX package's ``--dp`` (data-parallel evaluation) is not ported yet.
+(default ``cuda``: the port runs on the card unless asked otherwise;
+``inspect`` touches no device); ``train`` also ``--export-format`` and
+``--plot-every-epochs``, and ``evaluate`` and ``lsd`` ``--no-plots``.  The
+per-epoch ``.h5`` exports (the default format) need ``h5py``, and figures
+``matplotlib`` (the evaluation's and RainFARM's also ``seaborn``, the
+evaluation's ``pandas``); where one is missing the command refuses to
+start, names the package and the flag that turns the artifact off, if
+there is one (``example``, ``rainfarm-generate`` and ``generate --plot``
+make only figures or need them).  The JAX package's ``--dp``
+(data-parallel evaluation and serving) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib.util
+import os
 import pickle
 import sys
 
@@ -105,12 +117,16 @@ def _figure_needs(args, mods, what) -> list:
     return [(mod, what, "--no-plots") for mod in mods]
 
 
-def _load_generator(args, n_cond_channels: int = 1):
+def _load_generator(args, **kw):
     """The generator of --weights (.npz or the reference's .h5) on
-    --device, its architecture inferred from the file."""
+    --device, its architecture inferred from the file; --n-cond-channels
+    and --wire-dtype where the subcommand has them, and the keyword
+    arguments (seed, max_batch, ...) go to the constructor."""
     from prdisagg_torch.api.pretrained import PretrainedGenerator
 
-    kw = dict(n_cond_channels=n_cond_channels, device=args.device)
+    kw.setdefault("n_cond_channels", getattr(args, "n_cond_channels", 1))
+    kw.setdefault("wire_dtype", getattr(args, "wire_dtype", None))
+    kw["device"] = args.device
     if args.weights.endswith(".h5"):
         return PretrainedGenerator.from_keras_h5(args.weights, None, **kw)
     return PretrainedGenerator.from_npz(args.weights, None, **kw)
@@ -279,6 +295,231 @@ def cmd_parity_report(args):
     print(f"verdict: {'PASS' if res['passes'] else 'FAIL'} -> {args.out}")
 
 
+def _load_slopes(path: str):
+    """(alpha, beta) from a spectral_slopes_{i}.pkl that this tool or the
+    JAX package wrote."""
+    with open(path, "rb") as f:
+        alpha, beta = pickle.load(f)
+    return alpha, beta
+
+
+def cmd_rainfarm_calibrate(args):
+    from prdisagg_torch.baselines.rainfarm.pipeline import calibrate
+    from prdisagg_torch.core.config import RainFarmConfig
+
+    ds, _ = _load_dataset(args, _data_config(args))
+    cfg = RainFarmConfig(n_calib=args.n_calib, n_repeat=args.n_repeat)
+    for i, (a, b) in enumerate(calibrate(ds, cfg, outdir=args.out)):
+        print(f"repeat {i}: alpha={a:.4f} beta={b:.4f}")
+
+
+def cmd_rainfarm_crps(args):
+    from prdisagg_torch.baselines.rainfarm.pipeline import crps_rainfarm
+    from prdisagg_torch.core.config import RainFarmConfig
+
+    alpha, beta = _load_slopes(args.slopes)
+    reals = np.load(args.real)[: args.n_samples]
+    out = crps_rainfarm(reals, alpha, beta, RainFarmConfig(),
+                        n_members=args.n_members,
+                        outfile=os.path.join(args.out,
+                                             "crps_results_rainfarm.pkl"),
+                        device=args.device)
+    print(f"rainfarm CRPS mean: {out.mean():.4f}")
+
+
+def cmd_rainfarm_generate(args):
+    """RainFARM generation artifacts (rainfarm_generate.py: ECDFs and
+    per-condition map grids)."""
+    from prdisagg_torch.baselines.rainfarm.pipeline import generate_and_plot
+    from prdisagg_torch.core.config import RainFarmConfig
+
+    _refuse_missing([(mod, "the RainFARM figures", None)
+                     for mod in ("matplotlib", "seaborn")])
+    alpha, beta = _load_slopes(args.slopes)
+    reals = np.load(args.real)[: args.n_samples]
+    if reals.ndim == 5:
+        reals = reals[..., 0]
+    generated = generate_and_plot(
+        reals, alpha, beta, RainFarmConfig(), plotdir=args.plotdir,
+        datadir=args.out, n_map_conditions=args.n_map_conditions,
+        n_fake_per_real=args.n_fake_per_real, seed=args.seed,
+        device=args.device)
+    print(f"generated {generated.shape} -> {args.out}; plots in "
+          f"{args.plotdir}")
+
+
+def cmd_example(args):
+    """The reference's example.py: a uniform 10 mm/day condition -> 10
+    scenarios and their figure."""
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+
+    _refuse_missing([("matplotlib", "the example's figures", None)])
+    if args.weights is not None:
+        gen = _load_generator(args)
+    else:
+        from prdisagg_torch.core.config import ModelConfig, TrainConfig
+        from prdisagg_torch.train.state import create_train_state
+
+        print("no --weights given: using a randomly initialized generator "
+              "(structure demo only)")
+        state = create_train_state(ModelConfig(), TrainConfig(),
+                                   device="cpu")
+        gen = PretrainedGenerator(state.gen.state_dict(), device=args.device)
+    cond = 10 * np.ones((gen.cfg.ndomain, gen.cfg.ndomain, 1))
+    scenarios = gen.generate_scenarios(cond, args.n_scenarios)
+    gen.plot_scenarios(scenarios).savefig(args.out)
+    print(f"saved {args.out}; conservation check: max|sum_h - cond| = "
+          f"{np.abs(scenarios.sum(axis=1) - 10).max():.2e}")
+
+
+def cmd_generate(args):
+    """Production serving: conditions .npy -> scenarios .npy.
+
+    One condition (nd, nd)[, 1] takes the reference's single-request
+    semantics (raindisagg_gan_pretrained.py:52-65); a stack (K, nd, nd)[, 1]
+    is served as ONE fused batch (generate_scenarios_batch)."""
+    if args.plot:
+        _refuse_missing([("matplotlib", "the figures of --plot", None)])
+    gen = _load_generator(args, seed=args.seed, max_batch=args.max_batch)
+    conds = np.load(args.conds)
+    if gen.cfg.n_cond_channels == 1:
+        single = conds.ndim == 2 or (conds.ndim == 3
+                                     and conds.shape[-1] == 1
+                                     and conds.shape[0] == conds.shape[1])
+    else:
+        # variant conds are channels-last: one (nd, nd, C) map or a
+        # (K, nd, nd, C) stack, told apart by rank
+        single = conds.ndim == 3
+    if single:
+        scen = gen.generate_scenarios(conds, args.n_scenarios)
+        daily = conds if conds.ndim == 2 else conds[..., 0]
+        err = np.abs(scen.sum(axis=1) - daily[None]).max()
+    else:
+        scen = gen.generate_scenarios_batch(conds, args.n_scenarios)
+        daily = conds if conds.ndim == 3 else conds[..., 0]
+        err = np.abs(scen.sum(axis=2) - daily[:, None]).max()
+    np.save(args.out, scen)
+    print(f"saved {args.out} shape={scen.shape}; conservation check: "
+          f"max|sum_h - cond| = {err:.2e}")
+    if args.plot:
+        os.makedirs(args.plot, exist_ok=True)
+        first = scen if single else scen[0]
+        path = os.path.join(args.plot, "scenarios_grid.png")
+        gen.plot_scenarios(first[: min(8, len(first))]).savefig(path)
+        print(f"saved {path}")
+
+
+def cmd_serve(args):
+    """Persistent serving daemon: load once, keep the weights on the
+    device, answer newline-JSON requests over a Unix socket until a
+    shutdown request, SIGTERM or SIGINT."""
+    import signal
+    import threading
+
+    from prdisagg_torch.api.server import ScenarioServer, watch_signature
+
+    # the watch baseline comes BEFORE loading and warming, so a weight
+    # export that lands meanwhile still triggers the first reload
+    baseline = watch_signature(args.watch) if args.watch else None
+    gen = _load_generator(args, seed=args.seed, max_batch=args.max_batch)
+    warm = args.warm
+    if warm == "max" and args.batch_window_ms > 0:
+        # micro-batching pads fused totals to bucket sizes: warm the small
+        # ones a concurrent-client load hits first
+        warm = "max,buckets:16"
+    if warm and warm != "none":
+        sizes = [s if s == "max" or s.startswith("buckets") else int(s)
+                 for s in warm.split(",") if s]
+        secs = gen.warm(sizes)
+        print(f"warmed forward for batch sizes {warm} in {secs:.1f}s",
+              flush=True)
+    server = ScenarioServer(gen, args.socket_path,
+                            batch_window_ms=args.batch_window_ms,
+                            watch_path=args.watch,
+                            watch_interval_s=args.watch_interval,
+                            watch_baseline=baseline)
+    watching = f", watching {args.watch}" if args.watch else ""
+    print(f"serving {args.weights} (ndomain={gen.cfg.ndomain}) on "
+          f"{args.socket_path}{watching}", flush=True)
+    if threading.current_thread() is threading.main_thread():
+        # a clean stop (supervisor SIGTERM, ctrl-C): finish in-flight
+        # requests, drain, unlink the socket
+        def _stop(signum, frame):
+            print(f"[serve] signal {signum}: shutting down", flush=True)
+            server.shutdown()
+
+        signal.signal(signal.SIGTERM, _stop)
+        signal.signal(signal.SIGINT, _stop)
+    served = server.serve_forever(max_requests=args.max_requests)
+    print(f"served {served} requests; bye")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield np.asarray(v)
+
+
+def cmd_inspect(args):
+    """Describe a weight file: network kind, inferred architecture,
+    parameter count and bytes, from the shapes alone.  Host only: it
+    touches no device and builds no model."""
+    import json
+
+    from prdisagg_torch.models.io import (
+        infer_critic_config,
+        infer_generator_config,
+        load_keras_critic_h5,
+        load_keras_generator_h5,
+        load_params_npz,
+    )
+
+    path = args.weights
+    if path.endswith((".h5", ".hdf5")):
+        fmt = "keras-h5"
+        try:
+            params = load_keras_generator_h5(
+                path, n_cond_channels=args.n_cond_channels)
+        except Exception as gen_err:  # noqa: BLE001 — try the critic next
+            try:
+                params = load_keras_critic_h5(path)
+            except Exception as critic_err:  # noqa: BLE001 — report both
+                sys.exit(
+                    f"cannot read {path} as a generator "
+                    f"({type(gen_err).__name__}: {gen_err}) or a critic "
+                    f"({type(critic_err).__name__}: {critic_err})")
+    else:
+        fmt = "npz"
+        params = load_params_npz(path)
+    p = params["params"] if isinstance(params.get("params"), dict) else params
+    if "latent_proj" in p:
+        kind = "generator"
+        cfg = infer_generator_config(params,
+                                     n_cond_channels=args.n_cond_channels)
+    else:
+        kind, cfg = "critic", infer_critic_config(params)
+
+    def shapes(tree):
+        return {k: shapes(v) if isinstance(v, dict) else
+                f"{list(np.shape(v))} {np.asarray(v).dtype}"
+                for k, v in tree.items()}
+
+    leaves = list(_leaves(params))
+    out = {
+        "path": path,
+        "format": fmt,
+        "network": kind,
+        "n_params": int(sum(a.size for a in leaves)),
+        "bytes": int(sum(a.nbytes for a in leaves)),
+        "inferred_config": dataclasses.asdict(cfg),
+    }
+    if args.layers:
+        out["layers"] = shapes(p)
+    print(json.dumps(out, indent=1))
+
+
 def _add_device_arg(p, what: str) -> None:
     p.add_argument("--device", default="cuda",
                    help=f"where {what} (default cuda; 'cpu' runs the plain "
@@ -413,6 +654,123 @@ def build_parser():
     pr.add_argument("--ks-p-threshold", type=float, default=0.01)
     pr.add_argument("--cycle-rtol", type=float, default=0.25)
     pr.set_defaults(fn=cmd_parity_report)
+
+    rc = sub.add_parser("rainfarm-calibrate")
+    _add_data_args(rc)
+    _add_device_arg(rc, "the dataset lives and the slopes are estimated")
+    rc.add_argument("--n-calib", type=int, default=5000)
+    rc.add_argument("--n-repeat", type=int, default=10)
+    rc.add_argument("--out", default="data")
+    rc.set_defaults(fn=cmd_rainfarm_calibrate)
+
+    rcr = sub.add_parser("rainfarm-crps")
+    _add_device_arg(rcr, "the ensembles are made and scored")
+    rcr.add_argument("--slopes", required=True, help="spectral_slopes_0.pkl")
+    rcr.add_argument("--real", required=True)
+    rcr.add_argument("--n-members", type=int, default=1000)
+    rcr.add_argument("--n-samples", type=int, default=10000)
+    rcr.add_argument("--out", default="data")
+    rcr.set_defaults(fn=cmd_rainfarm_crps)
+
+    rg = sub.add_parser("rainfarm-generate")
+    _add_device_arg(rg, "the realizations are made")
+    rg.add_argument("--slopes", required=True, help="spectral_slopes_0.pkl")
+    rg.add_argument("--real", required=True, help="real_samples.npy")
+    rg.add_argument("--n-samples", type=int, default=10000)
+    rg.add_argument("--n-map-conditions", type=int, default=20)
+    rg.add_argument("--n-fake-per-real", type=int, default=10)
+    rg.add_argument("--seed", type=int, default=0)
+    rg.add_argument("--out", default="data")
+    rg.add_argument("--plotdir", default="plots_generated_rainfarm")
+    rg.set_defaults(fn=cmd_rainfarm_generate)
+
+    ex = sub.add_parser("example")
+    _add_device_arg(ex, "the generator runs")
+    ex.add_argument("--weights")
+    ex.add_argument("--n-scenarios", type=int, default=10)
+    ex.add_argument("--out", default="generated_scenarios1.png")
+    ex.set_defaults(fn=cmd_example)
+
+    wire_help = ("dtype of the device->host copy: float16 halves its bytes "
+                 "at about 5e-4 relative conservation error (default "
+                 "float32, exact reference parity; responses are float32 "
+                 "either way)")
+    cond_help = ("conditioning channels of the weights (base 1, lon 2, doy "
+                 "3); conditions then carry the extra channels after the mm "
+                 "daily sums: (nd,nd,C) / (K,nd,nd,C)")
+    g = sub.add_parser("generate", help="serve scenarios for condition(s) "
+                       "from a .npy of daily-sum maps")
+    _add_device_arg(g, "the generator runs")
+    g.add_argument("--weights", required=True)
+    g.add_argument("--conds", required=True,
+                   help=".npy of daily sums in mm: (nd,nd)[,1] for one "
+                        "request or (K,nd,nd)[,1] for a batch")
+    g.add_argument("--n-scenarios", type=int, default=1000)
+    g.add_argument("--out", default="scenarios.npy")
+    g.add_argument("--seed", type=int, default=354)
+    g.add_argument("--max-batch", type=int, default=None,
+                   help="per-forward device batch cap (default: the "
+                        "measured domain-scaled ceiling, 8192 at 16x16)")
+    g.add_argument("--plot", default=None,
+                   help="also save a scenario-grid png of the first request "
+                        "(needs matplotlib)")
+    g.add_argument("--n-cond-channels", dest="n_cond_channels", type=int,
+                   default=1, help=cond_help)
+    g.add_argument("--wire-dtype", dest="wire_dtype", default=None,
+                   choices=["float32", "float16"], help=wire_help)
+    g.set_defaults(fn=cmd_generate)
+
+    srv = sub.add_parser(
+        "serve",
+        help="persistent scenario-serving daemon: weights kept on the "
+             "device, newline-JSON requests over a Unix socket "
+             "(api/server.py's docstring has the protocol)")
+    _add_device_arg(srv, "the generator runs")
+    srv.add_argument("--weights", required=True)
+    srv.add_argument("--socket", required=True, dest="socket_path",
+                     help="Unix socket path to listen on")
+    srv.add_argument("--seed", type=int, default=354)
+    srv.add_argument("--max-batch", type=int, default=None,
+                     help="per-forward device batch cap (default: the "
+                          "measured domain-scaled ceiling)")
+    srv.add_argument("--max-requests", type=int, default=None,
+                     help="exit after N requests (smoke runs and tests)")
+    srv.add_argument("--batch-window-ms", type=float, default=0.0,
+                     help="dynamic micro-batching: fuse concurrent scenario "
+                          "requests arriving within this window into ONE "
+                          "device forward (0 = off, keeping the sequential "
+                          "per-request random stream exactly)")
+    srv.add_argument("--warm", default="max",
+                     help="comma list of request sizes to run once before "
+                          "binding the socket ('max' = the max-batch chunk, "
+                          "'buckets:N' = the micro-batching sizes up to N, "
+                          "'none' to skip), so kernel builds and cuDNN's "
+                          "plan search happen outside any request")
+    srv.add_argument("--watch", default=None, metavar="PATH",
+                     help="hot-reload weights when PATH changes: a file "
+                          "(reload on mtime change) or a directory (reload "
+                          "when a newer gen_*.h5/.npz export lands)")
+    srv.add_argument("--watch-interval", type=float, default=5.0,
+                     help="seconds between watch polls")
+    srv.add_argument("--n-cond-channels", dest="n_cond_channels", type=int,
+                     default=1, help=cond_help)
+    srv.add_argument("--wire-dtype", dest="wire_dtype", default=None,
+                     choices=["float32", "float16"], help=wire_help)
+    srv.set_defaults(fn=cmd_serve)
+
+    ins = sub.add_parser(
+        "inspect",
+        help="describe a weight file (.h5/.npz): network kind, inferred "
+             "architecture, parameter count; host only, no device")
+    ins.add_argument("--weights", required=True)
+    ins.add_argument("--n-cond-channels", dest="n_cond_channels", type=int,
+                     default=1,
+                     help="conditioning channels for generator inference "
+                          "(base 1, lon 2, doy 3: not recoverable from "
+                          "generator shapes alone)")
+    ins.add_argument("--layers", action="store_true",
+                     help="also list per-layer shapes and dtypes")
+    ins.set_defaults(fn=cmd_inspect)
     return p
 
 

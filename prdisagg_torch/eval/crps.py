@@ -5,8 +5,9 @@ For each real test sample: an n_members GAN ensemble conditioned on its daily
 sum, CRPS against the real hourly field, area mean per hour.  The "random"
 baseline scores a fixed ensemble of real training patches
 (rainfarm_calibration_data.npy) against every sample
-(generate_and_evaluate_crps.py:164-195).  Both run on the card by default;
-the GAN arm on its generator's device.
+(generate_and_evaluate_crps.py:164-195).  The RainFARM arm scores the
+baseline's ensembles the same way (baselines/rainfarm/pipeline.py).  All
+run on the card by default; in the protocol, on the generator's device.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from prdisagg_torch.api.pretrained import PretrainedGenerator
+from prdisagg_torch.baselines.rainfarm.pipeline import crps_rainfarm
 from prdisagg_torch.core.device import resolve_device
 from prdisagg_torch.ops.stats import (
     crps_ensemble,
@@ -165,15 +167,12 @@ def run_crps_evaluation(
     n_bootstrap: int = 10_000,
 ) -> dict:
     """The reference CRPS protocol as one call: GAN against the random
-    climatology (generate_and_evaluate_crps.py:161-195), both on the
-    generator's device, with the pickle and json artifacts.  The single
-    owner of the artifact names.  ``gan_seconds`` / ``random_seconds`` are
-    each arm's wall time.  The RainFARM arm is not ported yet: passing
-    `rainfarm` raises."""
-    if rainfarm is not None:
-        raise NotImplementedError(
-            "the RainFARM arm of the CRPS protocol waits for the port of "
-            "baselines/rainfarm (ROADMAP queue 1, item 2)")
+    climatology (generate_and_evaluate_crps.py:161-195), plus, when
+    ``rainfarm=(alpha, beta, RainFarmConfig)`` is given, the RainFARM arm
+    (crps_results_rainfarm.pkl), which the analysis then includes.  Every
+    arm runs on the generator's device.  The single owner of the artifact
+    names.  ``gan_seconds`` / ``random_seconds`` / ``rainfarm_seconds``
+    are each arm's wall time (the last None without the arm)."""
     t0 = time.perf_counter()
     gan = crps_gan(generator, reals_precip, n_members=n_members, seed=seed)
     t_gan = time.perf_counter() - t0
@@ -181,11 +180,21 @@ def run_crps_evaluation(
                                device=generator.device)
     t_rnd = time.perf_counter() - t0 - t_gan
     os.makedirs(outdir, exist_ok=True)
+    rf, t_rf = None, None
+    if rainfarm is not None:
+        alpha, beta, rf_cfg = rainfarm
+        t1 = time.perf_counter()
+        rf = crps_rainfarm(
+            reals_precip, alpha, beta, rf_cfg, n_members=n_members,
+            outfile=os.path.join(outdir, "crps_results_rainfarm.pkl"),
+            device=generator.device)
+        t_rf = time.perf_counter() - t1
     with open(os.path.join(
         outdir, f"crps_results_n_sample{len(reals_precip)}.pkl"
     ), "wb") as f:
         pickle.dump((gan, rnd), f)
-    return {"gan": gan, "random": rnd, "rainfarm": None,
+    return {"gan": gan, "random": rnd, "rainfarm": rf,
             "gan_seconds": t_gan, "random_seconds": t_rnd,
-            "analysis": analyze(gan, rnd, None, outdir=outdir,
+            "rainfarm_seconds": t_rf,
+            "analysis": analyze(gan, rnd, rf, outdir=outdir,
                                 n_bootstrap=n_bootstrap)}

@@ -602,3 +602,105 @@ def test_evaluator_on_the_card(cuda, tmp_path):
     assert gather.launches - before == 4
     assert [p.shape for p in pvals] == [(24,), (24,)]
     assert len([n for n in os.listdir(ev.plotdir) if n.endswith(".txt")]) == 2
+
+
+# --------------------------------------------------------------------------
+# RainFARM and the float16 wire on the card
+# --------------------------------------------------------------------------
+
+def test_rainfarm_downscale_card_matches_cpu(cuda, tf32_on):
+    """downscale_from_phase (8 members) and downscale_spatial_from_phase
+    (ds_factor 4) on the same phases: the card within 1e-5 of the field's
+    maximum of the CPU, TF32 allowed globally (the balanced average's
+    convolutions must turn it off)."""
+    from prdisagg_torch.baselines.rainfarm import core
+
+    rng = np.random.RandomState(4)
+    daily = rng.gamma(0.6, 12.0, (16, 16)).astype("f4")
+    phase = rng.rand(8, 24, 16, 16).astype("f4")
+    field = rng.gamma(2.0, 3.0, (16, 16)).astype("f4")
+    sphase = rng.rand(8, 64, 64).astype("f4")
+    # (function, daily field, phases, beta or ds_factor)
+    for fn, p, ph, arg in ((core.downscale_from_phase, daily, phase, 1.1),
+                           (core.downscale_spatial_from_phase, field, sphase,
+                            4)):
+        want = fn(torch.tensor(p), 1.7, arg, torch.tensor(ph)).numpy()
+        got = fn(torch.tensor(p, device=cuda), 1.7, arg,
+                 torch.tensor(ph, device=cuda)).cpu().numpy()
+        assert got.shape == want.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_rainfarm_estimators_card_matches_cpu(cuda):
+    """The slopes in float64 on the card and on the CPU, within 1e-8
+    relative, on gamma fields with zeroed points and an all-zero hour."""
+    from prdisagg_torch.baselines.rainfarm import core
+
+    p = np.random.RandomState(5).gamma(0.6, 2.0, (200, 24, 16, 16))
+    p[p < 0.4] = 0.0
+    p[3, 5] = 0.0
+    p = p.astype("f4")
+    for name in ("estimate_alpha", "estimate_beta"):
+        fn = getattr(core, name)
+        want, got = fn(torch.tensor(p)), fn(torch.tensor(p, device=cuda))
+        assert abs(got - want) <= 1e-8 * abs(want), (name, got, want)
+    field = p[0, 0]
+    want = core.estimate_alpha_single(torch.tensor(field))
+    got = core.estimate_alpha_single(torch.tensor(field, device=cuda))
+    assert abs(got - want) <= 1e-8 * abs(want)
+
+
+def test_crps_rainfarm_on_the_card_ignores_the_chunk(cuda):
+    """crps_rainfarm at 1000 members on the card: two chunk sizes give
+    identical rows, finite and >= 0; the first row equals the CPU scorer's
+    on the same phases within 1e-5 relative."""
+    from prdisagg_torch.baselines.rainfarm import pipeline
+    from prdisagg_torch.core.config import RainFarmConfig
+
+    reals = np.random.RandomState(6).gamma(
+        0.5, 1.0, (5, 24, 16, 16)).astype("f4")
+    cfg = RainFarmConfig()
+    a = pipeline.crps_rainfarm(reals, 1.5, 0.9, cfg, n_members=1000, seed=2,
+                               sample_chunk=2, device=cuda)
+    b = pipeline.crps_rainfarm(reals, 1.5, 0.9, cfg, n_members=1000, seed=2,
+                               sample_chunk=5, device=cuda)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (5, 24) and np.isfinite(a).all() and (a >= 0).all()
+    phases = torch.rand((1000, 24, 16, 16),
+                        generator=torch.Generator(device=cuda).manual_seed(2),
+                        device=cuda)
+    real = torch.tensor(reals[0])
+    with torch.inference_mode():
+        cpu = pipeline._score_one_sample(real, real.sum(0), 1.5, 0.9,
+                                         phases.cpu()).numpy()
+    np.testing.assert_allclose(a[0], cpu, rtol=1e-5, atol=1e-7)
+
+
+def test_wire_float16_halves_the_copied_bytes(cuda):
+    """The float16 wire copies half the bytes of the float32 path from the
+    card, and its scenarios stay within 1e-3 of the largest daily sum."""
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+    from prdisagg_torch.core.config import ModelConfig
+    from prdisagg_torch.models.generator import Generator
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(compute_dtype="float32")
+    params = Generator(cfg).state_dict()
+    cond = np.random.RandomState(7).gamma(0.6, 12.0, (16, 16)).astype("f4")
+    lat = np.random.RandomState(8).randn(64, cfg.latent_dim).astype("f4")
+    copied, out = {}, {}
+    for wire in ("float32", "float16"):
+        gen = PretrainedGenerator(params, cfg, device=cuda, wire_dtype=wire)
+        fetch = gen._fetch
+
+        def counting(t, wire=wire, fetch=fetch):
+            assert t.is_cuda
+            copied[wire] = t.numel() * t.element_size()
+            return fetch(t)
+
+        gen._fetch = counting
+        out[wire] = gen.generate_scenarios(cond, 64, latent=lat)
+    assert copied["float16"] * 2 == copied["float32"] == 64 * 24 * 256 * 4
+    np.testing.assert_allclose(out["float16"], out["float32"], rtol=0,
+                               atol=1e-3 * cond.max())

@@ -195,9 +195,21 @@ def test_run_crps_evaluation_artifacts(setup, tmp_path):
         atol=1e-6 * np.abs(rnd).max())
     with open(tmp_path / "crps_results.json") as f:
         assert json.load(f) == res["analysis"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tcrps.run_crps_evaluation(setup["tgen"], reals, ens, n_members=8,
-                                  outdir=str(tmp_path), rainfarm=(1, 1, None))
+    # the RainFARM arm: its pickle, and its mean in the analysis
+    rf_dir = tmp_path / "rf"
+    res = tcrps.run_crps_evaluation(
+        setup["tgen"], reals, ens, n_members=8, outdir=str(rf_dir),
+        rainfarm=(1.5, 0.9, tcfg.RainFarmConfig()), n_bootstrap=50)
+    assert res["rainfarm"].shape == (4, 24) and res["rainfarm_seconds"] > 0
+    assert np.isfinite(res["rainfarm"]).all() and (res["rainfarm"] >= 0).all()
+    with open(rf_dir / "crps_results_rainfarm.pkl", "rb") as f:
+        np.testing.assert_array_equal(pickle.load(f), res["rainfarm"])
+    assert res["analysis"]["rainfarm"] == float(res["rainfarm"].mean())
+    with open(rf_dir / "crps_results.json") as f:
+        assert json.load(f) == res["analysis"]
+    assert sorted(os.listdir(rf_dir)) == [
+        "crps_results.json", "crps_results_n_sample4.pkl",
+        "crps_results_rainfarm.pkl"]
 
 
 # --------------------------------------------------------------------------

@@ -43,6 +43,8 @@ def test_port_files_found():
     assert "prdisagg_torch/ops/stats.py" in names
     for module in ("crps", "lsd", "evaluate", "parity"):
         assert f"prdisagg_torch/eval/{module}.py" in names
+    for module in ("core", "pipeline"):
+        assert f"prdisagg_torch/baselines/rainfarm/{module}.py" in names
     assert "chip_smoke.py" in names
 
 
