@@ -26,8 +26,9 @@ Run from the repository root.  Phases:
 5. gather check (K2): the patch-gather kernel against its plain version,
    bit for bit, at one train step's real gathers (160 patches), a bulk draw
    (5000), the generator update's conditions from the daily sums
-   (32 patches, nh = 1) and 160 patches of the 64x64 domain from the same
-   tensor, with each call's device time, its time with the Python launch
+   (32 patches, nh = 1), 160 patches of the 64x64 domain from the same
+   tensor and a step's two gathers on one rank of a world of 2 (80 and
+   16), with each call's device time, its time with the Python launch
    included, and its host cost;
 6. slice: a flagship float32 PretrainedGenerator built from seeded random
    weights, written to .npz and loaded back, generates 1000 scenarios; the
@@ -86,7 +87,28 @@ Run from the repository root.  Phases:
    client and a second one stopped by SIGTERM, ``cli rainfarm-calibrate``
    then ``rainfarm-crps``, and ``example`` / ``rainfarm-generate``, which
    must refuse to start, naming matplotlib, where it is not installed; all
-   as subprocesses started together.
+   as subprocesses started together;
+15. dp: data parallelism, its worker processes started by this script with
+   the launcher's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+   MASTER_PORT; a free localhost port).  One card, so NCCL runs at world
+   1 and world 2 runs over gloo, both ranks on the card.  NCCL world 1,
+   alone: Trainer.fit at the flagship defaults on its own 2.8 GB tensor,
+   the step a CUDA graph with its n_disc + 1 all-reduces inside (graphed
+   steps/s beside the same run without the mesh, in the order mesh,
+   alone, alone, mesh in that process, and the train phase's; NCCL
+   kernels counted by name and timed in a profiled call of 10 replays;
+   the idle share), and its parameters against a non-data-parallel run
+   from the same seed (deterministic cuDNN, 1e-4 of max|p|).  Then together: gloo world 2 (one flagship float32 eager step
+   from mid-training Adam moments against the single-process step on the
+   same global draws, the ranks bit-identical; crps_gan of 10 samples x
+   1000 members against the single-device rows; generate_scenarios(cond,
+   1000) against the single-device output, and conservation), and
+   ``cli train --synthetic``, ``cli crps --dp 1`` and ``cli serve --dp 1``
+   (a map and a stack request, against one device's generator) under a
+   launched world of 1.  Each worker reports its K1 and K2 launches;
+   gloo's rates are printed and compared with nothing.  ``python3
+   chip_smoke.py --dp-worker nccl|gloo`` is that worker, for this script's
+   own use.
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -95,6 +117,7 @@ printing no result, if any phase fails or no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -133,14 +156,13 @@ N_DISC = 5
 TRAIN_STAGES = [(f"{name}_b{b}", b, d, h, w, cin, cout)
                 for b in (N_DISC * TRAIN_BATCH, TRAIN_BATCH)
                 for name, _, d, h, w, cin, cout in STAGES[:3]]
-K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
-            + [(s, ("bfloat16",)) for s in TRAIN_STAGES])
 DATASET_SHAPE = (448, 24, 256, 256)  # days, hours, ny, nx: 2.8 GB float32
 ND_LARGE = 64  # the 64x64 domain's patch, gathered from the same tensor
 # Trainer.fit: one epoch with the warm-up and capture, then 4 x 50 graphed
 # steps timed, one call of 50 replays an epoch
 WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 4, 50
 PROFILE_REPLAYS = 10  # the profiled call of the graphed step
+DEVICE_TRACE_TRIES = 3  # device_ms: traces taken before an empty one fails
 EAGER_STEPS = 100  # timed eager steps, for the eager rate
 GRAPH_CHECK_STEPS = 4  # graphed vs eager steps
 RESUME_STEPS = 4  # steps per epoch of the resume check
@@ -168,6 +190,29 @@ RAINFARM_CHECK = dict(members=8, ds_factor=4, rtol=1e-5, slope_rtol=1e-8)
 # its per-forward cap (4 forwards of 2000); f16 wire conservation
 CLI_SCENARIOS, CLI_STACK, CLI_STACK_MAX_BATCH = 1000, 8, 2000
 WIRE_F16_RTOL = 1e-3
+# kernel launches of one flagship train step, through the wrappers
+TRAIN_PER_STEP = {"upsample2_conv3": 6, "upsample2_conv3_fast": 6,
+                  "upsample2_conv3_general": 0,
+                  "upsample2_conv3_backward": 3, "gather_patches": 2}
+# data parallelism: gloo's world on the one card; the crps_gan check's
+# samples (at EVAL_MEMBERS members); the gloo step's dataset (days, ny, nx)
+DP_GLOO_WORLD = 2
+DP_CRPS_SAMPLES = 10
+DP_GLOO_DATASET = (32, 128, 128)
+DP_TOL = 1e-4  # losses of their scale, parameters of max|p|
+# K1 at the data-parallel shapes: a gloo rank's shards of the step (f32,
+# and bf16 as NCCL at world 2 would run them), and crps_gan's and
+# generate_scenarios' member batch on each rank (f32)
+DP_STAGES = [(f"{name}_b{b}", b, d, h, w, cin, cout)
+             for b in (N_DISC * TRAIN_BATCH // DP_GLOO_WORLD,
+                       TRAIN_BATCH // DP_GLOO_WORLD)
+             for name, _, d, h, w, cin, cout in STAGES[:3]]
+DP_SCORE_STAGES = [(f"{name}_b{EVAL_MEMBER_BATCH}", EVAL_MEMBER_BATCH, d, h, w,
+                    cin, cout) for name, _, d, h, w, cin, cout in STAGES[:3]]
+K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
+            + [(s, ("bfloat16",)) for s in TRAIN_STAGES]
+            + [(s, ("float32", "bfloat16")) for s in DP_STAGES]
+            + [(s, ("float32",)) for s in DP_SCORE_STAGES])
 
 
 def check(ok: bool, what) -> None:
@@ -252,16 +297,20 @@ def queued_ms(fn, reps: int) -> float:
                          "card")
 
 
-def phase_device():
+def phase_device() -> str:
+    """Prints and returns the card's name and power limit, as nvidia-smi
+    gives them."""
     import torch
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
+    return card
 
 
 def phase_build():
@@ -501,14 +550,18 @@ def phase_gather_check(ds, seed: int) -> dict:
     reps = 20
     step_b, bulk_b = N_DISC * TRAIN_BATCH, RainFarmConfig().n_calib
     nd16 = ds.cfg.ndomain
+    shard_b = TRAIN_BATCH // DP_GLOO_WORLD
     # one step's real gathers, a bulk draw (RainFARM's calibration), the
-    # generator update's conditions from the daily sums, and one step's
-    # real gathers at the 64x64 domain from the same tensor
+    # generator update's conditions from the daily sums, one step's real
+    # gathers at the 64x64 domain from the same tensor, and a step's two
+    # gathers on one rank of the dp phase's world of 2
     for name, b, nd, from_dsum in (
             (f"real_b{step_b}", step_b, nd16, False),
             (f"bulk_b{bulk_b}", bulk_b, nd16, False),
             (f"cond_b{TRAIN_BATCH}", TRAIN_BATCH, nd16, True),
-            (f"real_b{step_b}_nd{ND_LARGE}", step_b, ND_LARGE, False)):
+            (f"real_b{step_b}_nd{ND_LARGE}", step_b, ND_LARGE, False),
+            (f"real_b{N_DISC * shard_b}", N_DISC * shard_b, nd16, False),
+            (f"cond_b{shard_b}", shard_b, nd16, True)):
         src = ds.dsum[:, None] if from_dsum else ds.data
         nh = src.shape[1]
         batches = [ds.draw_rows(b, gen) if nd == nd16
@@ -679,9 +732,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     captured = dict(wgan_gp.graph_captured)
     replayed = dict(wgan_gp.graph_launches)
     steps = epochs * STEPS_PER_EPOCH
-    per_step = {"upsample2_conv3": 6, "upsample2_conv3_fast": 6,
-                "upsample2_conv3_general": 0, "upsample2_conv3_backward": 3,
-                "gather_patches": 2}
+    per_step = TRAIN_PER_STEP
     executed = _executed_counts(wrappers, captured, replayed)
     print(f"[train] main path: Trainer.fit, {steps} steps at batch "
           f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16, as {epochs} calls of "
@@ -1017,19 +1068,25 @@ def device_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call of fn, the sum of the durations of
     the kernels and copies it launched, from a torch.profiler trace of
     `reps` calls: unlike CUDA events around one call, it does not count the
-    time the device waits for the host to launch a microsecond kernel."""
+    time the device waits for the host to launch a microsecond kernel.
+    A trace that comes back with no device event at all (CUPTI now and then
+    delivers none for a trace of a few microsecond kernels) is taken again,
+    up to DEVICE_TRACE_TRIES traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = _device_events(prof)
-    check(dev, "the profiler saw no device activity")
-    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    for _ in range(DEVICE_TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = _device_events(prof)
+        if dev:
+            return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    raise AssertionError(f"the profiler saw no device activity in "
+                         f"{DEVICE_TRACE_TRIES} traces")
 
 
 def profile_breakdown(fn, what: str, top: int = 8, host_top: int = 0):
@@ -1969,15 +2026,470 @@ def phase_serve_cli(sl: dict, workdir: str) -> dict:
                for k, v in out.items()}}
 
 
+def _dp_counts() -> dict:
+    """The K1 and K2 wrappers' counters, by the names of TRAIN_PER_STEP."""
+    from prdisagg_torch.train import wgan_gp
+
+    return {k: wgan_gp.kernel_counts()[k] for k in TRAIN_PER_STEP}
+
+
+def _reset_counts() -> None:
+    from prdisagg_torch.ops import gather
+
+    reset_k1_counts()
+    gather.launches = 0
+
+
+def _is_nccl(kernel: str) -> bool:
+    """An NCCL kernel by its name; at world 1 an AVG all-reduce is NCCL's
+    oneRankReduce."""
+    return "nccl" in kernel.lower() or "onerankreduce" in kernel.lower()
+
+
+def _param_err(a, b) -> float:
+    """max |a - b| over both nets, over max |b|, the larger net's."""
+    err = 0.0
+    for net in ("gen", "critic"):
+        x, y = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        pmax = max(v.abs().max().item() for v in y.values())
+        err = max(err, max((x[k] - y[k]).abs().max().item()
+                           for k in y) / pmax)
+    return err
+
+
+def dp_worker_nccl(seed: int, workdir: str) -> dict:
+    """The NCCL world-1 worker: Trainer.fit at the flagship defaults on a
+    mesh, graphed; a profiled call of replays; parameters against a run
+    without the mesh."""
+    import torch
+
+    from prdisagg_torch.parallel.distributed import initialize_multihost
+    from prdisagg_torch.parallel.mesh import make_mesh
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.loop import Trainer
+
+    check(initialize_multihost(), "the launcher's environment started no "
+          "process group")
+    mesh = make_mesh(1)
+    check(mesh.backend == "nccl" and mesh.device.type == "cuda", mesh)
+    ds = phase_dataset(seed)
+    epochs = WARM_EPOCHS + TIMED_EPOCHS
+    exp = _train_exp(epochs, seed, log_every_steps=STEPS_PER_EPOCH,
+                     checkpoint_every_epochs=epochs)
+    trainer = Trainer(exp, ds, os.path.join(workdir, "nccl_train"),
+                      steps_per_epoch=STEPS_PER_EPOCH, plot_every_epochs=0,
+                      export_weights_every_epochs=epochs,
+                      export_format="npz", mesh=mesh)
+    torch.cuda.synchronize()
+    _reset_counts()
+    wgan_gp.graph_captured.clear()
+    wgan_gp.graph_launches.clear()
+    trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    captured = dict(wgan_gp.graph_captured)
+    executed = _executed_counts(_dp_counts(), captured,
+                                dict(wgan_gp.graph_launches))
+    steps = epochs * STEPS_PER_EPOCH
+    check(trainer.state.step == steps and captured == TRAIN_PER_STEP,
+          (trainer.state.step, captured))
+    # the warm-up's eager steps run too
+    check(executed == {k: n * (steps + wgan_gp.WARMUP_STEPS)
+                       for k, n in TRAIN_PER_STEP.items()}, executed)
+    def rate(tr) -> float:
+        return (TIMED_EPOCHS * STEPS_PER_EPOCH
+                / sum(tr.epoch_seconds[WARM_EPOCHS:]))
+
+    def timed_run(name: str, m):
+        tr = Trainer(exp, ds, os.path.join(workdir, f"nccl_{name}"),
+                     steps_per_epoch=STEPS_PER_EPOCH, plot_every_epochs=0,
+                     export_weights_every_epochs=epochs, export_format="npz",
+                     mesh=m)
+        check((tr.mesh is None) == (m is None), f"{name}: mesh {tr.mesh}")
+        tr.fit(progress=False)
+        return tr
+
+    # the same run without the mesh twice, then on the mesh again: the
+    # order A B B A takes the position in the process out of the ratio
+    alone = timed_run("alone1", None)
+    rates = {"dp": [rate(trainer)], "alone": [rate(alone)]}
+    rates["alone"].append(rate(timed_run("alone2", None)))
+    rates["dp"].append(rate(timed_run("dp2", mesh)))
+    graphed = rates["dp"][0]
+    # cuDNN's weight gradients need not be deterministic here, so after 250
+    # steps this is printed, not held to a bound (the check below is)
+    timed_runs_err = _param_err(trainer.state, alone.state)
+
+    step_fn = wgan_gp.make_train_step(trainer.model_cfg, exp.train,
+                                      TRAIN_BATCH, PROFILE_REPLAYS, mesh)
+    prof = profile_breakdown(
+        lambda: (step_fn(trainer.state, ds), torch.cuda.synchronize()),
+        f"NCCL world 1: one call of {PROFILE_REPLAYS} graphed steps", top=8)
+    check(prof is not None, "no device events in the graphed window")
+    names = prof["count_by_name"]
+    nccl = sorted(k for k in names if _is_nccl(k))
+    in_graph = {
+        "k1_bf16_wgmma": sum(n for k, n in names.items()
+                             if "k1_bf16_wgmma" in k),
+        "k2_gather": sum(n for k, n in names.items() if "k2_gather" in k),
+        "nccl": sum(names[k] for k in nccl)}
+    nccl_ms = sum(prof["ms_by_name"][k] for k in nccl) / PROFILE_REPLAYS
+    check(in_graph == {"k1_bf16_wgmma": 6 * PROFILE_REPLAYS,
+                       "k2_gather": 2 * PROFILE_REPLAYS,
+                       "nccl": (N_DISC + 1) * PROFILE_REPLAYS},
+          f"the replays' kernels: {in_graph}, NCCL kernels {nccl}")
+
+    # the same short run with and without the mesh, cuDNN deterministic
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, m in (("dp", mesh), ("single", None)):
+            tr = Trainer(_train_exp(2, seed, log_every_steps=RESUME_STEPS,
+                                    checkpoint_every_epochs=0),
+                         ds, os.path.join(workdir, f"nccl_{name}"),
+                         steps_per_epoch=RESUME_STEPS, plot_every_epochs=0,
+                         export_weights_every_epochs=0, export_format="npz",
+                         mesh=m)
+            check((tr.mesh is None) == (m is None), tr.mesh)
+            tr.fit(progress=False)
+            runs[name] = tr.state
+    finally:
+        torch.backends.cudnn.deterministic = det
+    param_err = _param_err(runs["dp"], runs["single"])
+    check(param_err <= DP_TOL, f"data-parallel and single runs differ by "
+          f"{param_err} of max|p|")
+    return {"counts": executed, "graphed_steps_per_s": graphed,
+            "graphed_steps_per_s_abba": rates,
+            "param_err_of_the_timed_runs": timed_runs_err,
+            "captured_per_replay": captured, "in_graph": in_graph,
+            "nccl_kernels": nccl, "nccl_ms_per_step": nccl_ms,
+            "graph_profile": {k: prof[k] for k in (
+                "window_ms", "busy_ms", "idle_share")},
+            "param_check": {"steps": 2 * RESUME_STEPS,
+                            "param_err_over_max": param_err,
+                            "tolerance": DP_TOL}}
+
+
+def dp_worker_gloo(seed: int, workdir: str) -> dict:
+    """One rank of the gloo world on the one card: a flagship f32 eager
+    step, crps_gan and generate_scenarios over the mesh, each against the
+    same work without it."""
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+    from prdisagg_torch.core.config import DataConfig, ModelConfig, TrainConfig
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.data.synthetic import make_synthetic_dataset_torch
+    from prdisagg_torch.eval.crps import crps_gan
+    from prdisagg_torch.parallel.distributed import initialize_multihost
+    from prdisagg_torch.parallel.mesh import (
+        all_gather_batch,
+        make_mesh,
+        replicate,
+    )
+    from prdisagg_torch.train.state import (
+        clone_train_state,
+        create_train_state,
+    )
+    from prdisagg_torch.train.wgan_gp import (
+        draw_step_inputs,
+        train_step_on,
+        unpack_metrics,
+    )
+
+    check(initialize_multihost(device=CARD, backend="gloo"),
+          "the launcher's environment started no process group")
+    mesh = make_mesh(DP_GLOO_WORLD, device=CARD)
+    counts = collections.Counter()
+
+    def on_mesh(fn):
+        """fn() timed, its K1 and K2 launches added to the path's."""
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts.update(_dp_counts())
+        return res, secs
+
+    mc = ModelConfig(compute_dtype="float32")
+    tcfg = TrainConfig(n_disc=N_DISC, seed=seed)
+    days, ny, nx = DP_GLOO_DATASET
+    data, idx, dcfg = make_synthetic_dataset_torch(days, ny, nx, seed, CARD,
+                                                   cfg=DataConfig())
+    ds = DeviceDataset.from_tensor(data, idx, dcfg)
+    state = create_train_state(mc, tcfg, device=CARD, mesh=mesh)
+    _warm_adam(state, seed)
+    replicate(state, mesh)
+    single = clone_train_state(state, mc, tcfg, CARD)
+    draws = draw_step_inputs(state, ds, TRAIN_BATCH, N_DISC)
+    m_dp, step_s = on_mesh(lambda: unpack_metrics(train_step_on(
+        state, ds, draws, tcfg, mesh=mesh)["packed"]))
+    m_one = unpack_metrics(train_step_on(single, ds, draws, tcfg)["packed"])
+    losses = ("d_loss", "gp", "w_distance", "g_loss")
+    scale = max(abs(m_one[k]) for k in losses)
+    loss_err = max(abs(m_dp[k] - m_one[k]) for k in losses) / scale
+    param_err = _param_err(state, single)
+    flat = torch.cat([v.reshape(-1) for net in (state.gen, state.critic)
+                      for v in net.state_dict().values()])
+    every = all_gather_batch(flat[None], mesh)
+    ranks_equal = all(torch.equal(every[0], r) for r in every[1:])
+
+    npz = os.path.join(workdir, "gen.npz")
+    reals = np.load(os.path.join(workdir, "reals.npy"))
+    cond = np.load(os.path.join(workdir, "cond.npy"))
+    gen = PretrainedGenerator.from_npz(npz, seed=seed, device=CARD,
+                                       mesh=mesh)
+    rows, crps_s = on_mesh(lambda: crps_gan(gen, reals,
+                                            n_members=EVAL_MEMBERS,
+                                            seed=seed))
+    one = PretrainedGenerator.from_npz(npz, seed=seed, device=CARD)
+    want = crps_gan(one, reals, n_members=EVAL_MEMBERS, seed=seed)
+    scen, gen_s = on_mesh(lambda: gen.generate_scenarios(cond, SCENARIOS))
+    want_scen = one.generate_scenarios(cond, SCENARIOS)
+    return {
+        "rank": mesh.rank, "counts": dict(counts),
+        "step": {"loss_err_over_scale": loss_err,
+                 "param_err_over_max": param_err, "ranks_equal": ranks_equal,
+                 "nonfinite": m_dp["nonfinite"], "seconds": step_s,
+                 "losses": {k: m_dp[k] for k in losses}},
+        "crps": {"equal": bool(np.array_equal(rows, want)),
+                 "max_abs_diff": float(np.abs(rows - want).max()),
+                 "shape": list(rows.shape), "mean": float(rows.mean()),
+                 "seconds": crps_s,
+                 "samples_per_s": len(reals) / crps_s},
+        "generate": {"err_over_max_cond": float(
+                         np.abs(scen - want_scen).max() / cond.max()),
+                     "conservation": _conservation_err(scen, cond),
+                     "shape": list(scen.shape), "seconds": gen_s,
+                     "scenarios_per_s": SCENARIOS / gen_s}}
+
+
+def _dp_proc(args: list, rank: int, world: int, local_rank: int, port: int,
+             out: str):
+    """A worker of a launched world: `args` after the interpreter, the
+    launcher's environment set here, output to `out`."""
+    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+               LOCAL_RANK=str(local_rank), MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(out, "w") as fo:
+        return subprocess.Popen([sys.executable, *args], cwd=root, env=env,
+                                stdout=fo, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _wait_all(procs: dict, limit: float, t0: float) -> dict:
+    """Wait for every process, killing all of them past `limit` seconds
+    from `t0`, when they were started; returns each one's seconds."""
+    ends = {}
+    try:
+        while len(ends) < len(procs):
+            check(time.perf_counter() - t0 < limit,
+                  f"dp workers timed out: {sorted(set(procs) - set(ends))}")
+            for name, proc in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return ends
+
+
+def _worker_result(name: str, workdir: str, proc, secs: float) -> dict:
+    """A worker's log lines echoed, its exit code checked, its JSON result
+    read."""
+    with open(os.path.join(workdir, f"{name}.out")) as fh:
+        log = fh.read()
+    for line in log.strip().splitlines()[-12:]:
+        print(f"[dp:{name}] {line}")
+    check(proc.returncode == 0, f"dp worker {name} failed (rc "
+          f"{proc.returncode}):\n{log[-4000:]}")
+    print(f"[dp] {name}: rc 0 in {secs:.1f} s")
+    path = os.path.join(workdir, f"{name}.json")
+    if not os.path.exists(path):
+        return {"rc": 0, "seconds": secs, "log": log}
+    with open(path) as fh:
+        return {**json.load(fh), "rc": 0, "seconds": secs}
+
+
+def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
+             card: str) -> dict:
+    """Data parallelism through its workers (phase 15 of the docstring)."""
+    import numpy as np
+
+    os.makedirs(workdir, exist_ok=True)
+    rng = np.random.RandomState(seed + 8)
+    reals = rng.gamma(0.5, 0.4, (DP_CRPS_SAMPLES, 24, 16, 16)).astype("f4")
+    np.save(os.path.join(workdir, "reals.npy"), reals)
+    np.save(os.path.join(workdir, "base.npy"),
+            rng.gamma(0.5, 0.4, (100, 24, 16, 16)).astype("f4"))
+    np.save(os.path.join(workdir, "cond.npy"), sl["cond"])
+    with open(sl["npz"], "rb") as src, \
+            open(os.path.join(workdir, "gen.npz"), "wb") as dst:
+        dst.write(src.read())
+    me = [os.path.abspath(__file__), "--seed", str(seed), "--workdir",
+          workdir, "--dp-worker"]
+    cli = ["-m", "prdisagg_torch.cli"]
+
+    def out(name):
+        return os.path.join(workdir, f"{name}.out")
+
+    t0 = time.perf_counter()
+    procs = {"nccl": _dp_proc(me + ["nccl"], 0, 1, 0, _free_port(),
+                              out("nccl"))}
+    ends = _wait_all(procs, 600, t0)
+    nccl = _worker_result("nccl", workdir, procs["nccl"], ends["nccl"])
+
+    gloo_port = _free_port()
+    t0 = time.perf_counter()
+    procs = {f"gloo{r}": _dp_proc(me + ["gloo"], r, DP_GLOO_WORLD, 0,
+                                  gloo_port, out(f"gloo{r}"))
+             for r in range(DP_GLOO_WORLD)}
+    procs["cli_train"] = _dp_proc(
+        cli + ["train", "--synthetic", "--epochs", "2", "--steps-per-epoch",
+               str(CLI_STEPS), "--export-format", "npz",
+               "--plot-every-epochs", "0", "--seed", str(seed), "--workdir",
+               os.path.join(workdir, "cli_train")],
+        0, 1, 0, _free_port(), out("cli_train"))
+    procs["cli_crps"] = _dp_proc(
+        cli + ["crps", "--dp", "1", "--weights",
+               os.path.join(workdir, "gen.npz"), "--real",
+               os.path.join(workdir, "reals.npy"), "--baseline",
+               os.path.join(workdir, "base.npy"), "--n-members",
+               str(EVAL_MEMBERS), "--out", os.path.join(workdir, "crps")],
+        0, 1, 0, _free_port(), out("cli_crps"))
+    os.makedirs("build", exist_ok=True)  # short relative path: AF_UNIX limit
+    sock = os.path.join("build", f"chip_smoke-dp-{os.getpid()}.sock")
+    procs["cli_serve"] = _dp_proc(
+        cli + ["serve", "--dp", "1", "--weights",
+               os.path.join(workdir, "gen.npz"), "--socket", sock, "--seed",
+               str(seed), "--warm", str(SCENARIOS), "--max-requests", "2"],
+        0, 1, 0, _free_port(), out("cli_serve"))
+    cond = sl["cond"]
+    stack = np.stack([cond * (1 + 0.1 * i) for i in range(4)])
+    try:
+        from prdisagg_torch.api.server import request, scenarios_array
+
+        _wait_for_socket(sock, procs["cli_serve"], time.perf_counter() + 300)
+        served = [scenarios_array(request(sock, {
+            "cond": c.tolist(), "n_scenarios": n, "encoding": "b64"},
+            timeout=300)) for c, n in ((cond, SCENARIOS), (stack, 250))]
+    except BaseException:
+        for proc in procs.values():
+            proc.kill()
+        raise
+    ends = _wait_all(procs, 600, t0)
+    res = {name: _worker_result(name, workdir, proc, ends[name])
+           for name, proc in procs.items()}
+    res["nccl"] = nccl
+
+    abba = nccl["graphed_steps_per_s_abba"]
+    print(f"[dp] NCCL world 1 ({card}): Trainer.fit graphed, fused steps/s "
+          f"in the order mesh, alone, alone, mesh: "
+          f"{json.dumps(abba)}, mesh/alone "
+          f"{sum(abba['dp']) / sum(abba['alone']):.4f}; the train phase's "
+          f"{train['graphed_steps_per_s']:.2f} in this call; per "
+          f"replay captured {nccl['captured_per_replay']}; "
+          f"in {PROFILE_REPLAYS} profiled replays {nccl['in_graph']} "
+          f"({nccl['nccl_kernels']}), NCCL device time "
+          f"{nccl['nccl_ms_per_step']:.5f} ms a step, idle share "
+          f"{nccl['graph_profile']['idle_share']:.3f}; parameters vs the "
+          f"run without a mesh {json.dumps(nccl['param_check'])} (after "
+          f"the two timed runs, not deterministic: "
+          f"{nccl['param_err_of_the_timed_runs']:.3e} of max|p|)")
+    gloo = [res[f"gloo{r}"] for r in range(DP_GLOO_WORLD)]
+    for g in gloo:
+        print(f"[dp] gloo world {DP_GLOO_WORLD}, rank {g['rank']} ({card}; "
+              f"gloo's rates are not performance numbers): step "
+              f"{json.dumps(g['step'])}; crps_gan {json.dumps(g['crps'])}; "
+              f"generate_scenarios {json.dumps(g['generate'])}; launches "
+              f"{g['counts']}")
+        st, cr, ge = g["step"], g["crps"], g["generate"]
+        check(st["loss_err_over_scale"] <= DP_TOL
+              and st["param_err_over_max"] <= DP_TOL and st["ranks_equal"]
+              and not st["nonfinite"], f"gloo step: {st}")
+        check(cr["equal"] and cr["shape"] == [DP_CRPS_SAMPLES, 24],
+              f"crps_gan rows over the mesh differ from one device's: {cr}")
+        check(ge["err_over_max_cond"] <= 1e-5
+              and ge["conservation"] <= CONSERVATION_RTOL
+              and ge["shape"] == [SCENARIOS, 24, 16, 16], ge)
+        # a rank's half of the step (K2: 2, K1: 6 forward and 3 backward),
+        # of its 5 scored samples (3 each) and of the forward (3)
+        half = DP_CRPS_SAMPLES // DP_GLOO_WORLD
+        want = dict(TRAIN_PER_STEP)
+        for k in ("upsample2_conv3", "upsample2_conv3_fast"):
+            want[k] += 3 * half * (EVAL_MEMBERS // EVAL_MEMBER_BATCH) + 3
+        check(g["counts"] == want, f"gloo rank launches {g['counts']}, "
+              f"expected {want}")
+    check("data-parallel over 1 rank(s)" in res["cli_train"]["log"],
+          res["cli_train"]["log"][-2000:])
+    with open(os.path.join(workdir, "crps", "crps_results.json")) as fh:
+        analysis = json.load(fh)
+    print(f"[dp] cli train under a launched world of 1: "
+          f"{res['cli_train']['seconds']:.1f} s; cli crps --dp 1: "
+          f"{res['cli_crps']['seconds']:.1f} s, {json.dumps(analysis)} "
+          f"({card})")
+    # serve --dp 1 against one device's generator from the same seed
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+
+    one = PretrainedGenerator.from_npz(os.path.join(workdir, "gen.npz"),
+                                       seed=seed)
+    want = [one.generate_scenarios(cond, SCENARIOS),
+            one.generate_scenarios_batch(stack, 250)]
+    serve_err = max(float(np.abs(g - w).max()) for g, w in zip(served, want))
+    serve_cons = max(_conservation_err(served[0], cond),
+                     max(_conservation_err(served[1][i], stack[i])
+                         for i in range(len(stack))))
+    print(f"[dp] cli serve --dp 1 (a leader, no followers): "
+          f"{res['cli_serve']['seconds']:.1f} s; a map of {SCENARIOS} and "
+          f"a stack of {len(stack)} x 250 against one device's: max |diff| "
+          f"{serve_err:.3e} mm, conservation {serve_cons:.3e} ({card})")
+    check("served 2 requests" in res["cli_serve"]["log"]
+          and serve_err <= 1e-5 * stack.max()
+          and serve_cons <= CONSERVATION_RTOL,
+          f"serve --dp 1: {serve_err}, {serve_cons}")
+    counts = collections.Counter(nccl["counts"])
+    for g in gloo:
+        counts.update(g["counts"])
+    return {"counts": {
+        "upsample2_conv3": counts["upsample2_conv3"],
+        "upsample2_conv3_by_variant": {
+            "fast": counts["upsample2_conv3_fast"],
+            "general": counts["upsample2_conv3_general"]},
+        "upsample2_conv3_backward": counts["upsample2_conv3_backward"],
+        "gather_patches": counts["gather_patches"]},
+        "nccl": {k: v for k, v in nccl.items() if k != "log"},
+        "gloo": gloo,
+        "cli": {k: res[k]["seconds"] for k in ("cli_train", "cli_crps",
+                                                "cli_serve")},
+        "serve_err": serve_err}
+
+
 def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                   slice_by_variant: dict, eval_counts: dict,
-                  rf_counts: dict) -> list:
+                  rf_counts: dict, dp_counts: dict) -> list:
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "bfloat16"]
     step_rows = [r for r in kc["rows"]
                  if r["stage"] in {s[0] for s in TRAIN_STAGES}]
+    dp_rows = [r for r in kc["rows"]
+               if r["stage"] in {s[0] for s in DP_STAGES + DP_SCORE_STAGES}]
     k2 = {r["stage"]: r for r in gc["rows"]}
     real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
     cond = k2[f"cond_b{TRAIN_BATCH}"]
@@ -1986,19 +2498,23 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/upsample_conv.cu",
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:37",
-        # the launches of the serving, training, evaluation and RainFARM
-        # paths (the last: the GAN arm of the three-arm protocol)
+        # the launches of the serving, training, evaluation, RainFARM and
+        # data-parallel paths (RainFARM's: the GAN arm of the three-arm
+        # protocol; dp's: its workers')
         "launches": (slice_launches + counts["upsample2_conv3"]
                      + eval_counts["upsample2_conv3"]
-                     + rf_counts["upsample2_conv3"]),
+                     + rf_counts["upsample2_conv3"]
+                     + dp_counts["upsample2_conv3"]),
         "launches_by_path": {"slice": slice_launches,
                              "train": counts["upsample2_conv3"],
                              "eval": eval_counts["upsample2_conv3"],
-                             "rainfarm": rf_counts["upsample2_conv3"]},
+                             "rainfarm": rf_counts["upsample2_conv3"],
+                             "dp": dp_counts["upsample2_conv3"]},
         "launches_by_variant": {
             v: n + slice_by_variant[v]
             + eval_counts["upsample2_conv3_by_variant"][v]
             + rf_counts["upsample2_conv3_by_variant"][v]
+            + dp_counts["upsample2_conv3_by_variant"][v]
             for v, n in counts["upsample2_conv3_by_variant"].items()},
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
@@ -2026,18 +2542,26 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                                        for r in step_rows),
         "train_backward_library_ms": sum(r.get("backward_library_ms", 0.0)
                                          for r in step_rows),
+        # the data-parallel shapes: a rank's shards of the step, f32 and
+        # bf16, and its member batch, f32 (each checked in a [kernel] line)
+        "dp_shapes_max_abs_err": {
+            d: max(r["max_abs_err"] for r in dp_rows if r["dtype"] == d)
+            for d in ("float32", "bfloat16")},
     }, {
         "name": "gather_patches",
         "route": "cuda",
         "source": "prdisagg_torch/csrc/gather.cu",
         "replaces": "prdisagg_tpu/ops/pallas_gather.py:30",
-        # the launches of the training, evaluation and RainFARM paths (the
-        # last: calibration's draws and the scored real patches)
+        # the launches of the training, evaluation, RainFARM and
+        # data-parallel paths (RainFARM's: calibration's draws and the
+        # scored real patches; dp's: each rank's shard of a step's rows)
         "launches": (counts["gather_patches"] + eval_counts["gather_patches"]
-                     + rf_counts["gather_patches"]),
+                     + rf_counts["gather_patches"]
+                     + dp_counts["gather_patches"]),
         "launches_by_path": {"train": counts["gather_patches"],
                              "eval": eval_counts["gather_patches"],
-                             "rainfarm": rf_counts["gather_patches"]},
+                             "rainfarm": rf_counts["gather_patches"],
+                             "dp": dp_counts["gather_patches"]},
         # one train step's two launches: the n_disc*B real patches and the
         # generator update's conditions (every gather checked is in the
         # [kernel] lines)
@@ -2055,6 +2579,10 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the dp phase's workers: this script, started by itself
+    ap.add_argument("--dp-worker", choices=["nccl", "gloo"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2063,8 +2591,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
+    if args.dp_worker:
+        worker = {"nccl": dp_worker_nccl, "gloo": dp_worker_gloo}
+        name = args.dp_worker + ("" if args.dp_worker == "nccl"
+                                 else os.environ["RANK"])
+        res = worker[args.dp_worker](args.seed, args.workdir)
+        res["counts"] = dict(res["counts"])
+        with open(os.path.join(args.workdir, f"{name}.json"), "w") as fh:
+            json.dump(res, fh)
+        print(f"[dp-worker] {name}: " + json.dumps(res))
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        return 0
     try:
-        phase_device()
+        card = phase_device()
         phase_build()
     except Exception:  # noqa: BLE001 — nothing can run after this
         traceback.print_exc()
@@ -2111,6 +2652,9 @@ def main() -> int:
     run("serve_cli", lambda: phase_serve_cli(
         out["slice"], os.path.join(workdir.name, "serve_cli")),
         needs=("slice",))
+    run("dp", lambda: phase_dp(out["slice"], out["train"], args.seed,
+                               os.path.join(workdir.name, "dp"), card),
+        needs=("slice", "train"))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2119,7 +2663,7 @@ def main() -> int:
     kernels = _kernel_lines(out["kernel_check"], out["gather_check"],
                             out["train"]["counts"], out["slice"]["launches"],
                             out["slice"]["by_variant"], out["eval"]["counts"],
-                            out["rainfarm"]["counts"])
+                            out["rainfarm"]["counts"], out["dp"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

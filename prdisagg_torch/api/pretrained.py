@@ -14,6 +14,12 @@ The forward runs on ``device`` ("cuda" by default) under
 ``torch.inference_mode()``; on a CUDA device the generator's three
 upsample-conv stages run through the hand-written kernel
 (ops/upsample_conv.py).  Asking for "cuda" without a card raises.
+
+With a data-parallel ``mesh`` (parallel/mesh.py) every rank holds the same
+weights and draws a request's full latents from the same seeded stream;
+each forwards its contiguous shard of the batch and the shards are
+all-gathered, so every rank returns the whole result.  The calls are then
+collective: every rank makes them with the same arguments.
 """
 
 from __future__ import annotations
@@ -34,6 +40,11 @@ from prdisagg_torch.models.io import (
     params_from_jax,
     params_to_jax,
     save_params_npz,
+)
+from prdisagg_torch.parallel.mesh import (
+    all_gather_batch,
+    batch_shard,
+    replicate,
 )
 
 NORM_SCALE = 127.4
@@ -65,7 +76,7 @@ class PretrainedGenerator:
                  cfg: Optional[ModelConfig] = None,
                  norm_scale: float = NORM_SCALE, seed: int = 0,
                  max_batch: Optional[int] = None, device="cuda",
-                 wire_dtype: Optional[str] = None):
+                 wire_dtype: Optional[str] = None, mesh=None):
         """`params` is a ``Generator`` state_dict (models/io.py
         ``params_from_jax`` makes one from a JAX/Keras tree).
 
@@ -83,7 +94,13 @@ class PretrainedGenerator:
         rescale then runs on the host in float32.  Fractions lie in [0, 1],
         where float16's relative step of about 1e-3 costs about 5e-4
         relative conservation error.  None or "float32" keeps the exact
-        float32 path."""
+        float32 path.
+
+        `mesh` turns on data-parallel serving on the mesh's device (of
+        `device`'s type): the weights are broadcast from rank 0, every
+        forward is split over the ranks (zero-padded to a multiple of the
+        mesh size), and `max_batch` rounds down to such a multiple.
+        Per-sample output is the single-device output."""
         # checked before any device work
         if wire_dtype not in (None, "float32", "float16"):
             raise ValueError(f"wire_dtype must be None/'float32'/'float16', "
@@ -91,10 +108,18 @@ class PretrainedGenerator:
         self.wire_dtype = None if wire_dtype == "float32" else wire_dtype
         self.cfg = cfg or ModelConfig(compute_dtype="float32")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh computes on {mesh.device}, the "
+                                 f"generator was asked for {self.device}")
+            self.device = mesh.device
         self.norm_scale = norm_scale
         if max_batch is None:
             max_batch = max(32, int(MAX_BATCH_16
                                     * (16 / self.cfg.ndomain) ** 2))
+        if mesh is not None:  # chunks must divide evenly over the mesh
+            max_batch = max(mesh.size, max_batch - max_batch % mesh.size)
         self.max_batch = max_batch
         self._gen = self._build(params)
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
@@ -105,7 +130,8 @@ class PretrainedGenerator:
         gen.load_state_dict({k: torch.as_tensor(v).to(self.device)
                              for k, v in params.items()},
                             strict=True, assign=True)
-        return gen.requires_grad_(False).eval()
+        gen = gen.requires_grad_(False).eval()
+        return gen if self.mesh is None else replicate(gen, self.mesh)
 
     # -- constructors --------------------------------------------------------
     @classmethod
@@ -149,7 +175,14 @@ class PretrainedGenerator:
         Validates names, shapes and dtypes BEFORE touching the served
         generator: a mismatch raises and the old weights keep serving.  The
         swap itself is one attribute assignment — an in-flight forward uses
-        whichever generator it already grabbed, never a mix."""
+        whichever generator it already grabbed, never a mix.  With a mesh,
+        a collective: the new weights are rank 0's."""
+        self._gen = self._build(self.check_params(params))
+
+    def check_params(self, params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """`params` as tensors, or ValueError unless their names, shapes
+        and dtypes are the served generator's."""
         cur = self.params
         new = {k: torch.as_tensor(v) for k, v in params.items()}
         if set(cur) != set(new):
@@ -165,7 +198,7 @@ class PretrainedGenerator:
         if bad:
             raise ValueError("param mismatch (reload requires identical "
                              "shapes/dtypes):\n  " + "\n  ".join(bad))
-        self._gen = self._build(new)
+        return new
 
     # -- warmup ----------------------------------------------------------------
     def warm(self, batch_sizes=("max",)) -> float:
@@ -175,8 +208,10 @@ class PretrainedGenerator:
 
         Each entry is ``"max"`` (the `max_batch` chunk shape), ``"buckets:N"``
         (every micro-batching bucket size {2^k, 1.5*2^k} up to N), or an int
-        n (capped at `max_batch`).  Returns the total warm seconds.  Uses
-        zero inputs; the generator's random stream is not consumed."""
+        n (capped at `max_batch`); with a mesh the forward pads each to a
+        multiple of its size, as it pads a request.  Returns the total
+        warm seconds.  Uses zero inputs; the generator's random stream is
+        not consumed."""
         sizes = []
         for b in batch_sizes:
             if b == "max":
@@ -241,8 +276,19 @@ class PretrainedGenerator:
                            device=self.device)
 
     def _device_forward(self, lat, cnd, gen: Generator) -> torch.Tensor:
+        """One forward; with a mesh, this rank's shard of the batch
+        (zero-padded to a multiple of the mesh size), then the shards
+        gathered and the padding dropped."""
         with torch.inference_mode():
-            return gen(lat, cnd)
+            if self.mesh is None:
+                return gen(lat, cnd)
+            n = lat.shape[0]
+            pad = (-n) % self.mesh.size
+            if pad:
+                lat = torch.cat([lat, lat.new_zeros((pad, *lat.shape[1:]))])
+                cnd = torch.cat([cnd, cnd.new_zeros((pad, *cnd.shape[1:]))])
+            out = gen(batch_shard(lat, self.mesh), batch_shard(cnd, self.mesh))
+            return all_gather_batch(out, self.mesh)[:n]
 
     def predict_fractions(self, latent, cond_batch) -> torch.Tensor:
         """Raw generator output on the device: (B, nhours, nd, nd, 1)

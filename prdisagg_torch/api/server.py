@@ -61,6 +61,16 @@ requests arriving within the window fuse into ONE device forward
 dimension, so K concurrent 1-scenario clients pay one forward instead of
 K.  Off by default: the unbatched path replays the exact sequential
 per-request random stream.
+
+Data-parallel serving (``serve --dp N``): every rank loads the generator
+with the mesh (api/pretrained.py) and warms it; rank 0 owns the socket and
+serves through a :class:`MeshLeader`, which, before each forward or
+reload, broadcasts a header (what to run, and the shapes) and then the
+conditions to the other ranks; those run :func:`follow`, which receives
+each one and joins the collective forward with the same arguments, so every
+rank draws the same latents and runs its shard.  Rank 0 broadcasts a stop
+when it shuts down (a shutdown request, SIGTERM, SIGINT); a follower
+ignores SIGTERM and SIGINT and waits for it.
 """
 
 from __future__ import annotations
@@ -76,7 +86,9 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from prdisagg_torch.parallel.mesh import replicate
 from prdisagg_torch.utils.watchdog import beat_if_enabled
 
 # inline float lists above this many elements are refused (JSON encoding of
@@ -697,3 +709,116 @@ def request(socket_path: str, req: dict, timeout: float = 600.0) -> dict:
                     f"mid-response ({len(buf)} bytes received)")
             buf += chunk
     return json.loads(buf)
+
+
+# -- data-parallel serving ---------------------------------------------------
+
+#: what a leader's header tells the followers to run
+_OPS = ("stop", "scenarios", "batch", "multi", "reload")
+
+
+def _channels_last(cond, ndim: int) -> np.ndarray:
+    """A map (ndim 3) or a stack (ndim 4) of conditions with the channel
+    axis, which generate_scenarios* add where it is missing."""
+    cond = np.ascontiguousarray(cond, dtype=np.float32)
+    return cond if cond.ndim == ndim else cond[..., None]
+
+
+def _send(mesh, op: str, conds=None, ns=()) -> None:
+    """Rank 0: the header (op, K, and the (nd, nd, C) of the K conditions),
+    then the conditions and their scenario counts."""
+    k = 0 if conds is None else len(conds)
+    shape = conds.shape[1:] if k else (0, 0, 0)
+    replicate(torch.tensor([_OPS.index(op), k, *shape]), mesh)
+    if k:
+        replicate(torch.from_numpy(conds), mesh)
+        replicate(torch.tensor(list(ns), dtype=torch.int64), mesh)
+
+
+def _receive(mesh):
+    """A follower: (op, conditions or None, scenario counts) from rank 0."""
+    header = torch.zeros(5, dtype=torch.int64)
+    replicate(header, mesh)
+    op, k, *shape = header.tolist()
+    if not k:
+        return _OPS[op], None, []
+    conds = torch.empty((k, *shape), dtype=torch.float32)
+    ns = torch.empty(k, dtype=torch.int64)
+    replicate(conds, mesh)
+    replicate(ns, mesh)
+    return _OPS[op], conds.numpy(), ns.tolist()
+
+
+def _run(generator, op: str, conds, ns):
+    if op == "scenarios":
+        return generator.generate_scenarios(conds[0], ns[0])
+    if op == "batch":
+        return generator.generate_scenarios_batch(conds, ns[0])
+    return generator.generate_scenarios_multi(list(conds), ns)
+
+
+class MeshLeader:
+    """Rank 0's generator in a data-parallel server: a PretrainedGenerator
+    with a mesh whose forwards and reloads first tell the followers
+    (:func:`follow`) what to run, one call at a time, so that every rank
+    makes the same collectives in the same order.  Everything else
+    (``cfg``, ``max_batch``, ``load_weights_file``, ...) is the
+    generator's."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.generator, name)
+
+    def _collective(self, op: str, conds, ns):
+        with self._lock:
+            _send(self.generator.mesh, op, conds, ns)
+            return _run(self.generator, op, conds, ns)
+
+    def generate_scenarios(self, cond, n_scenarios: int):
+        return self._collective("scenarios", _channels_last(cond, 3)[None],
+                                [n_scenarios])
+
+    def generate_scenarios_batch(self, conds, n_scenarios: int):
+        conds = _channels_last(conds, 4)
+        return self._collective("batch", conds, [n_scenarios] * len(conds))
+
+    def generate_scenarios_multi(self, conds: list, n_list: list):
+        if len(conds) != len(n_list) or not conds:
+            raise ValueError("conds and n_list must be equal-length and "
+                             "non-empty")
+        return self._collective(
+            "multi", np.stack([_channels_last(c, 3) for c in conds]),
+            [int(n) for n in n_list])
+
+    def reload_params(self, params) -> None:
+        """Validated here first, so that a refused file sends nothing; the
+        followers then take rank 0's weights by broadcast."""
+        params = self.generator.check_params(params)
+        with self._lock:
+            _send(self.generator.mesh, "reload")
+            self.generator.reload_params(params)
+
+    def stop(self) -> None:
+        """Release the followers."""
+        with self._lock:
+            _send(self.generator.mesh, "stop")
+
+
+def follow(generator) -> int:
+    """A follower rank of a data-parallel server: run what rank 0's
+    :class:`MeshLeader` sends until it sends a stop.  Returns the number
+    of calls joined."""
+    calls = 0
+    while True:
+        op, conds, ns = _receive(generator.mesh)
+        if op == "stop":
+            return calls
+        if op == "reload":  # the weights come from rank 0 in the broadcast
+            generator.reload_params({k: v.clone() for k, v in
+                                     generator.params.items()})
+        else:
+            _run(generator, op, conds, ns)
+        calls += 1

@@ -29,8 +29,21 @@ per-epoch ``.h5`` exports (the default format) need ``h5py``, and figures
 evaluation's ``pandas``); where one is missing the command refuses to
 start, names the package and the flag that turns the artifact off, if
 there is one (``example``, ``rainfarm-generate`` and ``generate --plot``
-make only figures or need them).  The JAX package's ``--dp``
-(data-parallel evaluation and serving) is not ported yet.
+make only figures or need them).
+
+Data parallelism runs one process per device under a launcher that sets
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``:
+
+  torchrun --standalone --nproc-per-node 4 -m prdisagg_torch.cli train --synthetic
+  torchrun --standalone --nproc-per-node 4 -m prdisagg_torch.cli crps --dp 4 ...
+  torchrun --standalone --nproc-per-node 4 -m prdisagg_torch.cli serve --dp 4 ...
+
+``train`` under a launched world trains data-parallel over all its ranks;
+``evaluate``, ``crps``, ``generate`` and ``serve`` take ``--dp N``, which
+needs a launched world of N processes and refuses otherwise.  Rank 0
+writes the files; under ``serve --dp`` it owns the socket and the other
+ranks follow it (api/server.py).
 """
 
 from __future__ import annotations
@@ -126,14 +139,41 @@ def _load_generator(args, **kw):
 
     kw.setdefault("n_cond_channels", getattr(args, "n_cond_channels", 1))
     kw.setdefault("wire_dtype", getattr(args, "wire_dtype", None))
+    kw.setdefault("mesh", _dp_mesh(args))
     kw["device"] = args.device
     if args.weights.endswith(".h5"):
         return PretrainedGenerator.from_keras_h5(args.weights, None, **kw)
     return PretrainedGenerator.from_npz(args.weights, None, **kw)
 
 
+def _dp_mesh(args):
+    """The data-parallel mesh of --dp N (0 = none).  It needs a launched
+    world of exactly N processes; otherwise the command exits, printing
+    the launch line."""
+    if not getattr(args, "dp", 0):
+        return None
+    import torch.distributed as dist
+
+    from prdisagg_torch.parallel.distributed import initialize_multihost
+    from prdisagg_torch.parallel.mesh import make_mesh
+
+    if not dist.is_initialized():
+        initialize_multihost(device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != args.dp:
+        line = " ".join(args.argv)
+        sys.exit(f"--dp {args.dp} needs a launched world of {args.dp} "
+                 f"processes, one per device (this process "
+                 + (f"is one of {world})" if world else "was not launched)")
+                 + f"; run: torchrun --standalone --nproc-per-node "
+                 f"{args.dp} -m prdisagg_torch.cli {line}")
+    return make_mesh(args.dp, device=args.device)
+
+
 def cmd_train(args):
     from prdisagg_torch.core.config import ExperimentConfig, TrainConfig
+    from prdisagg_torch.parallel.distributed import initialize_multihost
+    from prdisagg_torch.parallel.mesh import make_mesh
     from prdisagg_torch.train.loop import Trainer
 
     needs = []
@@ -198,20 +238,27 @@ def cmd_train(args):
             exp = dataclasses.replace(exp, model_override=inferred)
     elif args.warm_start_critic:
         sys.exit("--warm-start-critic requires --warm-start-gen")
+    mesh = None
+    if initialize_multihost(device=args.device):
+        # a launched world trains data-parallel over all its ranks
+        mesh = make_mesh(device=args.device)
     tr = Trainer(exp, ds, workdir=args.workdir,
                  steps_per_epoch=args.steps_per_epoch,
                  plot_every_epochs=args.plot_every_epochs,
                  export_format=args.export_format,
                  warm_start_weights=warm, start_epoch=args.start_epoch,
-                 tensorboard_dir=args.tensorboard)
+                 tensorboard_dir=args.tensorboard, mesh=mesh)
     if args.resume:
-        if tr.maybe_resume():
+        if tr.maybe_resume() and tr.primary:
             print(f"resumed at epoch {tr.epoch} (step {tr.state.step})",
                   flush=True)
     elif args.plot_every_epochs:
         tr.plot_real_samples()
     tr.fit()
-    print(f"finished at epoch {tr.epoch}; artifacts in {tr.outdir}")
+    if tr.primary:
+        ranks = f", data-parallel over {mesh.size} rank(s)" if mesh else ""
+        print(f"finished at epoch {tr.epoch}{ranks}; artifacts in "
+              f"{tr.outdir}")
 
 
 def cmd_evaluate(args):
@@ -237,11 +284,13 @@ def cmd_evaluate(args):
                          n_line_free_noise=10, n_line_shared_noise=2,
                          n_ks_conditions=2, n_ks_members=100)
     ev.run_all(make_plots=not args.no_plots, **overrides)
-    print(f"evaluation artifacts in {ev.plotdir} and {ev.datadir}")
+    if ev.primary:
+        print(f"evaluation artifacts in {ev.plotdir} and {ev.datadir}")
 
 
 def cmd_crps(args):
     from prdisagg_torch.eval.crps import run_crps_evaluation
+    from prdisagg_torch.parallel.distributed import is_primary_host
 
     _refuse_missing([("scipy", "the CRPS analysis", None)])
     gen = _load_generator(args)
@@ -249,7 +298,8 @@ def cmd_crps(args):
     baseline = np.load(args.baseline)
     res = run_crps_evaluation(gen, reals, baseline,
                               n_members=args.n_members, outdir=args.out)
-    print(res["analysis"])
+    if is_primary_host():
+        print(res["analysis"])
 
 
 def cmd_lsd(args):
@@ -378,6 +428,8 @@ def cmd_generate(args):
     One condition (nd, nd)[, 1] takes the reference's single-request
     semantics (raindisagg_gan_pretrained.py:52-65); a stack (K, nd, nd)[, 1]
     is served as ONE fused batch (generate_scenarios_batch)."""
+    from prdisagg_torch.parallel.distributed import is_primary_host
+
     if args.plot:
         _refuse_missing([("matplotlib", "the figures of --plot", None)])
     gen = _load_generator(args, seed=args.seed, max_batch=args.max_batch)
@@ -398,6 +450,8 @@ def cmd_generate(args):
         scen = gen.generate_scenarios_batch(conds, args.n_scenarios)
         daily = conds if conds.ndim == 3 else conds[..., 0]
         err = np.abs(scen.sum(axis=2) - daily[:, None]).max()
+    if not is_primary_host():
+        return
     np.save(args.out, scen)
     print(f"saved {args.out} shape={scen.shape}; conservation check: "
           f"max|sum_h - cond| = {err:.2e}")
@@ -416,7 +470,13 @@ def cmd_serve(args):
     import signal
     import threading
 
-    from prdisagg_torch.api.server import ScenarioServer, watch_signature
+    from prdisagg_torch.api.server import (
+        MeshLeader,
+        ScenarioServer,
+        follow,
+        watch_signature,
+    )
+    from prdisagg_torch.parallel.distributed import is_primary_host
 
     # the watch baseline comes BEFORE loading and warming, so a weight
     # export that lands meanwhile still triggers the first reload
@@ -431,9 +491,19 @@ def cmd_serve(args):
         sizes = [s if s == "max" or s.startswith("buckets") else int(s)
                  for s in warm.split(",") if s]
         secs = gen.warm(sizes)
-        print(f"warmed forward for batch sizes {warm} in {secs:.1f}s",
+        if is_primary_host():
+            print(f"warmed forward for batch sizes {warm} in {secs:.1f}s",
+                  flush=True)
+    if gen.mesh is not None and gen.mesh.rank != 0:
+        # a follower: rank 0's stop ends it, on its shutdown or signal
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        calls = follow(gen)
+        print(f"[serve] rank {gen.mesh.rank} joined {calls} calls; bye",
               flush=True)
-    server = ScenarioServer(gen, args.socket_path,
+        return
+    leader = None if gen.mesh is None else MeshLeader(gen)
+    server = ScenarioServer(leader or gen, args.socket_path,
                             batch_window_ms=args.batch_window_ms,
                             watch_path=args.watch,
                             watch_interval_s=args.watch_interval,
@@ -450,7 +520,11 @@ def cmd_serve(args):
 
         signal.signal(signal.SIGTERM, _stop)
         signal.signal(signal.SIGINT, _stop)
-    served = server.serve_forever(max_requests=args.max_requests)
+    try:
+        served = server.serve_forever(max_requests=args.max_requests)
+    finally:
+        if leader is not None:
+            leader.stop()
     print(f"served {served} requests; bye")
 
 
@@ -608,6 +682,8 @@ def build_parser():
                    help="write the arrays and KS p-values but no figures "
                         "(figures need matplotlib, seaborn and pandas); "
                         "leaves out phase 4, which makes only figures")
+    e.add_argument("--dp", type=int, default=0,
+                   help="shard eval forwards data-parallel over N devices")
     e.set_defaults(fn=cmd_evaluate)
 
     cr = sub.add_parser("crps")
@@ -619,6 +695,10 @@ def build_parser():
     cr.add_argument("--n-members", type=int, default=1000)
     cr.add_argument("--n-samples", type=int, default=10000)
     cr.add_argument("--out", default="data")
+    cr.add_argument("--dp", type=int, default=0,
+                    help="shard each chunk's samples data-parallel over the "
+                         "first N devices (params replicated; results "
+                         "exactly equal to single-device)")
     cr.set_defaults(fn=cmd_crps)
 
     lsd = sub.add_parser("lsd")
@@ -714,6 +794,10 @@ def build_parser():
     g.add_argument("--plot", default=None,
                    help="also save a scenario-grid png of the first request "
                         "(needs matplotlib)")
+    g.add_argument("--dp", type=int, default=0,
+                   help="shard the scenario batch data-parallel over the "
+                        "first N devices (params replicated; per-sample "
+                        "output identical to single-device)")
     g.add_argument("--n-cond-channels", dest="n_cond_channels", type=int,
                    default=1, help=cond_help)
     g.add_argument("--wire-dtype", dest="wire_dtype", default=None,
@@ -746,6 +830,9 @@ def build_parser():
                           "'buckets:N' = the micro-batching sizes up to N, "
                           "'none' to skip), so kernel builds and cuDNN's "
                           "plan search happen outside any request")
+    srv.add_argument("--dp", type=int, default=0,
+                     help="shard every request's scenario batch over the "
+                          "first N devices (data-parallel serving)")
     srv.add_argument("--watch", default=None, metavar="PATH",
                      help="hot-reload weights when PATH changes: a file "
                           "(reload on mtime change) or a directory (reload "
@@ -775,8 +862,18 @@ def build_parser():
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    args.argv = argv
+    import torch.distributed as dist
+
+    started_here = not dist.is_initialized()
+    try:
+        args.fn(args)
+    finally:
+        # a group this command started ends with it
+        if started_here and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,6 @@ weight file, a test or a CLI flag names the same network and run in both
 packages.  Left out, because the port has no counterpart yet:
 
 * ``ModelConfig.spatial_axis`` (SPMD sharding of activations);
-* ``TrainConfig.n_data_devices`` (the port has no device mesh yet);
 * ``TrainConfig.pallas_gather`` (on CUDA the sampler always gathers with
   the hand-written kernel of ops/gather.py; there is no choice to make).
 
@@ -165,6 +164,9 @@ class TrainConfig:
     hoisted_chunk_samples: Optional[int] = None
     checkpoint_every_epochs: int = 10
     log_every_steps: int = 50
+    # data-parallel world size the run expects; None = the launched world,
+    # whatever its size.  A Trainer refuses a world of another size.
+    n_data_devices: Optional[int] = None
     # EMA of the generator parameters, updated once per fused step; 0 = off
     # (the reference protocol)
     ema_decay: float = 0.0

@@ -9,6 +9,10 @@ view, which does not copy it either.  Unlike the JAX package there is no
 x padding to a 128-lane multiple and no size rule choosing between gathers.
 
 Every random draw comes from a ``torch.Generator`` the caller passes in.
+With a data-parallel ``mesh`` (parallel/mesh.py), every rank draws the
+global batch's rows and gathers only its own contiguous shard of them
+(ops/gather.py ``gather_patches_sharded``): the tensor is replicated, the
+batch is not.
 The ``*_from_rows`` methods take index rows drawn elsewhere, so a test can
 hand the port and the JAX package the same rows; they check the rows first
 (one host sync), since the kernel reads out of bounds where a row is out of
@@ -33,7 +37,8 @@ import torch
 from prdisagg_torch.core.config import Conditioning, DataConfig
 from prdisagg_torch.core.device import resolve_device
 from prdisagg_torch.ops.core import fractions_and_condition
-from prdisagg_torch.ops.gather import gather_patches
+from prdisagg_torch.ops.gather import gather_patches, gather_patches_sharded
+from prdisagg_torch.parallel.mesh import batch_shard
 
 
 def _check_rows(rows: torch.Tensor, shape, nd: int) -> None:
@@ -141,7 +146,13 @@ class DeviceDataset:
         return self._cond_from_rows(rows)
 
     # -- from rows known to be in range ----------------------------------------
-    def _patches_from_rows(self, rows: torch.Tensor) -> torch.Tensor:
+    # With a mesh, `rows` is the global batch and the result this rank's
+    # shard of it.
+    def _patches_from_rows(self, rows: torch.Tensor,
+                           mesh=None) -> torch.Tensor:
+        if mesh is not None:
+            return gather_patches_sharded(self.data, rows, self.cfg.ndomain,
+                                          mesh)[..., None]
         return gather_patches(self.data, rows, self.cfg.ndomain)[..., None]
 
     def _extra_cond_channels(self, rows: torch.Tensor) -> List[torch.Tensor]:
@@ -164,14 +175,20 @@ class DeviceDataset:
             return cond
         return torch.cat([cond, *self._extra_cond_channels(rows)], dim=-1)
 
-    def _real_from_rows(self, rows: torch.Tensor):
+    def _real_from_rows(self, rows: torch.Tensor, mesh=None):
         frac, cond = fractions_and_condition(
-            self._patches_from_rows(rows), self.cfg.norm_scale,
+            self._patches_from_rows(rows, mesh), self.cfg.norm_scale,
             self.cfg.frac_eps)
-        return frac, self._with_extras(cond, rows)
+        local = rows if mesh is None else batch_shard(rows, mesh)
+        return frac, self._with_extras(cond, local)
 
-    def _cond_from_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        dsum = gather_patches(self.dsum[:, None], rows, self.cfg.ndomain)
+    def _cond_from_rows(self, rows: torch.Tensor, mesh=None) -> torch.Tensor:
+        sums = self.dsum[:, None]
+        if mesh is None:
+            dsum = gather_patches(sums, rows, self.cfg.ndomain)
+        else:
+            dsum = gather_patches_sharded(sums, rows, self.cfg.ndomain, mesh)
+            rows = batch_shard(rows, mesh)
         cond = dsum[:, 0, :, :, None] / self.cfg.norm_scale
         return self._with_extras(cond, rows)
 
@@ -183,16 +200,21 @@ class DeviceDataset:
         return self._patches_from_rows(
             self.draw_rows(n_batch, generator))[..., 0]
 
-    def sample_real(self, n_batch: int, generator: torch.Generator):
-        return self._real_from_rows(self.draw_rows(n_batch, generator))
+    # With a mesh, every rank draws the same n_batch rows (and latents) and
+    # returns its shard: n_batch / mesh.size samples.
+    def sample_real(self, n_batch: int, generator: torch.Generator,
+                    mesh=None):
+        return self._real_from_rows(self.draw_rows(n_batch, generator), mesh)
 
-    def sample_cond(self, n_batch: int,
-                    generator: torch.Generator) -> torch.Tensor:
-        return self._cond_from_rows(self.draw_rows(n_batch, generator))
+    def sample_cond(self, n_batch: int, generator: torch.Generator,
+                    mesh=None) -> torch.Tensor:
+        return self._cond_from_rows(self.draw_rows(n_batch, generator), mesh)
 
     def sample_latent(self, n_batch: int, latent_dim: int,
-                      generator: torch.Generator):
+                      generator: torch.Generator, mesh=None):
         """(latent ~ N(0, 1), cond) for a generator update."""
         latent = torch.randn((n_batch, latent_dim), generator=generator,
                              device=self.device)
-        return latent, self.sample_cond(n_batch, generator)
+        if mesh is not None:
+            latent = batch_shard(latent, mesh)
+        return latent, self.sample_cond(n_batch, generator, mesh)

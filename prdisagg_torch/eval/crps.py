@@ -29,6 +29,7 @@ from prdisagg_torch.ops.stats import (
     crps_ensemble_fixed,
     ensemble_spread,
 )
+from prdisagg_torch.parallel.mesh import all_gather_batch, shard_bounds
 from prdisagg_torch.utils.watchdog import beat_if_enabled
 
 
@@ -64,10 +65,22 @@ def crps_gan(
     seeded with `seed` and drawn in sample order, so the result does not
     depend on `sample_chunk`: that only sets how many samples' rows are
     stacked on the device between two heartbeats.  Nothing is fetched to
-    the host before the end."""
+    the host before the end.
+
+    When the generator carries a data-parallel mesh
+    (``PretrainedGenerator(mesh=...)`` / ``cli crps --dp N``), the chunk is
+    rounded up to a multiple of the mesh size and each rank scores its own
+    contiguous shard of each chunk's samples; every rank still draws every
+    sample's latents in sample order, so each sample meets the latents it
+    meets on one device, and the gathered rows equal the single-device
+    rows exactly.  A collective: every rank calls it with the same
+    arguments, and every rank returns all rows."""
     mb = min(member_batch, n_members)
     if n_members % mb != 0:
         raise ValueError(f"n_members {n_members} not divisible by {mb}")
+    mesh = generator.mesh
+    if mesh is not None:
+        sample_chunk += (-sample_chunk) % mesh.size
     dev = generator.device
     reals = torch.as_tensor(reals_precip, dtype=torch.float32, device=dev)
     dsums = torch.sum(reals, dim=1)  # (n, nd, nd) mm
@@ -76,14 +89,26 @@ def crps_gan(
     out = []
     with torch.inference_mode():
         for i0 in range(0, len(reals), sample_chunk):
+            n = min(sample_chunk, len(reals) - i0)
+            # the chunk's samples this rank scores; a last chunk pads to
+            # the mesh, and pads score nothing and draw nothing
+            lo, hi = (0, n) if mesh is None else shard_bounds(
+                n + (-n) % mesh.size, mesh)
             rows = []
-            for real, dsum in zip(reals[i0:i0 + sample_chunk],
-                                  dsums[i0:i0 + sample_chunk]):
+            for i in range(n):
                 latents = torch.randn((n_members, latent_dim), generator=rng,
                                       device=dev)
-                rows.append(_score_one_sample(gen, real, dsum, latents,
-                                              n_members, mb, norm_scale))
-            out.append(torch.stack(rows))  # device rows: no host sync
+                if lo <= i < hi:
+                    rows.append(_score_one_sample(
+                        gen, reals[i0 + i], dsums[i0 + i], latents,
+                        n_members, mb, norm_scale))
+            if mesh is None:
+                out.append(torch.stack(rows))  # device rows: no host sync
+            else:
+                mine = torch.zeros((hi - lo, reals.shape[1]), device=dev)
+                if rows:
+                    mine[:len(rows)] = torch.stack(rows)
+                out.append(all_gather_batch(mine, mesh)[:n])
             beat_if_enabled()  # host-loop liveness for a supervisor
     return torch.cat(out).cpu().numpy()
 
@@ -172,10 +197,16 @@ def run_crps_evaluation(
     (crps_results_rainfarm.pkl), which the analysis then includes.  Every
     arm runs on the generator's device.  The single owner of the artifact
     names.  ``gan_seconds`` / ``random_seconds`` / ``rainfarm_seconds``
-    are each arm's wall time (the last None without the arm)."""
+    are each arm's wall time (the last None without the arm).
+
+    With a data-parallel generator the GAN arm is collective; the other
+    ranks then return ``{"gan", "gan_seconds"}`` alone, and rank 0 runs
+    the rest and writes every file."""
     t0 = time.perf_counter()
     gan = crps_gan(generator, reals_precip, n_members=n_members, seed=seed)
     t_gan = time.perf_counter() - t0
+    if generator.mesh is not None and generator.mesh.rank != 0:
+        return {"gan": gan, "gan_seconds": t_gan}
     rnd = crps_random_baseline(reals_precip, baseline_patches,
                                device=generator.device)
     t_rnd = time.perf_counter() - t0 - t_gan

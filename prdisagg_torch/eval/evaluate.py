@@ -10,7 +10,11 @@ Phases (reference line refs in each method):
      per-hour two-sample KS test -> p-value .txt artifacts
 
 Every draw (index rows and latents) comes from one ``torch.Generator`` on
-the dataset's device, seeded with ``EvalConfig.seed``.  ``matplotlib``,
+the dataset's device, seeded with ``EvalConfig.seed``.  With a
+data-parallel generator (``PretrainedGenerator(mesh=...)``) every rank
+runs every phase with the same draws, each forward is split over the ranks
+(api/pretrained.py), and rank 0 alone writes the arrays, p-values and
+figures.  ``matplotlib``,
 ``seaborn`` and ``pandas`` are imported only where a phase draws a figure;
 each phase that draws takes an argument that turns its figures off.
 """
@@ -62,8 +66,11 @@ class Evaluator:
         self.params_str = exp.data.params_string()
         self.plotdir = os.path.join(workdir, f"plots_generated_{exp.name}")
         self.datadir = os.path.join(workdir, "data")
-        os.makedirs(self.plotdir, exist_ok=True)
-        os.makedirs(self.datadir, exist_ok=True)
+        #: whether this process writes the battery's files (rank 0)
+        self.primary = generator.mesh is None or generator.mesh.rank == 0
+        if self.primary:
+            os.makedirs(self.plotdir, exist_ok=True)
+            os.makedirs(self.datadir, exist_ok=True)
         self.rng = torch.Generator(device=ds_test.device).manual_seed(
             self.cfg.seed)
         self._latent_dim = generator.cfg.latent_dim
@@ -106,7 +113,7 @@ class Evaluator:
             beat_if_enabled()  # liveness for a supervisor (~100 figures)
             plotcount = i + 1
             generated = self._fakes_for_cond(conds[i], n_fake)
-            if save:
+            if save and self.primary:
                 self._save_map_grid(reals[i], generated, self._dsum(conds[i]),
                                     plotcount)
 
@@ -177,11 +184,12 @@ class Evaluator:
         if save_fields:
             res["generated_samples"] = np.concatenate(fields_gen)
             res["real_samples"] = np.concatenate(fields_real)
+        if save_fields and self.primary:
             np.save(os.path.join(self.datadir, "generated_samples.npy"),
                     res["generated_samples"])
             np.save(os.path.join(self.datadir, "real_samples.npy"),
                     res["real_samples"])
-        if make_plots:
+        if make_plots and self.primary:
             self._ecdf_plots(res)
             self._daily_cycle(res, n_samples)
         return res
@@ -297,6 +305,8 @@ class Evaluator:
             am_real = (real * dsum[None]).mean(axis=(1, 2))
             am_free = (gen_free * dsum[None, None]).mean(axis=(2, 3))
             am_shared = (gen_shared * dsum[None, None]).mean(axis=(2, 3))
+            if not self.primary:
+                continue
 
             plt.figure(figsize=(7, 3))
             plt.plot(hours, am_free.T, label="_nolegend_", alpha=0.3,
@@ -343,12 +353,14 @@ class Evaluator:
                 scipy.stats.ks_2samp(am1[:, h], am2[:, h]).pvalue
                 for h in range(24)
             ])
+            all_pvals.append(pvals)
+            if not self.primary:
+                continue
             np.savetxt(os.path.join(
                 self.plotdir,
                 f"check_conditional_dist_samenoise_KSpval{self.params_str}_"
                 f"{self.epoch:04d}_{isample:04d}.txt",
             ), pvals)
-            all_pvals.append(pvals)
             if make_plots:
                 self._ks_boxplots(self._dsum(cond1[0]), self._dsum(cond2[0]),
                                   am1, am2, isample)

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from prdisagg_torch import _build
+from prdisagg_torch.parallel.mesh import batch_shard
 
 #: number of CUDA kernel launches made by :func:`gather_patches`
 launches = 0
@@ -142,3 +143,13 @@ def gather_patches(data: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"gather_patches runs on cpu or cuda, got "
                          f"{data.device}")
     return gather_patches_cuda(data, idx, nd)
+
+
+def gather_patches_sharded(data: torch.Tensor, idx: torch.Tensor, nd: int,
+                           mesh) -> torch.Tensor:
+    """The data-parallel form of :func:`gather_patches` (the JAX package's
+    ``gather_patches_pallas_sharded``): `data` is replicated on every rank
+    and `idx` is the global (B, 3) index batch; this rank gathers only its
+    contiguous shard of it, B / mesh.size patches, with the same kernel.
+    Raises unless B divides evenly over the mesh."""
+    return gather_patches(data, batch_shard(idx, mesh), nd)

@@ -53,16 +53,17 @@ class CheckpointManager:
         epochs = self.epochs()
         return epochs[-1] if epochs else None
 
-    def restore(self, state: GANTrainState,
-                epoch: Optional[int] = None) -> GANTrainState:
+    def restore(self, state: GANTrainState, epoch: Optional[int] = None,
+                mesh=None) -> GANTrainState:
         """Load the checkpoint of `epoch` (the latest by default) into
-        `state` in place; returns `state`."""
+        `state` in place; returns `state`.  With a data-parallel `mesh`,
+        every rank reads the file, then takes rank 0's values."""
         epoch = self.latest_epoch() if epoch is None else epoch
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         tree = torch.load(self._path(epoch), map_location="cpu",
                           weights_only=True)
-        load_state(state, tree)
+        load_state(state, tree, mesh)
         return state
 
     def close(self) -> None:

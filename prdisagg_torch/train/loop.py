@@ -23,7 +23,12 @@ gan_train_cwgangp_pixelnorm.py:431-529; the JAX package's train/loop.py).
 * ``run_config.json`` records the run's configuration and warns when a
   relaunch into the same workdir changes it; optional TensorBoard scalars,
   per-epoch sample and loss plots, and a heartbeat file after every metrics
-  fetch (PRDISAGG_HEARTBEAT).
+  fetch (PRDISAGG_HEARTBEAT);
+* data parallel over a mesh (parallel/mesh.py) when the process group has
+  more than one rank, or when one is passed: the state is replicated, every
+  rank runs the step on its shard of the batch, rank 0 alone writes every
+  file (the same file set as a single-process run), every rank restores on
+  resume, and :meth:`Trainer.fit` waits for all ranks before it returns.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from prdisagg_torch.core.config import ExperimentConfig
 from prdisagg_torch.data.sampler import DeviceDataset
@@ -46,6 +52,7 @@ from prdisagg_torch.models.io import (
     save_keras_generator_h5,
     save_params_npz,
 )
+from prdisagg_torch.parallel.mesh import barrier, make_mesh
 from prdisagg_torch.train.artifacts import (
     ArtifactWriter,
     Snapshot,
@@ -95,6 +102,19 @@ class NaNLossError(RuntimeError):
     (reference abort: gan_train_cwgangp_pixelnorm.py:487-488)."""
 
 
+def _data_mesh(mesh, n_data_devices: Optional[int], device):
+    """The run's mesh: the one given, else one over the process group when
+    it has more than one rank, else None.  Refuses a world whose size
+    differs from `n_data_devices` when that is set."""
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_mesh(device=device)
+    world = 1 if mesh is None else mesh.size
+    if n_data_devices is not None and n_data_devices != world:
+        raise ValueError(f"TrainConfig.n_data_devices is {n_data_devices}, "
+                         f"the run has {world} data-parallel ranks")
+    return mesh
+
+
 class Trainer:
     def __init__(self, exp: ExperimentConfig, ds: DeviceDataset,
                  workdir: str = ".", steps_per_epoch: Optional[int] = None,
@@ -104,7 +124,7 @@ class Trainer:
                  async_artifacts: bool = True, export_format: str = "h5",
                  warm_start_weights: Optional[tuple] = None,
                  start_epoch: int = 0,
-                 tensorboard_dir: Optional[str] = None):
+                 tensorboard_dir: Optional[str] = None, mesh=None):
         """The state is created on the dataset's device from
         ``exp.train.seed``, or warm-started from
         ``warm_start_weights=(gen_path, critic_path_or_None)`` (.npz or
@@ -113,9 +133,15 @@ class Trainer:
         workflow); for exact resume, optimizer state included, call
         :meth:`maybe_resume`.  A cadence of 0 (plots, weight exports,
         ``TrainConfig.checkpoint_every_epochs``) turns that artifact off.
-        `tensorboard_dir` streams the hist rows' scalars to TensorBoard."""
+        `tensorboard_dir` streams the hist rows' scalars to TensorBoard.
+        `mesh` (parallel/mesh.py) makes the run data-parallel; by default
+        it is the process group's when that has more than one rank.  Every
+        rank constructs the Trainer and calls the same methods."""
         if export_format not in EXPORT_FORMATS:
             raise ValueError(f"unknown export_format {export_format!r}")
+        self.mesh = _data_mesh(mesh, exp.train.n_data_devices, ds.device)
+        #: whether this process writes the run's files (rank 0)
+        self.primary = self.mesh is None or self.mesh.rank == 0
         self.exp = exp
         self.model_cfg = exp.model()
         self.ds = ds
@@ -130,14 +156,16 @@ class Trainer:
         self.export_weights_every_epochs = export_weights_every_epochs
         self.on_epoch_end = on_epoch_end
         self.export_format = export_format
-        self.writer = ArtifactWriter() if async_artifacts else SyncWriter()
+        self.writer = (ArtifactWriter() if async_artifacts and self.primary
+                       else SyncWriter())
         if warm_start_weights is not None:
             gen_w, critic_w = warm_start_weights
             self.state: GANTrainState = warm_start(
-                self.model_cfg, exp.train, gen_w, critic_w, device=ds.device)
+                self.model_cfg, exp.train, gen_w, critic_w, device=ds.device,
+                mesh=self.mesh)
         else:
             self.state = create_train_state(self.model_cfg, exp.train,
-                                            device=ds.device)
+                                            device=ds.device, mesh=self.mesh)
         self.ckpt = CheckpointManager(os.path.join(self.outdir, "ckpt"))
         # "epoch" tags each row, so that resume can drop the rows of epochs
         # newer than the restored checkpoint
@@ -146,9 +174,9 @@ class Trainer:
         self._epoch0 = start_epoch  # schedule progress is counted from here
         #: host seconds of each epoch's steps (ending in the metrics fetch)
         self.epoch_seconds: list = []
-        self.heartbeat = Heartbeat.from_env()
+        self.heartbeat = Heartbeat.from_env() if self.primary else None
         self.tb = None
-        if tensorboard_dir:
+        if tensorboard_dir and self.primary:
             from prdisagg_torch.utils.tb import MetricsTB
 
             self.tb = MetricsTB(tensorboard_dir)
@@ -156,7 +184,8 @@ class Trainer:
         # checkpoints' source (the live state after a NaN abort is poisoned)
         self._last_snap: Optional[tuple] = None
         self._last_ckpt_epoch = -1
-        self._write_run_manifest()
+        if self.primary:
+            self._write_run_manifest()
 
     # ------------------------------------------------------------------
     def _write_run_manifest(self):
@@ -206,7 +235,7 @@ class Trainer:
         latest = self.ckpt.latest_epoch()
         if latest is None:
             return False
-        self.ckpt.restore(self.state, latest)
+        self.ckpt.restore(self.state, latest, self.mesh)
         self.epoch = latest
         self._last_ckpt_epoch = latest
         hist_path = os.path.join(self.workdir, "hist.csv")
@@ -227,7 +256,9 @@ class Trainer:
         are cumulative from `start_epoch`, so a resumed run finishes the
         rest of the right stage.  On completion and on abort, a checkpoint
         of the last completed epoch is forced (unless checkpoints are off)
-        and every queued artifact is written before returning or raising."""
+        and every queued artifact is written before returning or raising.
+        Only rank 0 prints progress."""
+        progress = progress and self.primary
         try:
             cum = self._epoch0
             for n_epochs, batch_size in self.exp.train.schedule:
@@ -244,6 +275,8 @@ class Trainer:
                 traceback.print_exc()
             raise
         self._finish()
+        if self.mesh is not None:
+            barrier(self.mesh)  # rank 0's files are on disk for every rank
         return self.hist
 
     def _finish(self):
@@ -275,7 +308,7 @@ class Trainer:
                   f"(chunk={k_steps}); throughput will be launch-bound",
                   flush=True)
         step_fn = make_train_step(self.model_cfg, self.exp.train, batch_size,
-                                  steps_per_call=k_steps)
+                                  steps_per_call=k_steps, mesh=self.mesh)
 
         while self.epoch < until_epoch:
             t0 = time.perf_counter()
@@ -311,6 +344,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _end_of_epoch(self):
+        if not self.primary:
+            if self.on_epoch_end is not None:
+                self.on_epoch_end(self)
+            return
         e = self.epoch
         ck = self.exp.train.checkpoint_every_epochs
         we = self.export_weights_every_epochs
@@ -390,9 +427,11 @@ class Trainer:
         plotting.close_all()
 
     def plot_real_samples(self, n_plot: int = 30):
-        """Pre-training real-sample grid (reference :411-425)."""
+        """Pre-training real-sample grid (reference :411-425); rank 0's."""
         from prdisagg_torch.utils import plotting
 
+        if not self.primary:
+            return
         g = torch.Generator(device=self.ds.device).manual_seed(7)
         frac, cond = self.ds.sample_real(n_plot, g)
         plotting.sample_grid_mosaic(

@@ -4,7 +4,10 @@ Unlike the JAX package's immutable pytree, the port's state is updated in
 place by the train step: the modules and optimizers own their tensors.  A
 CUDA graph of the step (train/wgan_gp.py) records those tensors' addresses,
 so everything that loads a state (:func:`load_state`, :func:`warm_start`)
-copies into the existing tensors instead of replacing them.
+copies into the existing tensors instead of replacing them.  With a
+data-parallel mesh, the same functions end with a broadcast from rank 0
+into those tensors (parallel/mesh.py ``replicate``): every rank then holds
+the same parameters, optimizer state, EMA, step and random stream.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from prdisagg_torch.core.config import ModelConfig, TrainConfig
 from prdisagg_torch.core.device import resolve_device
 from prdisagg_torch.models.critic import Critic
 from prdisagg_torch.models.generator import Generator
+from prdisagg_torch.parallel.mesh import replicate
 
 
 def make_optimizer(params, cfg: TrainConfig,
@@ -76,10 +80,11 @@ def _optimizers(gen, critic, train_cfg: TrainConfig, dev: torch.device):
 
 def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
                        seed: Optional[int] = None,
-                       device="cuda") -> GANTrainState:
+                       device="cuda", mesh=None) -> GANTrainState:
     """Both nets initialised from `seed` (train_cfg.seed by default) on the
     CPU's random stream, without disturbing the caller's, then moved to
-    `device`; the step's random stream is a generator on `device`."""
+    `device`; the step's random stream is a generator on `device`.  With a
+    `mesh`, replicated from rank 0 (a collective)."""
     seed = train_cfg.seed if seed is None else seed
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
@@ -88,11 +93,12 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
         critic = Critic(model_cfg)
     gen, critic = gen.to(dev), critic.to(dev)
     gen_opt, critic_opt = _optimizers(gen, critic, train_cfg, dev)
-    return GANTrainState(
+    state = GANTrainState(
         step=0, gen=gen, critic=critic, gen_opt=gen_opt,
         critic_opt=critic_opt,
         rng=torch.Generator(device=dev).manual_seed(seed),
         ema_gen=_ema_copy(gen) if train_cfg.ema_decay > 0 else None)
+    return state if mesh is None else replicate(state, mesh)
 
 
 def _opt_state(opt: torch.optim.Optimizer) -> list:
@@ -132,10 +138,11 @@ def state_tree(state: GANTrainState) -> dict:
     }
 
 
-def load_state(state: GANTrainState, tree: dict) -> None:
+def load_state(state: GANTrainState, tree: dict, mesh=None) -> None:
     """Load a :func:`state_tree` (from any device) into `state` in place:
     every tensor is copied into the existing one, so a CUDA graph captured
-    on `state` afterwards, or before, reads the loaded values."""
+    on `state` afterwards, or before, reads the loaded values.  With a
+    `mesh`, every rank loads its tree, then takes rank 0's values."""
     if (state.ema_gen is None) != (tree["ema_gen"] is None):
         raise ValueError("the state and the saved tree disagree on the EMA "
                          "generator (TrainConfig.ema_decay)")
@@ -154,6 +161,8 @@ def load_state(state: GANTrainState, tree: dict) -> None:
         _load_opt_state(state.critic_opt, tree["critic_opt"])
     state.step = int(tree["step"])
     state.rng.set_state(tree["rng"])
+    if mesh is not None:
+        replicate(state, mesh)
 
 
 def clone_train_state(state: GANTrainState, model_cfg: ModelConfig,
@@ -229,14 +238,15 @@ def infer_model_config_from_weights(gen_weights: str,
 
 def warm_start(model_cfg: Optional[ModelConfig], train_cfg: TrainConfig,
                gen_weights: str, critic_weights: Optional[str] = None,
-               device="cuda") -> GANTrainState:
+               device="cuda", mesh=None) -> GANTrainState:
     """A training state warm-started from saved weights with fresh
     optimizers: the reference's continue-training workflow (it reloads both
     nets from .h5, gan_train_cwgangp_pixelnorm.py:520-529 + start_epoch).
     Weight files are the JAX package's ``.npz`` or reference Keras ``.h5``;
     with `model_cfg` None the architecture is inferred from them.  The EMA
     generator, when on, starts from the loaded generator (the JAX package
-    keeps its fresh initialisation there)."""
+    keeps its fresh initialisation there).  With a `mesh`, every rank reads
+    the files, then takes rank 0's values."""
     from prdisagg_torch.models.io import (
         _check_critic_shapes,
         _check_generator_shapes,
@@ -264,4 +274,4 @@ def warm_start(model_cfg: Optional[ModelConfig], train_cfg: TrainConfig,
             _check_critic_shapes(_unwrap(critic_tree), model_cfg,
                                  critic_weights)
             state.critic.load_state_dict(critic_params_from_jax(critic_tree))
-    return state
+    return state if mesh is None else replicate(state, mesh)

@@ -24,7 +24,15 @@ checked rows, are not.
 they are replays of a CUDA graph of one step, the counterpart of the JAX
 package's ``lax.scan`` of K steps in one dispatch.
 
-Not ported here: ``fused_gen_forward`` and the data-parallel ``mesh``.
+With a data-parallel ``mesh`` (parallel/mesh.py) every rank draws the
+global step's inputs from its replicated ``state.rng`` and runs the step on
+its own shard of them (:func:`shard_step_draws`); after each critic
+update's gradient and the generator's, one all-reduce averages a flat
+bucket of the net's gradients and the update's loss terms, so that every
+rank applies the same update and reports the global batch's metrics:
+n_disc + 1 collectives a step, inside the CUDA graph on the card.
+
+Not ported here: ``fused_gen_forward``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from prdisagg_torch.core.config import ModelConfig, TrainConfig
 from prdisagg_torch.data.sampler import DeviceDataset
 from prdisagg_torch.ops import gather, upsample_conv
 from prdisagg_torch.ops.core import full_f32
+from prdisagg_torch.parallel.mesh import all_reduce_mean, shard_bounds
 from prdisagg_torch.train.state import GANTrainState
 
 # order of the scalar metrics in the packed vector (one host fetch instead
@@ -106,6 +115,48 @@ def draw_step_inputs(state: GANTrainState, ds: DeviceDataset,
         gen_masks=critic.draw_masks(b, g))
 
 
+def shard_step_draws(draws: StepDraws, mesh) -> StepDraws:
+    """This rank's share of a step's global draws: its contiguous slice of
+    each critic update's B block (rows, latents, eps, the GP's masks), of
+    the real half and of the fake half of each update's 2B masks, and of
+    the generator update's B.  Raises unless B divides over the mesh."""
+    n_disc, b = draws.eps.shape
+    lo, hi = shard_bounds(b, mesh)
+
+    def blocks(x):  # (n_disc*B, ...) -> (n_disc*b_local, ...)
+        return x.reshape(n_disc, b, *x.shape[1:])[:, lo:hi].reshape(
+            -1, *x.shape[1:])
+
+    def each(masks, part):
+        return None if masks is None else [part(m) for m in masks]
+
+    def real_and_fake(m):
+        return torch.cat([m[lo:hi], m[b + lo:b + hi]])
+
+    def mine(x):
+        return x[lo:hi]
+
+    return StepDraws(
+        real_rows=blocks(draws.real_rows), latent=blocks(draws.latent),
+        eps=draws.eps[:, lo:hi],
+        masks=[each(m, real_and_fake) for m in draws.masks],
+        gp_masks=[each(m, mine) for m in draws.gp_masks],
+        gen_latent=mine(draws.gen_latent), gen_rows=mine(draws.gen_rows),
+        gen_masks=each(draws.gen_masks, mine))
+
+
+def _all_reduce_bucket(grads, terms, mesh):
+    """Average a net's gradients and an update's scalar loss terms over the
+    mesh in ONE all-reduce of a flat float32 bucket; returns both as views
+    of the reduced bucket."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [t.reshape(1).float() for t in terms])
+    all_reduce_mean(flat, mesh)
+    parts = flat.split([g.numel() for g in grads] + [1] * len(terms))
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            [p[0] for p in parts[len(grads):]])
+
+
 def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
@@ -139,20 +190,27 @@ def critic_loss(critic, frac_real, cond, fake, eps, masks, gp_masks,
 
 
 def train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
-                  train_cfg: TrainConfig, chunks: int = 1) -> dict:
+                  train_cfg: TrainConfig, chunks: int = 1,
+                  mesh=None) -> dict:
     """One fused step on given draws; updates `state` in place and returns
     the metrics as device tensors, with ``packed`` the (8,) vector of
     :data:`METRIC_KEYS` and the non-finite flag.  Raises ValueError when an
-    index row of `draws` lies outside the dataset."""
+    index row of `draws` lies outside the dataset.
+
+    With a `mesh`, `draws` are the global step's and every rank must call
+    this with the same ones; `chunks` splits the rank's own held-over
+    forward.  The eager data-parallel step: on the CPU, and over gloo."""
     ds.check_rows(draws.real_rows)
     ds.check_rows(draws.gen_rows)
-    metrics = _train_step_on(state, ds, draws, train_cfg, chunks)
+    metrics = _train_step_on(state, ds, draws, train_cfg, chunks, mesh)
     state.step += 1
     return metrics
 
 
 def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
-                   train_cfg: TrainConfig, chunks: int) -> dict:
+                   train_cfg: TrainConfig, chunks: int, mesh=None) -> dict:
+    if mesh is not None:
+        draws = shard_step_draws(draws, mesh)
     gen, critic = state.gen, state.critic
     n_disc, b = draws.eps.shape
     strict = (full_f32() if gen.compute_dtype == torch.float32
@@ -173,9 +231,11 @@ def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
                 critic, frac[i], cond[i], fake[i], draws.eps[i],
                 draws.masks[i], draws.gp_masks[i], train_cfg.gp_weight)
             grads = torch.autograd.grad(loss, c_params)
+            terms = (d_loss.detach(), gp.detach(), w_dist.detach())
+            if mesh is not None:
+                grads, terms = _all_reduce_bucket(grads, terms, mesh)
             _apply(state.critic_opt, c_params, grads)
-            aux.append((d_loss.detach(), gp.detach(), w_dist.detach(),
-                        _global_norm(grads)))
+            aux.append((*terms, _global_norm(grads)))
 
         g_params = list(gen.parameters())
         cond_g = ds._cond_from_rows(draws.gen_rows)
@@ -183,6 +243,9 @@ def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
                         draws.gen_masks)
         g_loss = (-d_fake).mean()
         g_grads = torch.autograd.grad(g_loss, g_params)
+        g_loss = g_loss.detach()
+        if mesh is not None:
+            g_grads, (g_loss,) = _all_reduce_bucket(g_grads, (g_loss,), mesh)
         _apply(state.gen_opt, g_params, g_grads)
         if train_cfg.ema_decay > 0:
             d = train_cfg.ema_decay
@@ -194,7 +257,7 @@ def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
     metrics = {
         "d_loss": aux[-1][0], "d_loss_mean": d_losses.mean(),
         "gp": aux[-1][1], "w_distance": aux[-1][2],
-        "d_grad_norm": aux[-1][3], "g_loss": g_loss.detach(),
+        "d_grad_norm": aux[-1][3], "g_loss": g_loss,
         "g_grad_norm": _global_norm(g_grads),
     }
     vals = torch.stack([metrics[k].float() for k in METRIC_KEYS])
@@ -251,7 +314,10 @@ class _StepGraph:
     workspaces, K2's launch record and K1's folding matrices exist and
     nothing is set up under capture; the state itself is untouched (capture
     records work, it runs none).  Capture mode "thread_local" leaves other
-    threads, such as the artifact writer's host copies, free to run."""
+    threads, such as the artifact writer's host copies and NCCL's watchdog,
+    free to run.  A data-parallel step's all-reduces are captured with the
+    rest: the warm-up runs them eagerly first, on a communicator that
+    ``initialize_multihost`` made when the group started."""
 
     def __init__(self, state: GANTrainState, ds: DeviceDataset, step_on,
                  train_cfg: TrainConfig):
@@ -289,7 +355,7 @@ class _StepGraph:
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    batch_size: int, steps_per_call: int = 1):
+                    batch_size: int, steps_per_call: int = 1, mesh=None):
     """The fused train step ``(state, ds) -> (state, metrics)``, running
     `steps_per_call` steps per call: each step draws from ``state.rng``,
     then runs on those draws, whose rows need no check.  The state is
@@ -304,22 +370,35 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     fails raises; there is no eager fallback on the card (the eager step
     stays reachable as :func:`draw_step_inputs` + :func:`train_step_on`).
     The graph is bound to the state and dataset it captured: a call with
-    others raises, and a new batch size needs a new step."""
+    others raises, and a new batch size needs a new step.
+
+    With a data-parallel `mesh`, `batch_size` is the global batch, which
+    must divide over the mesh, and the state must be replicated
+    (train/state.py); every rank calls the step.  On the card the mesh must
+    be NCCL's: gloo's collectives cannot be captured, and the step does not
+    fall back to eager."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    chunks = hoisted_chunk_count(train_cfg, batch_size)
+    local_batch = batch_size
+    if mesh is not None:
+        lo, hi = shard_bounds(batch_size, mesh)
+        local_batch = hi - lo
+    chunks = hoisted_chunk_count(train_cfg, local_batch)
     n_disc = train_cfg.n_disc
     graphs: list = []
 
     def step_on(state: GANTrainState, ds: DeviceDataset) -> dict:
         draws = draw_step_inputs(state, ds, batch_size, n_disc)
-        return _train_step_on(state, ds, draws, train_cfg, chunks)
+        return _train_step_on(state, ds, draws, train_cfg, chunks, mesh)
 
     def train_step(state: GANTrainState, ds: DeviceDataset):
         if state.gen.cfg != model_cfg:
             raise ValueError("the state's model config differs from the "
                              "step's")
         dev = state.device
+        if mesh is not None and mesh.device != dev:
+            raise ValueError(f"the mesh computes on {mesh.device}, the state "
+                             f"lies on {dev}")
         if dev.type == "cpu":
             flag = None
             for _ in range(steps_per_call):
@@ -328,6 +407,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 flag = f if flag is None else flag | f
             metrics = _call_metrics(metrics, flag)
         elif dev.type == "cuda":
+            if mesh is not None and mesh.backend != "nccl":
+                raise ValueError(
+                    f"a data-parallel step on the card is a CUDA graph with "
+                    f"its all-reduces inside, which {mesh.backend} cannot "
+                    f"be captured in; use NCCL, or the eager "
+                    f"draw_step_inputs + train_step_on")
             if not graphs:
                 graphs.append(_StepGraph(state, ds,
                                          lambda s: step_on(s, ds), train_cfg))

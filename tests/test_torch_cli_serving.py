@@ -148,12 +148,11 @@ SUBCOMMANDS = ["rainfarm-calibrate", "rainfarm-crps", "rainfarm-generate",
 
 @pytest.mark.parametrize("name", SUBCOMMANDS)
 def test_subcommands_take_the_jax_flags(name):
-    """The JAX package's flags and defaults, without --dp (data-parallel,
-    not ported yet), plus --device (default cuda) where it computes."""
+    """The JAX package's flags and defaults, --dp included, plus --device
+    (default cuda) where it computes."""
     mine = {a.dest: a for a in _subparser(tcli.build_parser(), name)._actions}
     theirs = {a.dest: a for a in _subparser(jcli.build_parser(),
                                             name)._actions}
-    theirs.pop("dp", None)
     device = mine.pop("device", None)
     if name == "inspect":
         assert device is None

@@ -334,17 +334,35 @@ def _max_param_err(a, b) -> float:
     return err
 
 
+def _warm_adam(state) -> None:
+    """Mid-training Adam moments in place (step 1, first moments 0, second
+    moments 1e-2 * (1 + U[0, 1))), as the full-step parity test and
+    chip_smoke.py's graph check set them: from step 0 Adam's first update
+    is about lr * sign(gradient), so a gradient near 0 whose sign differs
+    between the graphed and the eager run by rounding moves a parameter by
+    2 lr; from these moments the update is linear in the gradient."""
+    g = torch.Generator(device=state.device).manual_seed(6)
+    with torch.no_grad():
+        for opt in (state.gen_opt, state.critic_opt):
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    opt.state[p]["step"].fill_(1.0)
+                    opt.state[p]["exp_avg_sq"].copy_(1e-2 * (1.0 + torch.rand(
+                        p.shape, generator=g, device=p.device)))
+
+
 def test_graphed_step_matches_eager_steps(graph_setup, drawn):
     """Each replay draws what the eager step draws from the same generator
     state, bit for bit, and trains to the same parameters (1e-4 of their
-    scale) and losses; the graph holds K1's 6 launches, 3 backward passes
-    and K2's 2 launches per step."""
+    scale) and losses from mid-training Adam moments; the graph holds K1's
+    6 launches, 3 backward passes and K2's 2 launches per step."""
     from prdisagg_torch.train import wgan_gp
     from prdisagg_torch.train.state import clone_train_state, \
         create_train_state
 
     ds, mc, cfg = graph_setup
     state = create_train_state(mc, cfg, device=ds.device)
+    _warm_adam(state)
     eager = clone_train_state(state, mc, cfg, ds.device)
     eager.rng.set_state(state.rng.get_state())
     before = dict(wgan_gp.graph_launches)
@@ -365,6 +383,51 @@ def test_graphed_step_matches_eager_steps(graph_setup, drawn):
             for k, n in wgan_gp.graph_launches.items()}
     assert grew["upsample2_conv3"] == 18 and grew["gather_patches"] == 6
     assert grew["upsample2_conv3_backward"] == 9
+
+
+def test_graphed_step_matches_eager_step_from_cold_adam(graph_setup, drawn):
+    """From Adam's cold start (step 0, zero moments; one critic update a
+    step) one replay and one eager step on the same draws see the same
+    gradients, within 1e-4 of their scale: beta1 is 0, so each first moment
+    is its gradient.  Cold, the update is -lr * g / (|g| + eps), about
+    -lr * sign(g): every parameter agrees within 1e-4 of max|p|, except
+    where the reference gradient lies within that tolerance of 0, whose
+    sign rounding may flip, moving the parameter by at most 2 lr."""
+    import dataclasses
+
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import clone_train_state, \
+        create_train_state
+
+    ds, mc, cfg = graph_setup
+    cfg = dataclasses.replace(cfg, n_disc=1)
+    assert cfg.beta1 == 0.0
+    state = create_train_state(mc, cfg, device=ds.device)
+    eager = clone_train_state(state, mc, cfg, ds.device)
+    eager.rng.set_state(state.rng.get_state())
+    _, got = wgan_gp.make_train_step(mc, cfg, 4)(state, ds)
+    ed = wgan_gp.draw_step_inputs(eager, ds, 4, cfg.n_disc)
+    assert _draws_equal(ed, drawn[wgan_gp.WARMUP_STEPS])
+    want = wgan_gp.train_step_on(eager, ds, ed, cfg)
+    g, w = got["packed"][:-1], want["packed"][:-1]
+    assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    for net in ("gen", "critic"):
+        opt_s, opt_e = getattr(state, f"{net}_opt"), getattr(eager,
+                                                             f"{net}_opt")
+        ps = [p for grp in opt_s.param_groups for p in grp["params"]]
+        pe = [p for grp in opt_e.param_groups for p in grp["params"]]
+        assert all(int(opt_e.state[p]["step"]) == 1 for p in pe)
+        gs = torch.cat([opt_s.state[p]["exp_avg"].reshape(-1) for p in ps])
+        ge = torch.cat([opt_e.state[p]["exp_avg"].reshape(-1) for p in pe])
+        g_tol = 1e-4 * ge.abs().max().item()
+        assert (gs - ge).abs().max().item() <= g_tol, net
+        dp = torch.cat([(a.detach() - b.detach()).reshape(-1).abs()
+                        for a, b in zip(ps, pe)])
+        p_tol = 1e-4 * max(b.detach().abs().max().item() for b in pe)
+        near0 = ge.abs() <= g_tol
+        assert dp[~near0].max().item() <= p_tol, net
+        if near0.any():
+            assert dp[near0].max().item() <= 2 * cfg.learning_rate + p_tol
 
 
 def test_replays_draw_different_rows_and_latents(graph_setup, drawn):

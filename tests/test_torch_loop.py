@@ -385,9 +385,10 @@ def test_multi_stage_schedule(ds, tmp_path, monkeypatch):
     made = []
     real = tloop.make_train_step
 
-    def recording(model_cfg, train_cfg, batch_size, steps_per_call=1):
+    def recording(model_cfg, train_cfg, batch_size, steps_per_call=1,
+                  mesh=None):
         made.append((batch_size, steps_per_call))
-        return real(model_cfg, train_cfg, batch_size, steps_per_call)
+        return real(model_cfg, train_cfg, batch_size, steps_per_call, mesh)
 
     monkeypatch.setattr(tloop, "make_train_step", recording)
     sched = dict(schedule=((1, 2), (2, 4)))

@@ -50,9 +50,12 @@ def _uniform(key, shape):
 
 
 def _ensemble_phases(key, n_members, shape):
-    """The phases JAX's downscale_ensemble draws from `key`."""
-    keys = jax.random.split(key, n_members)
-    return np.stack([_uniform(k, shape) for k in keys])
+    """The phases JAX's downscale_ensemble draws from `key`, drawn as it
+    draws them: uniform vmapped over the split keys.  Under the "rbg" PRNG
+    (which a JAX training state sets process-wide) a vmapped draw is not
+    the per-key loop's."""
+    return np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(
+        jax.random.split(key, n_members)))
 
 
 def _close(got, want, rtol=FIELD_RTOL):
@@ -233,6 +236,22 @@ def test_score_one_sample_matches_jax_crps_rainfarm_rows():
                 0.9, torch.tensor(_ensemble_phases(key, 6, (24, 16, 16))))
         np.testing.assert_allclose(got.numpy(), want[i], rtol=1e-5,
                                    atol=1e-7)
+
+
+@pytest.mark.parametrize("check", ["ensemble_entry", "crps_rows"])
+def test_phase_rebuilds_hold_under_the_rbg_prng(check):
+    """The two rebuilds of a vmapped JAX draw hold under the "rbg" PRNG too,
+    which any JAX test that makes a training state leaves set in its
+    worker; the previous implementation is restored afterwards."""
+    before = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "rbg")
+    try:
+        if check == "ensemble_entry":
+            test_entry_points_match_jax_on_its_phases("ensemble")
+        else:
+            test_score_one_sample_matches_jax_crps_rainfarm_rows()
+    finally:
+        jax.config.update("jax_default_prng_impl", before)
 
 
 def test_crps_rainfarm_does_not_depend_on_the_chunk(tmp_path):

@@ -82,7 +82,7 @@ def _model_pair(**kw):
 # JAX-only fields: the port has no device mesh yet and always gathers with
 # its CUDA kernel on the card
 JAX_ONLY_FIELDS = {"ModelConfig": {"spatial_axis"},
-                   "TrainConfig": {"n_data_devices", "pallas_gather"}}
+                   "TrainConfig": {"pallas_gather"}}
 
 
 @pytest.mark.parametrize("name", ["DataConfig", "ModelConfig", "TrainConfig",
