@@ -108,7 +108,32 @@ Run from the repository root.  Phases:
    launched world of 1.  Each worker reports its K1 and K2 launches;
    gloo's rates are printed and compared with nothing.  ``python3
    chip_smoke.py --dp-worker nccl|gloo`` is that worker, for this script's
-   own use.
+   own use;
+16. data: the data pipeline at the per-day size of a real day, 16 days of
+   288 five-minute frames of the dataset's 256 x 256 grid, dated across a
+   leap day: raw SMHI bytes made on the card from --seed (255 missing, dBZ
+   = x * 0.4 - 30, drifting rain blobs, a missing border); TIFFs through
+   ``cli convert-tiffs`` where Pillow is installed, otherwise ``cli
+   convert-tiffs`` must refuse, naming rasterio and Pillow, and
+   convert_and_write_days writes the .nc files; ``cli reformat-nc`` (the
+   tensor bit for bit convert_day's of the raw days, the doy sidecar the
+   dates' days); ``cli compute-indices`` on the card (the rows
+   compute_valid_indices' on the CPU); extract_patch_store on the
+   tensor's memmap through K2 (bit-exact against the plain gather and
+   against numpy slices of the memmap, one launch a day with rows; days/s
+   and rows/s); the streamed scan at two chunk sizes (the same rows);
+   ``cli train --conditioning doy`` on the files at the flagship defaults
+   (bf16, B 32, graphed), 2 epochs, and the trained generator's 8 x 125
+   scenarios in one f32 forward at B 1000, a K1 shape held above, with
+   their conservation; ``[data]`` lines with each stage's seconds and
+   MB/s;
+17. ops: ``cli doctor`` (rc 0, the probe's latency), ``cli doctor
+   --timeout`` shorter than a torch import (rc 1, detail "timeout"), and
+   ``cli supervise`` around ``cli train --synthetic --resume`` continuing
+   the cli phase's run: after its first heartbeat the training child
+   (found by its workdir in /proc/*/cmdline) is SIGSTOPped; the supervisor
+   must kill its group, probe the card, relaunch, and the relaunch resume
+   and finish (rc 0, restarts=1 stalls=1, every epoch once in hist.csv).
 
 Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
 printing no result, if any phase fails or no CUDA device is present.
@@ -209,6 +234,20 @@ DP_STAGES = [(f"{name}_b{b}", b, d, h, w, cin, cout)
              for name, _, d, h, w, cin, cout in STAGES[:3]]
 DP_SCORE_STAGES = [(f"{name}_b{EVAL_MEMBER_BATCH}", EVAL_MEMBER_BATCH, d, h, w,
                     cin, cout) for name, _, d, h, w, cin, cout in STAGES[:3]]
+# the data phase: DATA_DAYS real-size days (288 five-minute frames of the
+# dataset's grid) from DATA_FIRST_DAY, across a leap day; the streamed
+# scan at two chunk sizes; cli train's steps per epoch (2 epochs); the
+# trained generator's conditions and scenarios for its conservation check,
+# one f32 forward at B = SCENARIOS, a shape K1_CASES holds (stage0-2)
+DATA_DAYS, DATA_FIRST_DAY = 16, "2012-02-20"
+DATA_SCAN_CHUNKS = (1, DATA_DAYS)
+DATA_TRAIN_STEPS = 4
+DATA_CONDS, DATA_SCENARIOS = 8, 125
+# the ops phase: the supervised run resumes the cli phase's run (3 epochs)
+# to OPS_EPOCHS; its stall timeout, the supervisor's own limit, and a doctor
+# timeout shorter than a torch import
+OPS_EPOCHS, OPS_STALL_S, OPS_TIMEOUT_S = 6, 10, 240
+OPS_SHORT_TIMEOUT = 0.3
 K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("bfloat16",)) for s in TRAIN_STAGES]
             + [(s, ("float32", "bfloat16")) for s in DP_STAGES]
@@ -2479,9 +2518,356 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
         "serve_err": serve_err}
 
 
+# ---------------------------------------------------------------------------
+# the data pipeline and the ops surface (phases 16 and 17)
+# ---------------------------------------------------------------------------
+
+def _cli_argv(args: list) -> list:
+    """The command line of one ``python -m prdisagg_torch.cli`` call."""
+    return [sys.executable, "-m", "prdisagg_torch.cli", *args]
+
+
+def _cli_run(args: list, timeout: float):
+    """One CLI subprocess from the repository root, its output captured."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run(_cli_argv(args), cwd=root, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def _cli_ok(name: str, r) -> None:
+    check(r.returncode == 0, f"cli {name} failed (rc {r.returncode}):\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+
+
+def _raw_corpus(seed: int):
+    """(DATA_DAYS, 288, ny, nx) uint8 SMHI bytes made on the card from
+    `seed`: the encoding dBZ = x * 0.4 - 30 with 255 missing, two drifting
+    rain blobs a day with an afternoon peak, noise, and a missing border of
+    two rows (what a real composite's out-of-range edge looks like)."""
+    import torch
+
+    ny, nx = DATASET_SHAPE[2:]
+    g = torch.Generator(device=CARD).manual_seed(seed + 21)
+    yy, xx = torch.meshgrid(
+        torch.arange(ny, dtype=torch.float32, device=CARD),
+        torch.arange(nx, dtype=torch.float32, device=CARD), indexing="ij")
+    hours = torch.arange(288, dtype=torch.float32, device=CARD) / 12.0
+    envelope = (0.35 + 0.65 * torch.exp(-(hours - 15.0) ** 2 / 18.0))
+    raw = torch.empty((DATA_DAYS, 288, ny, nx), dtype=torch.uint8,
+                      device=CARD)
+    for d in range(DATA_DAYS):
+        dbz = torch.randn((288, ny, nx), generator=g, device=CARD) * 1.5
+        for _ in range(2):
+            start = torch.rand(2, generator=g, device=CARD) * ny
+            path = (start + torch.cumsum(
+                torch.randn((288, 2), generator=g, device=CARD) * 0.8,
+                dim=0)) % ny
+            d2 = (((yy - path[:, 0, None, None]) % ny) ** 2
+                  + ((xx - path[:, 1, None, None]) % nx) ** 2)
+            dbz += 45.0 * envelope[:, None, None] * torch.exp(
+                -d2 / (2 * (ny / 6) ** 2))
+        day = torch.clamp((dbz + 30.0) / 0.4, 0, 254).to(torch.uint8)
+        day[:, :2, :] = 255
+        raw[d] = day
+    return raw.cpu().numpy()
+
+
+def phase_data(seed: int, workdir: str) -> dict:
+    """The data pipeline at the per-day size of a real day (phase 16 of the
+    docstring): raw bytes -> per-day .nc -> training tensor and doy sidecar
+    -> valid indices -> the K2 patch store -> ``cli train --conditioning
+    doy`` on the files, and the trained generator's conservation."""
+    import datetime
+    import importlib.util
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+    from prdisagg_torch.core.config import DataConfig
+    from prdisagg_torch.data.indices import (
+        compute_valid_indices,
+        compute_valid_indices_streamed,
+    )
+    from prdisagg_torch.data.ingest import convert_day, day_of_year
+    from prdisagg_torch.data.native import extract_patch_store
+    from prdisagg_torch.data.netcdf_io import convert_and_write_days
+    from prdisagg_torch.ops import gather, upsample_conv
+
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.empty_cache()
+    first = datetime.date.fromisoformat(DATA_FIRST_DAY)
+    dates = [(first + datetime.timedelta(days=d)).strftime("%Y%m%d")
+             for d in range(DATA_DAYS)]
+    stages: dict = {}
+
+    def stage(name, mb, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        secs = time.perf_counter() - t0
+        stages[name] = {"seconds": secs, "MB": mb, "MB_per_s": mb / secs}
+        print(f"[data] {name}: {secs:.2f} s, {mb:.1f} MB, "
+              f"{mb / secs:.1f} MB/s", flush=True)
+        return r
+
+    ny, nx = DATASET_SHAPE[2:]
+    raw_mb = DATA_DAYS * 288 * ny * nx / 1e6
+    raw = stage("corpus", raw_mb, lambda: _raw_corpus(seed))
+    nc_dir = os.path.join(workdir, "nc")
+    tiff_dir = os.path.join(workdir, "tiffs")
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        def write_tiffs():
+            for date, day in zip(dates, raw):
+                os.makedirs(os.path.join(tiff_dir, date))
+                for step, frame in enumerate(day):
+                    Image.fromarray(frame, mode="L").save(os.path.join(
+                        tiff_dir, date, f"radar_{date}_{step:03d}.tif"))
+
+        stage("write_tiffs", raw_mb, write_tiffs)
+        r = stage("convert", raw_mb, lambda: _cli_run(
+            ["convert-tiffs", "--tiff-dir", tiff_dir, "--out-dir", nc_dir],
+            600))
+        _cli_ok("convert-tiffs", r)
+        route = "cli convert-tiffs (Pillow installed)"
+    else:
+        os.makedirs(tiff_dir)
+        r = _cli_run(["convert-tiffs", "--tiff-dir", tiff_dir, "--out-dir",
+                      nc_dir], 300)
+        print(f"[data] cli convert-tiffs without a TIFF reader: rc "
+              f"{r.returncode}, {r.stderr.strip().splitlines()[-1:]}")
+        check(r.returncode != 0 and "rasterio" in r.stderr
+              and "Pillow" in r.stderr and not os.path.exists(nc_dir),
+              f"convert-tiffs did not refuse: {r.stdout[-1000:]} "
+              f"{r.stderr[-1000:]}")
+        failed = stage("convert", raw_mb, lambda: convert_and_write_days(
+            zip(dates, raw), nc_dir))
+        check(failed == [], f"failed days {failed}")
+        route = ("convert_and_write_days in process (no TIFF reader; cli "
+                 "convert-tiffs refused, naming rasterio and Pillow)")
+    print(f"[data] convert stage: {route}")
+    nc_mb = sum(os.path.getsize(os.path.join(nc_dir, f))
+                for f in os.listdir(nc_dir)) / 1e6
+    prefix = os.path.join(workdir, "tensor")
+    r = stage("reformat_nc", nc_mb, lambda: _cli_run(
+        ["reformat-nc", "--nc-dir", nc_dir, "--out", prefix], 600))
+    _cli_ok("reformat-nc", r)
+    tensor = np.load(prefix + ".npy", mmap_mode="r")
+    want = np.stack([convert_day(day) for day in raw])
+    check(tensor.shape == want.shape and tensor.dtype == np.float32
+          and np.array_equal(np.asarray(tensor).view(np.uint32),
+                             want.view(np.uint32)),
+          "reformat-nc's tensor differs from convert_day of the raw days")
+    doy = np.load(prefix + "_doy.npy")
+    want_doy = np.array([datetime.date(int(d[:4]), int(d[4:6]), int(d[6:]))
+                         .timetuple().tm_yday for d in dates], np.float32)
+    check(np.array_equal(doy, want_doy)
+          and np.array_equal(doy, day_of_year(dates)), f"doy {doy}")
+    del want
+    tensor_mb = tensor.nbytes / 1e6
+    idx_path = os.path.join(workdir, "indices.pkl")
+    r = stage("compute_indices", tensor_mb, lambda: _cli_run(
+        ["compute-indices", "--data", prefix + ".npy", "--out", idx_path],
+        300))
+    _cli_ok("compute-indices", r)
+    with open(idx_path, "rb") as fh:
+        rows = np.asarray(pickle.load(fh), dtype=np.int32)
+    cfg = DataConfig()
+    want_rows = compute_valid_indices(np.asarray(tensor), cfg)
+    check(rows.shape == want_rows.shape and np.array_equal(rows, want_rows),
+          f"compute-indices on the card: {rows.shape} rows against "
+          f"{want_rows.shape} on the CPU")
+    n_days_with_rows = len(np.unique(rows[:, 0]))
+    print(f"[data] {len(rows)} valid rows on {n_days_with_rows} of "
+          f"{DATA_DAYS} days, equal to compute_valid_indices on the CPU")
+    check(len(rows) > 0, "no valid rows")
+
+    reset_k1_counts()
+    gather.launches = 0
+    scans = {}
+    for k in DATA_SCAN_CHUNKS:
+        torch.cuda.synchronize()
+        scans[k] = stage(f"scan_chunk{k}", tensor_mb,
+                         lambda: compute_valid_indices_streamed(
+                             tensor, cfg, device=CARD, days_per_chunk=k))
+        check(np.array_equal(scans[k], want_rows),
+              f"the streamed scan at {k} days a chunk differs")
+    for k in DATA_SCAN_CHUNKS:
+        stages[f"scan_chunk{k}"]["days_per_s"] = (
+            DATA_DAYS / stages[f"scan_chunk{k}"]["seconds"])
+    torch.cuda.synchronize()
+    store = stage("patch_store", tensor_mb, lambda: extract_patch_store(
+        tensor, rows, cfg.ndomain, device=CARD))
+    store_launches = gather.launches
+    st = stages["patch_store"]
+    st["days_per_s"] = DATA_DAYS / st["seconds"]
+    st["rows_per_s"] = len(rows) / st["seconds"]
+    plain = extract_patch_store(tensor, rows, cfg.ndomain, device="cpu")
+    nd = cfg.ndomain
+    sliced = np.stack([tensor[t, :, y:y + nd, x:x + nd] for t, y, x in rows])
+    check(store.shape == (len(rows), 24, nd, nd)
+          and np.array_equal(store, plain),
+          "the K2 patch store differs from the plain gather")
+    check(np.array_equal(store.view(np.uint32), sliced.view(np.uint32)),
+          "the K2 patch store differs from numpy slices of the memmap")
+    check(store_launches == n_days_with_rows,
+          f"{store_launches} K2 launches for {n_days_with_rows} days")
+    print(f"[data] patch store through K2: {len(rows)} rows, "
+          f"{store_launches} launches, bit-exact against the plain gather "
+          f"and against numpy slices of the memmap; "
+          f"{st['days_per_s']:.1f} days/s, {st['rows_per_s']:.0f} rows/s")
+
+    train_dir = os.path.join(workdir, "train")
+    r = stage("cli_train", tensor_mb, lambda: _cli_run(
+        ["train", "--data", prefix + ".npy", "--indices", idx_path,
+         "--conditioning", "doy", "--doy", prefix + "_doy.npy",
+         "--epochs", "2", "--steps-per-epoch", str(DATA_TRAIN_STEPS),
+         "--export-format", "npz", "--plot-every-epochs", "0",
+         "--workdir", train_dir, "--seed", str(seed)], 600))
+    _cli_ok("train --conditioning doy", r)
+    print(f"[data] cli train --conditioning doy: "
+          f"{r.stdout.strip().splitlines()[-1:]}")
+    outdir = os.path.join(train_dir, "trained_models", "wgancp_pixelnorm")
+    npz = os.path.join(outdir, sorted(
+        f for f in os.listdir(outdir) if f.startswith("gen_"))[-1])
+    check(npz.endswith("_0002.npz"), npz)
+    gen = PretrainedGenerator.from_npz(npz, None, n_cond_channels=3,
+                                       device=CARD)
+    sel = rows[:: max(1, len(rows) // DATA_CONDS)][:DATA_CONDS]
+    daily = np.stack([tensor[t, :, y:y + nd, x:x + nd].sum(axis=0)
+                      for t, y, x in sel])
+    angle = 2 * np.pi * doy[sel[:, 0]] / 365.0
+    conds = np.concatenate(
+        [daily[..., None],
+         np.broadcast_to(np.sin(angle)[:, None, None, None], daily.shape
+                         + (1,)),
+         np.broadcast_to(np.cos(angle)[:, None, None, None], daily.shape
+                         + (1,))], axis=-1).astype(np.float32)
+    check(len(conds) * DATA_SCENARIOS == SCENARIOS == STAGES[0][1]
+          and gen.max_batch >= SCENARIOS,
+          f"the doy forward's batch {len(conds)} x {DATA_SCENARIOS} is not "
+          f"one held in K1_CASES")
+    scen = gen.generate_scenarios_batch(conds, DATA_SCENARIOS)
+    cons = _conservation_err(scen, daily[:, None])
+    print(f"[data] the trained doy generator: {scen.shape} scenarios, "
+          f"conservation {cons:.3e} (bound {CONSERVATION_RTOL})")
+    check(np.isfinite(scen).all() and cons <= CONSERVATION_RTOL,
+          f"conservation {cons}")
+    counts = {"upsample2_conv3": upsample_conv.launches,
+              "upsample2_conv3_by_variant": dict(
+                  upsample_conv.launches_by_variant),
+              "gather_patches": gather.launches}
+    check(counts["upsample2_conv3"] > 0 and counts["gather_patches"] > 0,
+          f"the data path launched no kernel: {counts}")
+    print("[data] " + json.dumps({"stages": stages, "rows": len(rows),
+                                  "counts": counts}))
+    return {"counts": counts, "stages": stages, "rows": len(rows),
+            "route": route, "conservation": cons}
+
+
+def _find_pid(marker: str, exclude: str) -> int:
+    """The pid whose command line holds `marker` and not `exclude`."""
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if marker in cmd and exclude not in cmd:
+            return int(pid)
+    raise AssertionError(f"no process with {marker} in its command line")
+
+
+def phase_ops(seed: int, cli_workdir: str, workdir: str) -> dict:
+    """The ops surface (phase 17 of the docstring): ``cli doctor`` healthy,
+    ``cli doctor --timeout`` shorter than a torch import (the wedge
+    signature), and a supervised flagship run whose training child is
+    SIGSTOPped after its first heartbeat, then killed, the card probed, and
+    the run relaunched, resumed and finished."""
+    import shutil
+
+    os.makedirs(workdir, exist_ok=True)
+    run_dir = os.path.join(workdir, "run")
+    shutil.copytree(cli_workdir, run_dir)  # checkpoints of epochs 2 and 3
+    hb = os.path.join(workdir, "heartbeat")
+    train = _cli_argv(
+        ["train", "--synthetic", "--steps-per-epoch", str(CLI_STEPS),
+         "--export-format", "npz", "--plot-every-epochs", "0", "--seed",
+         str(seed), "--epochs", str(OPS_EPOCHS), "--resume", "--workdir",
+         run_dir])
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_path = os.path.join(workdir, "supervise.out")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as fo:
+        sup = subprocess.Popen(
+            _cli_argv(["supervise", "--heartbeat", hb, "--stall-timeout",
+                       str(OPS_STALL_S), "--startup-timeout", "600",
+                       "--max-restarts", "1", "--", *train]),
+            cwd=root, stdout=fo, stderr=subprocess.STDOUT, text=True)
+    # the doctors run beside the supervised run, their probes on the card
+    # while the training child holds it
+    doctors = {name: subprocess.Popen(
+        _cli_argv(["doctor", *extra]), cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, extra in (("healthy", []), ("timeout", [
+            "--timeout", str(OPS_SHORT_TIMEOUT)]))}
+    deadline = time.perf_counter() + 300
+    while not os.path.exists(hb):
+        check(sup.poll() is None, "the supervised run ended before a beat")
+        check(time.perf_counter() < deadline, "no heartbeat in 300 s")
+        time.sleep(0.05)
+    t_beat = time.perf_counter() - t0
+    child = _find_pid(run_dir, "supervise")
+    os.kill(child, signal.SIGSTOP)
+    print(f"[ops] first heartbeat after {t_beat:.1f} s; SIGSTOP to the "
+          f"training child {child}", flush=True)
+    res = {}
+    for name, proc in doctors.items():
+        stdout, _ = proc.communicate(timeout=300)
+        rep = json.loads(stdout[stdout.index("{"):])
+        res[f"doctor_{name}"] = {"rc": proc.returncode, **rep}
+        print(f"[ops] cli doctor ({name}): rc {proc.returncode} {rep}")
+    check(res["doctor_healthy"]["rc"] == 0 and res["doctor_healthy"]["ok"],
+          res["doctor_healthy"])
+    check(res["doctor_timeout"]["rc"] == 1
+          and res["doctor_timeout"]["detail"] == "timeout",
+          res["doctor_timeout"])
+    try:
+        rc = sup.wait(timeout=OPS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        sup.kill()
+        sup.wait()
+        os.kill(child, signal.SIGKILL)
+        raise
+    wall = time.perf_counter() - t0
+    with open(out_path) as fh:
+        text = fh.read()
+    print("[ops] supervise: " + " | ".join(
+        ln for ln in text.splitlines() if ln.startswith(
+            ("[supervise]", "resumed", "finished"))))
+    check(rc == 0 and "rc=0 restarts=1 stalls=1" in text,
+          f"supervise rc {rc}:\n{text[-3000:]}")
+    check("step stall" in text and "device healthy (probe" in text
+          and text.count("resumed at epoch 3") == 2
+          and f"finished at epoch {OPS_EPOCHS}" in text, text[-3000:])
+    with open(os.path.join(run_dir, "hist.csv")) as fh:
+        epochs = [line.rsplit(",", 1)[-1].strip()
+                  for line in fh.read().splitlines()[1:]]
+    check(epochs == [str(e) for e in range(1, OPS_EPOCHS + 1)], epochs)
+    print(f"[ops] supervised run: rc 0, restarts=1 stalls=1, hist.csv "
+          f"epochs {epochs}, {wall:.1f} s")
+    res.update(supervise_seconds=wall, first_beat_seconds=t_beat,
+               hist_epochs=epochs)
+    return res
+
+
 def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                   slice_by_variant: dict, eval_counts: dict,
-                  rf_counts: dict, dp_counts: dict) -> list:
+                  rf_counts: dict, dp_counts: dict,
+                  data_counts: dict) -> list:
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
@@ -2498,23 +2884,27 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/upsample_conv.cu",
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:37",
-        # the launches of the serving, training, evaluation, RainFARM and
-        # data-parallel paths (RainFARM's: the GAN arm of the three-arm
-        # protocol; dp's: its workers')
+        # the launches of the serving, training, evaluation, RainFARM,
+        # data-parallel and data paths (RainFARM's: the GAN arm of the
+        # three-arm protocol; dp's: its workers'; data's: the trained doy
+        # generator's scenarios)
         "launches": (slice_launches + counts["upsample2_conv3"]
                      + eval_counts["upsample2_conv3"]
                      + rf_counts["upsample2_conv3"]
-                     + dp_counts["upsample2_conv3"]),
+                     + dp_counts["upsample2_conv3"]
+                     + data_counts["upsample2_conv3"]),
         "launches_by_path": {"slice": slice_launches,
                              "train": counts["upsample2_conv3"],
                              "eval": eval_counts["upsample2_conv3"],
                              "rainfarm": rf_counts["upsample2_conv3"],
-                             "dp": dp_counts["upsample2_conv3"]},
+                             "dp": dp_counts["upsample2_conv3"],
+                             "data": data_counts["upsample2_conv3"]},
         "launches_by_variant": {
             v: n + slice_by_variant[v]
             + eval_counts["upsample2_conv3_by_variant"][v]
             + rf_counts["upsample2_conv3_by_variant"][v]
             + dp_counts["upsample2_conv3_by_variant"][v]
+            + data_counts["upsample2_conv3_by_variant"][v]
             for v, n in counts["upsample2_conv3_by_variant"].items()},
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
@@ -2552,16 +2942,19 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "route": "cuda",
         "source": "prdisagg_torch/csrc/gather.cu",
         "replaces": "prdisagg_tpu/ops/pallas_gather.py:30",
-        # the launches of the training, evaluation, RainFARM and
-        # data-parallel paths (RainFARM's: calibration's draws and the
-        # scored real patches; dp's: each rank's shard of a step's rows)
+        # the launches of the training, evaluation, RainFARM, data-parallel
+        # and data paths (RainFARM's: calibration's draws and the scored
+        # real patches; dp's: each rank's shard of a step's rows; data's:
+        # the patch store, one a day with rows)
         "launches": (counts["gather_patches"] + eval_counts["gather_patches"]
                      + rf_counts["gather_patches"]
-                     + dp_counts["gather_patches"]),
+                     + dp_counts["gather_patches"]
+                     + data_counts["gather_patches"]),
         "launches_by_path": {"train": counts["gather_patches"],
                              "eval": eval_counts["gather_patches"],
                              "rainfarm": rf_counts["gather_patches"],
-                             "dp": dp_counts["gather_patches"]},
+                             "dp": dp_counts["gather_patches"],
+                             "data": data_counts["gather_patches"]},
         # one train step's two launches: the n_disc*B real patches and the
         # generator update's conditions (every gather checked is in the
         # [kernel] lines)
@@ -2655,6 +3048,11 @@ def main() -> int:
     run("dp", lambda: phase_dp(out["slice"], out["train"], args.seed,
                                os.path.join(workdir.name, "dp"), card),
         needs=("slice", "train"))
+    run("data", lambda: phase_data(args.seed,
+                                   os.path.join(workdir.name, "data")))
+    run("ops", lambda: phase_ops(args.seed, os.path.join(workdir.name, "cli"),
+                                 os.path.join(workdir.name, "ops")),
+        needs=("cli",))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2663,7 +3061,8 @@ def main() -> int:
     kernels = _kernel_lines(out["kernel_check"], out["gather_check"],
                             out["train"]["counts"], out["slice"]["launches"],
                             out["slice"]["by_variant"], out["eval"]["counts"],
-                            out["rainfarm"]["counts"], out["dp"]["counts"])
+                            out["rainfarm"]["counts"], out["dp"]["counts"],
+                            out["data"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,17 +19,32 @@ for subcommand as they are ported):
   python -m prdisagg_torch.cli serve --weights gen.npz --socket /tmp/gen.sock
   python -m prdisagg_torch.cli example [--weights gen.npz]
   python -m prdisagg_torch.cli inspect --weights gen.h5 --layers
+  python -m prdisagg_torch.cli download --start 20090101 --end 20191231 --out raw/
+  python -m prdisagg_torch.cli convert-tiffs --tiff-dir raw/ --out-dir netcdf/
+  python -m prdisagg_torch.cli reformat-nc --nc-dir netcdf/ --out tensor
+  python -m prdisagg_torch.cli compute-indices --data tensor.npy --out i.pkl
+  python -m prdisagg_torch.cli doctor [--platform cpu] [--wait 3600]
+  python -m prdisagg_torch.cli supervise --stall-timeout 900 -- \\
+      python -m prdisagg_torch.cli train --data d.npy --indices i.pkl --resume
 
 Each takes the JAX package's flags, plus ``--device`` where it computes
 (default ``cuda``: the port runs on the card unless asked otherwise;
-``inspect`` touches no device); ``train`` also ``--export-format`` and
+``inspect``, ``convert-tiffs``, ``reformat-nc`` and ``download`` touch no
+device); ``train`` also ``--export-format`` and
 ``--plot-every-epochs``, and ``evaluate`` and ``lsd`` ``--no-plots``.  The
 per-epoch ``.h5`` exports (the default format) need ``h5py``, and figures
 ``matplotlib`` (the evaluation's and RainFARM's also ``seaborn``, the
 evaluation's ``pandas``); where one is missing the command refuses to
 start, names the package and the flag that turns the artifact off, if
 there is one (``example``, ``rainfarm-generate`` and ``generate --plot``
-make only figures or need them).
+make only figures or need them).  ``convert-tiffs`` needs rasterio or
+Pillow to read GeoTIFFs and refuses before any work, naming both, where
+neither is installed (the JAX package's command fails every day instead
+and exits 0); it groups a flat directory of SMHI ``radar_YYMMDDHHMM.tif``
+files by their YYMMDD day, where the JAX package takes the first 8 digits
+(YYMMDDHH) as the date.  ``compute-indices`` streams the tensor's memmap
+through ``--device`` a chunk of days at a time.  ``doctor`` and
+``supervise`` probe ``--platform`` (default cuda) in a subprocess.
 
 Data parallelism runs one process per device under a launcher that sets
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
@@ -53,6 +68,7 @@ import dataclasses
 import importlib.util
 import os
 import pickle
+import re
 import sys
 
 import numpy as np
@@ -161,7 +177,7 @@ def _dp_mesh(args):
         initialize_multihost(device=args.device)
     world = dist.get_world_size() if dist.is_initialized() else None
     if world != args.dp:
-        line = " ".join(args.argv)
+        line = " ".join(args.command_line)
         sys.exit(f"--dp {args.dp} needs a launched world of {args.dp} "
                  f"processes, one per device (this process "
                  + (f"is one of {world})" if world else "was not launched)")
@@ -594,6 +610,205 @@ def cmd_inspect(args):
     print(json.dumps(out, indent=1))
 
 
+def cmd_compute_indices(args):
+    """Valid patch indices of a training tensor, streamed from its memmap
+    through --device a chunk of days at a time (never loaded whole), as the
+    reference's pickle of (t, y, x) tuples."""
+    from prdisagg_torch.data.indices import compute_valid_indices_streamed
+
+    dcfg = _data_config(args)
+    data = np.load(args.data, mmap_mode="r")
+    idx = compute_valid_indices_streamed(
+        data, dcfg, include_last_box=args.include_last_box,
+        device=args.device)
+    out = args.out or f"data/valid_indices_smhi_radar_{dcfg.params_string()}.pkl"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "wb") as f:
+        pickle.dump([tuple(r) for r in idx], f)
+    print(f"found {len(idx)} valid samples -> {out}")
+
+
+#: SMHI's archive names: radar_YYMMDDHHMM.tif, one file per 5 minutes
+_SMHI_TIFF_RE = re.compile(r"radar_(\d{6})\d{4}\.")
+
+
+def tiff_days(tiff_dir: str) -> dict:
+    """{YYYYMMDD: [paths in lexical order]} of a GeoTIFF directory: one
+    YYYYMMDD subdirectory per day, or a flat directory (what ``download``
+    extracts).  A flat file named as SMHI names them, radar_YYMMDDHHMM,
+    belongs to the day 20YYMMDD; any other to the first 8-digit run in its
+    name (the JAX package groups every file by its first 8 digits, which
+    in an SMHI name are YYMMDDHH: one day becomes 24 false dates)."""
+    import glob
+
+    def tiffs(paths):
+        return sorted(p for p in paths
+                      if p.lower().endswith((".tif", ".tiff")))
+
+    subdirs = sorted(
+        d for d in os.listdir(tiff_dir)
+        if re.fullmatch(r"\d{8}", d)
+        and os.path.isdir(os.path.join(tiff_dir, d)))
+    if subdirs:
+        return {d: tiffs(glob.glob(os.path.join(tiff_dir, d, "*")))
+                for d in subdirs}
+    by_day: dict = {}
+    for p in tiffs(glob.glob(os.path.join(tiff_dir, "*"))):
+        name = os.path.basename(p)
+        m = _SMHI_TIFF_RE.search(name)
+        if m:
+            date = "20" + m.group(1)
+        else:
+            m = re.search(r"(\d{8})", name)
+            if not m:
+                continue
+            date = m.group(1)
+        by_day.setdefault(date, []).append(p)
+    return dict(sorted(by_day.items()))
+
+
+def cmd_convert_tiffs(args):
+    """Raw 5-min reflectivity GeoTIFFs -> per-day netCDF intermediates
+    (reference convert stage, convert_smhi_radardata.py:31-45)."""
+    from prdisagg_torch.data.ingest import TIFF_READERS, read_geotiff
+    from prdisagg_torch.data.netcdf_io import convert_and_write_days
+
+    if all(importlib.util.find_spec(m) is None for m in TIFF_READERS):
+        sys.exit("convert-tiffs reads GeoTIFFs with the 'rasterio' or the "
+                 "'Pillow' (PIL) package; neither is installed.  Install "
+                 "one, or convert raw arrays in Python with "
+                 "prdisagg_torch.data.netcdf_io.convert_and_write_days")
+    by_day = tiff_days(args.tiff_dir)
+    if not by_day:
+        sys.exit(f"no YYYYMMDD day directories or dated .tif files in "
+                 f"{args.tiff_dir}")
+
+    def raw_days():
+        for date, paths in by_day.items():
+            print(f"{date}: {len(paths)} tiffs")
+            try:
+                # an empty day or one corrupt tiff fails THAT day, not the
+                # whole conversion (convert_smhi_radardata.py:47-52)
+                raw = np.stack([read_geotiff(p) for p in paths]) \
+                    if paths else None
+            except Exception as e:  # noqa: BLE001 — per-day isolation
+                print(f"{date}: read failed ({e})")
+                raw = None
+            yield date, raw  # None -> convert_and_write_days records it
+
+    failed = convert_and_write_days(raw_days(), args.out_dir)
+    for date in failed:
+        print(f"failed: {date}")
+    print(f"converted {len(by_day) - len(failed)}/{len(by_day)} days -> "
+          f"{args.out_dir}")
+
+
+def cmd_reformat_nc(args):
+    """Per-day netCDF intermediates -> the training tensor (.npy + .npz)
+    and its day-of-year sidecar (reference reformat_data.py and
+    reformat_data_make_timelist.py), one day in memory at a time."""
+    from prdisagg_torch.data.ingest import day_of_year, save_training_tensor
+    from prdisagg_torch.data.netcdf_io import (
+        DAY_FILE_RE,
+        find_day_files,
+        reformat_from_netcdf,
+    )
+
+    dcfg = _data_config(args)
+    paths = find_day_files(args.nc_dir, dcfg.startdate, dcfg.enddate)
+    if not paths:
+        sys.exit(f"no smhi_radar_YYYYMMDD.nc files in {args.nc_dir} "
+                 f"within {dcfg.startdate}..{dcfg.enddate}")
+    tensor = reformat_from_netcdf(paths, tres=dcfg.tres)
+    prefix = args.out or os.path.splitext(dcfg.data_filename())[0]
+    os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
+    save_training_tensor(prefix, tensor)
+    print(f"reformatted {len(paths)} days -> {prefix}.npy "
+          f"shape {tensor.shape}")
+    # the dates come from the day files' names, so the sidecar stays
+    # aligned with skipped days
+    dates = [DAY_FILE_RE.search(os.path.basename(p)).group(1)
+             for p in paths]
+    doy_path = prefix + "_doy.npy" if args.out else dcfg.doy_filename()
+    np.save(doy_path, day_of_year(dates))
+    print(f"doy sidecar ({len(dates)} days) -> {doy_path}")
+
+
+def cmd_download(args):
+    from prdisagg_torch.data.download import download_range
+
+    failed = download_range(args.start, args.end, args.out)
+    print(f"failed dates: {failed}")
+
+
+def cmd_doctor(args):
+    """Device health check: one small computation in a subprocess with a
+    hard timeout, so a wedged device cannot hang this command.  rc 0 =
+    healthy, 1 = unhealthy (the wedge signature is detail='timeout').
+
+    --wait S polls until the device answers or S seconds elapse:
+    `doctor --wait 21600 && python -m prdisagg_torch.cli train ...`."""
+    import json
+    import time
+
+    from prdisagg_torch.utils import watchdog
+
+    platform = args.platform or "cuda"
+    t0 = time.time()
+    while True:
+        res = watchdog.probe_backend(platform, timeout_s=args.timeout)
+        if res["ok"] or args.wait is None:
+            break
+        waited = time.time() - t0
+        if waited + args.wait_interval > args.wait:
+            res["waited_s"] = round(waited, 1)
+            break
+        print(f"# unhealthy ({res['detail']}); waited {waited:.0f}s of "
+              f"{args.wait:.0f}s, retry in {args.wait_interval:.0f}s",
+              flush=True)
+        time.sleep(args.wait_interval)
+    res["platform"] = platform
+    print(json.dumps(res, indent=2))
+    raise SystemExit(0 if res["ok"] else 1)
+
+
+def cmd_supervise(args):
+    """Run a training command under heartbeat supervision: the child is
+    killed and relaunched if its Trainer stops making device progress (a
+    wedged device); ``--resume`` in the command makes the relaunch
+    continue, not restart.  Example:
+
+      python -m prdisagg_torch.cli supervise --stall-timeout 900 -- \\
+          python -m prdisagg_torch.cli train --synthetic --resume --workdir W
+    """
+    import tempfile
+
+    from prdisagg_torch.utils.watchdog import supervise
+
+    cmd = list(args.argv)
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd:
+        raise SystemExit("supervise: no command given (use `-- cmd ...`)")
+    # per invocation: two supervised runs sharing one heartbeat file would
+    # mask each other's stalls
+    hb_path = args.heartbeat or os.path.join(
+        tempfile.gettempdir(), f"prdisagg_heartbeat.{os.getpid()}")
+    res = supervise(
+        cmd,
+        heartbeat_path=hb_path,
+        stall_timeout_s=args.stall_timeout,
+        startup_timeout_s=args.startup_timeout,
+        max_restarts=args.max_restarts,
+        probe_platform=args.platform,
+        probe_on_stall=not args.no_probe,
+        probe_max_wait_s=args.probe_max_wait,
+    )
+    print(f"[supervise] rc={res.returncode} restarts={res.restarts} "
+          f"stalls={res.stalls} wall={res.wall_s / 60:.1f} min", flush=True)
+    raise SystemExit(0 if res.returncode == 0 else 1)
+
+
 def _add_device_arg(p, what: str) -> None:
     p.add_argument("--device", default="cuda",
                    help=f"where {what} (default cuda; 'cpu' runs the plain "
@@ -858,13 +1073,90 @@ def build_parser():
     ins.add_argument("--layers", action="store_true",
                      help="also list per-layer shapes and dtypes")
     ins.set_defaults(fn=cmd_inspect)
+
+    ct = sub.add_parser("convert-tiffs", help="raw 5-min radar GeoTIFFs -> "
+                        "per-day .nc intermediates (reference "
+                        "convert_smhi_radardata.py stage; needs rasterio or "
+                        "Pillow)")
+    ct.add_argument("--tiff-dir", dest="tiff_dir", required=True,
+                    help="root with one YYYYMMDD subdirectory per day, each "
+                         "holding that day's 288 five-minute GeoTIFFs in "
+                         "lexical order, or a flat directory of SMHI "
+                         "radar_YYMMDDHHMM.tif files")
+    ct.add_argument("--out-dir", dest="out_dir", required=True,
+                    help="directory for smhi_radar_YYYYMMDD.nc outputs "
+                         "(mm/5min; tres aggregation happens at reformat-nc)")
+    ct.set_defaults(fn=cmd_convert_tiffs)
+
+    rn = sub.add_parser("reformat-nc", help="per-day .nc intermediates -> "
+                        "training tensor (reference reformat_data.py stage)")
+    _add_data_args(rn, with_dataset=False)
+    rn.add_argument("--nc-dir", dest="nc_dir", required=True,
+                    help="directory of smhi_radar_YYYYMMDD.nc files")
+    rn.add_argument("--out", help="output path prefix (.npy/.npz appended)")
+    rn.set_defaults(fn=cmd_reformat_nc)
+
+    c = sub.add_parser("compute-indices")
+    _add_data_args(c, with_dataset=False)
+    _add_device_arg(c, "each chunk of days is summed")
+    c.add_argument("--data", required=True)
+    c.add_argument("--out")
+    c.add_argument("--include-last-box", action="store_true",
+                   help="fix the reference's off-by-one sweep boundary")
+    c.set_defaults(fn=cmd_compute_indices)
+
+    d = sub.add_parser("download")
+    d.add_argument("--start", default="20090101")
+    d.add_argument("--end", default="20191231")
+    d.add_argument("--out", required=True)
+    d.set_defaults(fn=cmd_download)
+
+    dr = sub.add_parser("doctor", help="probe device health in a "
+                        "subprocess (never hangs on a wedged device)")
+    dr.add_argument("--platform", default=None,
+                    help="device to probe: cuda (the default) or cpu")
+    dr.add_argument("--timeout", type=float, default=60.0)
+    dr.add_argument("--wait", type=float, default=None,
+                    help="keep probing up to this many seconds until the "
+                         "device answers (rc 0 on recovery)")
+    dr.add_argument("--wait-interval", type=float, default=120.0)
+    dr.set_defaults(fn=cmd_doctor)
+
+    sv = sub.add_parser(
+        "supervise", help="run a training command under heartbeat "
+        "supervision; kill + resume it if the device wedges")
+    sv.add_argument("--heartbeat", default=None,
+                    help="liveness file (exported as PRDISAGG_HEARTBEAT; "
+                         "the Trainer beats it every metrics fetch). "
+                         "Default: a per-invocation file in the temporary "
+                         "directory: concurrent supervised runs must not "
+                         "share one file")
+    sv.add_argument("--stall-timeout", type=float, default=900.0,
+                    help="seconds of heartbeat silence before the child "
+                         "is declared wedged and killed")
+    sv.add_argument("--startup-timeout", type=float, default=None,
+                    help="silence allowance before the FIRST beat "
+                         "(default 4x stall timeout: kernel builds and the "
+                         "step's graph capture come first)")
+    sv.add_argument("--max-restarts", type=int, default=3)
+    sv.add_argument("--platform", default=None,
+                    help="device for recovery probes: cuda (the default) "
+                         "or cpu")
+    sv.add_argument("--no-probe", action="store_true",
+                    help="relaunch immediately after a stall kill instead "
+                         "of waiting for a healthy device probe")
+    sv.add_argument("--probe-max-wait", type=float, default=6 * 3600.0,
+                    help="give up if the device stays unhealthy this long")
+    sv.add_argument("argv", nargs=argparse.REMAINDER,
+                    help="-- command to run")
+    sv.set_defaults(fn=cmd_supervise)
     return p
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    args.argv = argv
+    args.command_line = argv  # what --dp prints back in its launch line
     import torch.distributed as dist
 
     started_here = not dist.is_initialized()

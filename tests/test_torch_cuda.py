@@ -767,3 +767,78 @@ def test_wire_float16_halves_the_copied_bytes(cuda):
     assert copied["float16"] * 2 == copied["float32"] == 64 * 24 * 256 * 4
     np.testing.assert_allclose(out["float16"], out["float32"], rtol=0,
                                atol=1e-3 * cond.max())
+
+
+# --------------------------------------------------------------------------
+# the data pipeline on the card: the streamed scan, the K2 patch store
+# --------------------------------------------------------------------------
+
+def _rain_tensor(days, ny, nx, seed):
+    rng = np.random.RandomState(seed)
+    data = rng.gamma(0.5, 3.0, size=(days, 24, ny, nx)).astype(np.float32)
+    data[1, :, 5:12, 8:15] = np.nan
+    return data
+
+
+def test_streamed_scan_on_the_card_matches_cpu(cuda, tmp_path):
+    from prdisagg_torch.core.config import DataConfig
+    from prdisagg_torch.data.indices import (
+        compute_valid_indices,
+        compute_valid_indices_streamed,
+    )
+
+    path = str(tmp_path / "d.npy")
+    np.save(path, _rain_tensor(7, 80, 72, 1))
+    mm = np.load(path, mmap_mode="r")
+    for include_last_box in (False, True):
+        cfg = DataConfig(ndomain=16, stride=8)
+        want = compute_valid_indices(np.asarray(mm), cfg, include_last_box)
+        assert len(want) > 0
+        for k in (1, 3, 7):
+            got = compute_valid_indices_streamed(
+                mm, cfg, include_last_box, device=cuda, days_per_chunk=k)
+            np.testing.assert_array_equal(got, want)
+
+
+def test_patch_store_through_k2_is_bit_exact(cuda, tmp_path):
+    """Days with many rows, one row and none, the last row and column; one
+    K2 launch per day with rows; the record cache stays bounded as B
+    changes from day to day."""
+    from prdisagg_torch.data.native import (
+        extract_patch_store,
+        gather_patches_native,
+    )
+    from prdisagg_torch.ops import gather
+
+    data = _rain_tensor(6, 64, 48, 2)
+    path = str(tmp_path / "d.npy")
+    np.save(path, data)
+    mm = np.load(path, mmap_mode="r")
+    rng = np.random.RandomState(4)
+    rows = [[0, 48, 32], [3, 0, 0]]  # day 3: one row; days 1 and 4: none
+    for t, n in ((0, 70), (2, 5), (5, 33)):
+        rows += [[t, y, x] for y, x in zip(rng.randint(0, 49, n),
+                                           rng.randint(0, 33, n))]
+    idx = np.array(rows, np.int32)[rng.permutation(len(rows))]
+    want = extract_patch_store(mm, idx, 16, device="cpu")
+    before = gather.launches
+    got = extract_patch_store(mm, idx, 16, device=cuda)
+    assert gather.launches - before == 4  # days 0, 2, 3 and 5
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        gather_patches_native(data, idx, 16, device=cuda), want)
+    for _ in range(3):  # many more B values than records kept
+        for b in range(1, 40):
+            extract_patch_store(mm, idx[:b], 16, device=cuda)
+    assert len(gather._records) <= gather._MAX_RECORDS
+    with pytest.raises(ValueError, match="out of range"):
+        extract_patch_store(mm, np.array([[0, 49, 0]], np.int32), 16,
+                            device=cuda)
+
+
+def test_probe_backend_on_the_card(cuda):
+    from prdisagg_torch.utils.watchdog import probe_backend
+
+    res = probe_backend("cuda", timeout_s=120)
+    assert res["ok"], res
+    assert res["latency_s"] is not None

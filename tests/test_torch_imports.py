@@ -45,6 +45,10 @@ def test_port_files_found():
         assert f"prdisagg_torch/eval/{module}.py" in names
     for module in ("core", "pipeline"):
         assert f"prdisagg_torch/baselines/rainfarm/{module}.py" in names
+    for module in ("ingest", "netcdf_io", "download", "native", "indices"):
+        assert f"prdisagg_torch/data/{module}.py" in names
+    for module in ("watchdog", "stagecache", "profiling"):
+        assert f"prdisagg_torch/utils/{module}.py" in names
     assert "chip_smoke.py" in names
 
 
