@@ -18,8 +18,11 @@ Run from the repository root.  Phases:
    plain version's, one cuDNN convolution of the upsampled input (timed
    only) and the card's bound for the same work; every shape must take the
    fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32
-   also its backward, timed and held against autograd through the plain
-   version, beside its bound and autograd through the cuDNN convolution;
+   and at a gloo rank's 16 also its backward kernels (dx and dkernel with
+   their split reductions), held against autograd through the plain
+   version and a second call bit for bit, timed beside the plain backward
+   (the phase convolutions' cuDNN gradients), autograd through the cuDNN
+   convolution and the bound;
 4. dataset: a synthetic radar tensor of 448 days x 24 h x 256 x 256 (2.8 GB
    of float32, a multi-year store) made on the card from --seed with the
    synthetic-data recipe, and its valid patch indices;
@@ -42,15 +45,19 @@ Run from the repository root.  Phases:
    on the card-resident dataset, the step a CUDA graph: one epoch with the
    warm-up and capture, then 4 calls of 50 replays timed; checks finite
    metrics, changed parameters, the kernel counts (6 K1 launches, all fast,
-   3 K1 backward passes and 2 K2 launches per step, through the wrappers
+   3 K1 backward passes with their fast dx, dk and fold kernels and the
+   reduces of split dx, and 2 K2 launches per step, through the wrappers
    at warm-up and capture and per replay after), the checkpoint and
    exports; then EAGER_STEPS eager steps (draw_step_inputs +
    train_step_on) for the eager rate, the graphed step's peak memory (it
    must not copy the data), conservation of the trained generator, a
    profile of one call of 10 replays (device busy and idle share, and the
-   hand-written kernels counted by name inside the graph), a profile of one
-   eager step (with K1's backward device time) and one float32 step on the
-   card against the same step on the CPU path;
+   hand-written kernels, K1's backward ones too, counted by name inside the
+   graph), profiles of one eager step with K1's backward kernels and with
+   the plain backward in their place (K1's backward device time, the
+   elementwise and layout kernels' counts; no cuDNN gradient inside K1's
+   backward node with the kernels) and one float32 step on the card
+   against the same step on the CPU path;
 9. graph check: float32, smoke width, dropout on, from mid-training Adam
    moments: the graphed step against eager steps from the same state and
    generator state, draws bit for bit, losses and parameters within 1e-4
@@ -215,7 +222,9 @@ RAINFARM_CHECK = dict(members=8, ds_factor=4, rtol=1e-5, slope_rtol=1e-8)
 # its per-forward cap (4 forwards of 2000); f16 wire conservation
 CLI_SCENARIOS, CLI_STACK, CLI_STACK_MAX_BATCH = 1000, 8, 2000
 WIRE_F16_RTOL = 1e-3
-# kernel launches of one flagship train step, through the wrappers
+# kernel launches of one flagship train step, through the wrappers: K1's
+# forward, its backward passes and K2 (K1's backward kernels by
+# train_per_step())
 TRAIN_PER_STEP = {"upsample2_conv3": 6, "upsample2_conv3_fast": 6,
                   "upsample2_conv3_general": 0,
                   "upsample2_conv3_backward": 3, "gather_patches": 2}
@@ -254,6 +263,27 @@ K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("float32",)) for s in DP_SCORE_STAGES])
 
 
+def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH) -> dict:
+    """The wrappers' counts of one flagship train step whose generator
+    update runs at `batch` in `dtype`: TRAIN_PER_STEP, and K1's backward
+    kernels at each stage as k1_backward_plan picks them (dx, dk and dk's
+    fold; dx's reduce where its reduction is split)."""
+    import torch
+
+    from prdisagg_torch.ops import upsample_conv
+
+    per = dict(TRAIN_PER_STEP)
+    per.update({f"upsample2_conv3_backward_{k}": 0
+                for k in upsample_conv.BACKWARD_KERNELS})
+    for _, _, d, h, w, cin, cout in STAGES[:3]:
+        plan = upsample_conv.k1_backward_plan(getattr(torch, dtype), batch, d,
+                                              h, w, cin, cout)
+        ran = [f"dx_{plan.variant}", f"dk_{plan.variant}", "dk_fold"]
+        for k in ran + ["dx_reduce"] * (plan.dx.splits > 1):
+            per[f"upsample2_conv3_backward_{k}"] += 1
+    return per
+
+
 def check(ok: bool, what) -> None:
     """An assertion that also holds under python -O."""
     if not ok:
@@ -267,6 +297,8 @@ def reset_k1_counts() -> None:
     upsample_conv.launches = upsample_conv.backward_calls = 0
     upsample_conv.launches_by_variant = dict.fromkeys(
         upsample_conv.VARIANTS, 0)
+    upsample_conv.backward_launches_by_variant = dict.fromkeys(
+        upsample_conv.BACKWARD_KERNELS, 0)
 
 
 def fast_only(n: int) -> dict:
@@ -401,48 +433,106 @@ def _kernel_row(name, dtype, shape, flops, nbytes, peak_flops, **kw) -> dict:
                 library_ratio=kw["ms"] / kw["library_ms"])
 
 
-def _k1_backward(x, k, bias, g, flops: float, peak_flops: float) -> dict:
-    """K1's backward (the phase convolutions' gradients) against autograd
-    through the plain version, both timed, beside its bound (2x the
-    forward's FLOPs: dx and dkernel) and autograd through one cuDNN conv of
-    the upsampled input (timed only)."""
+def _plain_backward_ms(fn) -> dict:
+    """The plain backward's device time by :func:`queued_ms`; where cuDNN
+    makes the host wait inside a call (seen in float32), so that the calls
+    cannot be queued, the median of CUDA-event-timed calls instead, and
+    which of the two it is."""
+    try:
+        return {"backward_plain_ms": queued_ms(fn, 10),
+                "backward_plain_timer": "queued"}
+    except AssertionError:
+        return {"backward_plain_ms": cuda_ms(fn, 10),
+                "backward_plain_timer": "events"}
+
+
+def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
+                 tol: tuple) -> dict:
+    """K1's backward kernels (through the autograd.Function) against
+    autograd through the plain version (rtol, atol of the maximum in
+    `tol`), a second call bit for bit, and the kernels k1_backward_plan
+    names; device times (:func:`queued_ms`) of the kernels
+    (upsample2_conv3_backward_cuda on the forward's packed weights, as the
+    main path calls it, and ``call_ms`` with CUDA events around one call),
+    of the plain backward (the phase convolutions' cuDNN
+    gradients, upsample2_conv3_backward) and of autograd through one cuDNN
+    conv of the upsampled input (the library), beside the bound: 2x the
+    forward's FLOPs (dx and dkernel) or the bytes of x, g, dx, the kernel
+    and its gradient, whichever is larger."""
     import torch
     import torch.nn.functional as F
 
+    from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import upsample3d_nearest
-
     from prdisagg_torch.ops.upsample_conv import (
+        k1_backward_plan,
+        pack_phase_kernels,
         upsample2_conv3,
         upsample2_conv3_backward,
+        upsample2_conv3_backward_cuda,
         upsample2_conv3_reference,
     )
 
     leaves = [t.detach().requires_grad_(True) for t in (x, k, bias)]
+    before = dict(upsample_conv.backward_launches_by_variant)
     got = torch.autograd.grad(upsample2_conv3(*leaves), leaves, g)
+    ran = {n: c - before[n] for n, c in
+           upsample_conv.backward_launches_by_variant.items()
+           if c != before[n]}
+    again = torch.autograd.grad(upsample2_conv3(*leaves), leaves, g)
     want = torch.autograd.grad(upsample2_conv3_reference(*leaves), leaves, g)
+    torch.cuda.synchronize()
+    plan = k1_backward_plan(x.dtype, *x.shape, k.shape[-1])
+    expect = {f"dx_{plan.variant}": 1, f"dk_{plan.variant}": 1,
+              "dk_fold": 1, "dx_reduce": int(plan.dx.splits > 1)}
+    expect = {n: c for n, c in expect.items() if c}
+    rtol, atol = tol
+    within = all(bool(((a.float() - c.float()).abs()
+                       <= atol * c.float().abs().max()
+                       + rtol * c.float().abs()).all().item())
+                 for a, c in zip(got, want))
     lx, lk, lb = (t.detach().requires_grad_(True) for t in (x, k, bias))
     lib_leaves = [lx, lk, lb]
     xu = upsample3d_nearest(lx, 2).permute(0, 4, 1, 2, 3)
     lib_out = F.conv3d(xu, lk.permute(4, 3, 0, 1, 2).to(x.dtype),
                        lb.to(x.dtype), padding=1)
     lib_g = g.permute(0, 4, 1, 2, 3)
+    ops_ms = 1e3 * 2 * flops / peak_flops
+    nbytes = (x.element_size() * (2 * x.numel() + g.numel())
+              + 2 * 4 * k.numel())
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    # as the main path calls them: on the forward's packed weights
+    kp = pack_phase_kernels(k, x.dtype)
+    kernels = lambda: upsample2_conv3_backward_cuda(  # noqa: E731
+        x, k, g, kp=kp)
     return dict(
+        backward_ok=within and ran == expect and all(
+            torch.equal(a, b) for a, b in zip(got, again)),
+        backward_within_tol=within,
+        backward_bit_identical=all(torch.equal(a, b)
+                                   for a, b in zip(got, again)),
+        backward_kernels=ran, backward_expected_kernels=expect,
+        backward_plan={"variant": plan.variant, "dx": plan.dx._asdict(),
+                       "dk": plan.dk._asdict()},
+        backward_max_abs_err=max((a.float() - c.float()).abs().max().item()
+                                 for a, c in zip(got, want)),
         backward_max_err_over_max=max(
             ((a.float() - c.float()).abs().max()
              / c.float().abs().max()).item() for a, c in zip(got, want)),
-        backward_ms=cuda_ms(lambda: upsample2_conv3_backward(x, k, g), 10),
-        backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(
-            upsample2_conv3_reference(*leaves), leaves, g), 10),
-        backward_bound_ms=1e3 * 2 * flops / peak_flops,
-        backward_library_ms=cuda_ms(lambda: torch.autograd.grad(
+        backward_ms=queued_ms(kernels, 10),
+        backward_call_ms=cuda_ms(kernels, 10),
+        **_plain_backward_ms(lambda: upsample2_conv3_backward(x, k, g)),
+        backward_bound_ms=max(ops_ms, bytes_ms),
+        backward_bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        backward_library_ms=queued_ms(lambda: torch.autograd.grad(
             lib_out, lib_leaves, lib_g, retain_graph=True), 10))
 
 
 def phase_kernel_check(seed: int) -> dict:
     """K1 against its plain version at every shape of K1_CASES, with its
     time beside the plain version's and one cuDNN convolution of the
-    upsampled input (timed only); at the generator update's batch also its
-    backward.  Forward times are device times (:func:`queued_ms`);
+    upsampled input (timed only); at the generator update's batch (one
+    card's and a gloo rank's) also its backward.  Forward times are device times (:func:`queued_ms`);
     ``call_ms`` is one call timed with CUDA events, launch included."""
     import torch
     import torch.nn.functional as F
@@ -488,11 +578,14 @@ def phase_kernel_check(seed: int) -> dict:
                 max_err = err.max().item()
                 del got, err
                 extra = {}
-                if b == TRAIN_BATCH:  # the generator update's backward
+                # the generator update's backward, at one card's batch
+                # and at a rank's of the gloo world
+                if b in (TRAIN_BATCH, TRAIN_BATCH // DP_GLOO_WORLD):
                     g = torch.randn(ref.shape, generator=gen,
                                     device=dev).to(dtype)
-                    extra = _k1_backward(x, k, bias, g, flops, peak)
-                    good &= extra["backward_max_err_over_max"] <= atol
+                    extra = _k1_backward(x, k, bias, g, flops, peak,
+                                         (rtol, atol))
+                    good &= extra["backward_ok"]
                 reps = 10
                 ms = queued_ms(lambda: upsample2_conv3_cuda(x, kp, bias), reps)
                 # one call timed with CUDA events, the Python launch included
@@ -646,9 +739,10 @@ def phase_gather_check(ds, seed: int) -> dict:
 
 
 def _f32_step_check(state, ds, seed: int) -> dict:
-    """One float32 step (dropout 0, pre-drawn inputs) from the trained state
-    on the card and on the CPU path; losses within rtol 1e-4 of the losses'
-    scale and every parameter within 1e-4 * max|p| over its net."""
+    """One float32 step (dropout 0, pre-drawn inputs) from the trained
+    parameters, with mid-training Adam moments, on the card and on the CPU
+    path; losses within rtol 1e-4 of the losses' scale and every parameter
+    within 1e-4 * max|p| over its net."""
     import torch
 
     from prdisagg_torch.core.config import TrainConfig
@@ -672,9 +766,15 @@ def _f32_step_check(state, ds, seed: int) -> dict:
                  eps=torch.rand((n_disc, b), generator=g),
                  gen_latent=torch.randn((b, cfg.latent_dim), generator=g),
                  gen_rows=ds_cpu.draw_rows(b, g))
+    # the trained parameters with mid-training Adam moments (_warm_adam):
+    # a trained critic holds weights whose second moment is exactly 0, and
+    # there Adam moves by about lr * sign(g), so that rounding decides a
+    # 2 lr difference between the two devices
+    base = clone_train_state(state, cfg, tcfg, CARD)
+    _warm_adam(base, seed)
     out = {}
     for dev, data in ((CARD, ds), ("cpu", ds_cpu)):
-        st = clone_train_state(state, cfg, tcfg, dev)
+        st = clone_train_state(base, cfg, tcfg, dev)
         dr = StepDraws(masks=[None] * n_disc, gp_masks=[None] * n_disc,
                        gen_masks=None,
                        **{k: v.to(dev) for k, v in draws.items()})
@@ -713,13 +813,52 @@ def _train_exp(epochs: int, seed: int, **train_kw):
 def _k1_backward_ms(prof) -> float:
     """Device milliseconds of the kernels launched inside K1's backward
     (the autograd node of ops/upsample_conv.py's Function), from a
-    profile's operator tree."""
-    total = 0.0
-    for a in prof.key_averages():
-        if "_UpsampleConv3Backward" in a.key:
-            total += getattr(a, "device_time_total",
-                             getattr(a, "cuda_time_total", 0.0))
-    return total / 1e3
+    profile's operator tree.  Two operators carry the node's name, the
+    engine's ``evaluate_function`` and the node nested in it, each with the
+    kernels below it: the outer one's time is the node's."""
+    return max((getattr(a, "device_time_total",
+                        getattr(a, "cuda_time_total", 0.0))
+                for a in prof.key_averages()
+                if "_UpsampleConv3Backward" in a.key), default=0.0) / 1e3
+
+
+# the hand-written kernels, by a part of their names in a profile
+BY_NAME = ("k1_bf16_wgmma", "k1_f32_fma", "k1_general", "k2_gather",
+           "k1_dx_bf16_wgmma", "k1_dk_bf16_wgmma", "k1_dx_fma", "k1_dk_fma",
+           "k1_dx_reduce", "k1_dk_fold")
+
+
+def _eager_backward(prof: dict) -> dict:
+    """What one eager step's profile says of K1's backward: the device ms
+    of its autograd node and of its kernels by name, the step's busy ms
+    and its elementwise and NCHW-to-NHWC kernel counts, and whether a cuDNN
+    convolution gradient ran inside the node."""
+    def below(ev):
+        for c in ev.cpu_children:
+            yield c
+            yield from below(c)
+
+    cudnn = any("convolution_backward" in c.name
+                for e in prof["prof"].events()
+                if "_UpsampleConv3Backward" in e.name for c in below(e))
+    names = prof["count_by_name"]
+    return {"node_ms": _k1_backward_ms(prof["prof"]),
+            "kernels_ms": sum(ms for n, ms in prof["ms_by_name"].items()
+                              if "k1_dx_" in n or "k1_dk_" in n),
+            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            "elementwise_kernel<128, 4>": sum(
+                c for n, c in names.items() if "elementwise_kernel<128, 4" in n),
+            "elementwise_all": sum(c for n, c in names.items()
+                                   if "elementwise_kernel" in n),
+            "nchwToNhwc": sum(c for n, c in names.items()
+                              if "nchwToNhwc" in n),
+            "cudnn_in_node": cudnn}
+
+
+def _backward_kernels(counts: dict) -> dict:
+    """K1's backward kernels' counts out of the wrappers' counter names."""
+    pre = "upsample2_conv3_backward_"
+    return {k[len(pre):]: n for k, n in counts.items() if k.startswith(pre)}
 
 
 def _executed_counts(wrappers: dict, captured: dict, replayed: dict) -> dict:
@@ -738,7 +877,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     import numpy as np
     import torch
 
-    from prdisagg_torch.ops import gather
+    from prdisagg_torch.ops import gather, upsample_conv
     from prdisagg_torch.train import wgan_gp
     from prdisagg_torch.train.loop import Trainer
     from prdisagg_torch.train.wgan_gp import (
@@ -747,6 +886,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
         train_step_on,
     )
 
+    kernel_backward = upsample_conv.upsample2_conv3_backward_cuda
     epochs = WARM_EPOCHS + TIMED_EPOCHS
     exp = _train_exp(epochs, seed, log_every_steps=STEPS_PER_EPOCH,
                      checkpoint_every_epochs=epochs)
@@ -771,7 +911,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     captured = dict(wgan_gp.graph_captured)
     replayed = dict(wgan_gp.graph_launches)
     steps = epochs * STEPS_PER_EPOCH
-    per_step = TRAIN_PER_STEP
+    per_step = train_per_step()
     executed = _executed_counts(wrappers, captured, replayed)
     print(f"[train] main path: Trainer.fit, {steps} steps at batch "
           f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16, as {epochs} calls of "
@@ -789,6 +929,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
                   v: executed[f"upsample2_conv3_{v}"] for v in ("fast",
                                                                "general")},
               "upsample2_conv3_backward": executed["upsample2_conv3_backward"],
+              "upsample2_conv3_backward_kernels": _backward_kernels(executed),
               "gather_patches": executed["gather_patches"]}
     vals = np.array([hist[k] for k in hist if k != "epoch"])
     check(np.isfinite(vals).all(), f"non-finite metrics {hist}")
@@ -866,22 +1007,48 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     def runs(part: str) -> int:
         return sum(n for k, n in names.items() if part in k)
 
-    in_graph = {"k1_bf16_wgmma": runs("k1_bf16_wgmma"),
-                "k1_f32_fma": runs("k1_f32_fma"),
-                "k1_general": runs("k1_general"),
-                "k2_gather": runs("k2_gather")}
+    in_graph = {name: runs(name) for name in BY_NAME}
     print(f"[train] kernels in the profiled replays by name: {in_graph} "
           f"({PROFILE_REPLAYS} steps)")
-    check(in_graph == {"k1_bf16_wgmma": 6 * PROFILE_REPLAYS, "k1_f32_fma": 0,
-                       "k1_general": 0, "k2_gather": 2 * PROFILE_REPLAYS},
+    bwd = per_step
+    want = {"k1_bf16_wgmma": 6, "k2_gather": 2,
+            "k1_dx_bf16_wgmma": bwd["upsample2_conv3_backward_dx_fast"],
+            "k1_dk_bf16_wgmma": bwd["upsample2_conv3_backward_dk_fast"],
+            "k1_dx_reduce": bwd["upsample2_conv3_backward_dx_reduce"],
+            "k1_dk_fold": bwd["upsample2_conv3_backward_dk_fold"]}
+    check(in_graph == {n: want.get(n, 0) * PROFILE_REPLAYS for n in BY_NAME},
           f"the graph's kernels are not the hand-written ones: {in_graph}")
-    eager_prof = profile_breakdown(
-        lambda: (train_step_on(state, ds, draw_step_inputs(
-            state, ds, TRAIN_BATCH, N_DISC), exp.train),
-            torch.cuda.synchronize()),
-        f"one eager step, bf16 batch {TRAIN_BATCH}", top=6, host_top=6)
-    k1_bwd = None if eager_prof is None else _k1_backward_ms(
-        eager_prof["prof"])
+    print("[train] hand-written kernels' device ms a step in the replays: "
+          + json.dumps({n: sum(ms for k, ms in graph_prof["ms_by_name"].items()
+                               if n in k) / PROFILE_REPLAYS
+                        for n in BY_NAME if in_graph[n]}))
+
+    def eager_step():
+        train_step_on(state, ds, draw_step_inputs(state, ds, TRAIN_BATCH,
+                                                  N_DISC), exp.train)
+        torch.cuda.synchronize()
+
+    # one eager step with K1's backward kernels, then with the plain
+    # backward (the phase convolutions' cuDNN gradients) in their place
+    eager = {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            upsample_conv.upsample2_conv3_backward_cuda = (
+                lambda *a, kp=None: upsample_conv.upsample2_conv3_backward(
+                    *a))
+        try:
+            prof = profile_breakdown(
+                eager_step, f"one eager step, bf16 batch {TRAIN_BATCH}, K1 "
+                f"backward by its {route}", top=6, host_top=6)
+        finally:
+            upsample_conv.upsample2_conv3_backward_cuda = kernel_backward
+        eager[route] = None if prof is None else _eager_backward(prof)
+        print(f"[train] K1 backward by its {route}, one eager step: "
+              f"{json.dumps(eager[route])}")
+    check(eager["kernels"] is None or not eager["kernels"]["cudnn_in_node"],
+          f"cuDNN gradients inside K1's backward: {eager['kernels']}")
+    k1_bwd = None if eager["kernels"] is None \
+        else eager["kernels"]["node_ms"]
     print(f"[train] K1 backward device time per step (3 passes, eager "
           f"profile): {k1_bwd} ms")
     f32 = _f32_step_check(state, ds, seed)
@@ -890,7 +1057,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
             "conservation": cons, "f32": f32,
             "graph_profile": {k: graph_prof[k] for k in (
                 "window_ms", "busy_ms", "idle_share")},
-            "k1_backward_ms": k1_bwd}
+            "k1_backward_ms": k1_bwd, "eager_profiles": eager}
 
 
 def _warm_adam(state, seed: int) -> None:
@@ -2066,10 +2233,10 @@ def phase_serve_cli(sl: dict, workdir: str) -> dict:
 
 
 def _dp_counts() -> dict:
-    """The K1 and K2 wrappers' counters, by the names of TRAIN_PER_STEP."""
+    """The K1 and K2 wrappers' counters (wgan_gp.kernel_counts)."""
     from prdisagg_torch.train import wgan_gp
 
-    return {k: wgan_gp.kernel_counts()[k] for k in TRAIN_PER_STEP}
+    return wgan_gp.kernel_counts()
 
 
 def _reset_counts() -> None:
@@ -2129,11 +2296,12 @@ def dp_worker_nccl(seed: int, workdir: str) -> dict:
     executed = _executed_counts(_dp_counts(), captured,
                                 dict(wgan_gp.graph_launches))
     steps = epochs * STEPS_PER_EPOCH
-    check(trainer.state.step == steps and captured == TRAIN_PER_STEP,
+    per_step = train_per_step()
+    check(trainer.state.step == steps and captured == per_step,
           (trainer.state.step, captured))
     # the warm-up's eager steps run too
     check(executed == {k: n * (steps + wgan_gp.WARMUP_STEPS)
-                       for k, n in TRAIN_PER_STEP.items()}, executed)
+                       for k, n in per_step.items()}, executed)
     def rate(tr) -> float:
         return (TIMED_EPOCHS * STEPS_PER_EPOCH
                 / sum(tr.epoch_seconds[WARM_EPOCHS:]))
@@ -2466,10 +2634,11 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
         check(ge["err_over_max_cond"] <= 1e-5
               and ge["conservation"] <= CONSERVATION_RTOL
               and ge["shape"] == [SCENARIOS, 24, 16, 16], ge)
-        # a rank's half of the step (K2: 2, K1: 6 forward and 3 backward),
-        # of its 5 scored samples (3 each) and of the forward (3)
+        # a rank's half of the step (K2: 2, K1: 6 forward and 3 backward
+        # passes, f32 at B 16), of its 5 scored samples (3 each) and of the
+        # forward (3)
         half = DP_CRPS_SAMPLES // DP_GLOO_WORLD
-        want = dict(TRAIN_PER_STEP)
+        want = train_per_step("float32", TRAIN_BATCH // DP_GLOO_WORLD)
         for k in ("upsample2_conv3", "upsample2_conv3_fast"):
             want[k] += 3 * half * (EVAL_MEMBERS // EVAL_MEMBER_BATCH) + 3
         check(g["counts"] == want, f"gloo rank launches {g['counts']}, "
@@ -2510,6 +2679,7 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
             "fast": counts["upsample2_conv3_fast"],
             "general": counts["upsample2_conv3_general"]},
         "upsample2_conv3_backward": counts["upsample2_conv3_backward"],
+        "upsample2_conv3_backward_kernels": _backward_kernels(counts),
         "gather_patches": counts["gather_patches"]},
         "nccl": {k: v for k, v in nccl.items() if k != "log"},
         "gloo": gloo,
@@ -2876,6 +3046,10 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                  if r["stage"] in {s[0] for s in TRAIN_STAGES}]
     dp_rows = [r for r in kc["rows"]
                if r["stage"] in {s[0] for s in DP_STAGES + DP_SCORE_STAGES}]
+    bwd_rows = [r for r in kc["rows"] if "backward_ms" in r]
+    step_bwd = [r for r in step_rows if "backward_ms" in r]
+    bwd_train = counts["upsample2_conv3_backward_kernels"]
+    bwd_dp = dp_counts["upsample2_conv3_backward_kernels"]
     k2 = {r["stage"]: r for r in gc["rows"]}
     real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
     cond = k2[f"cond_b{TRAIN_BATCH}"]
@@ -2922,21 +3096,41 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "bf16_plain_ms": sum(r["plain_ms"] for r in bf16_rows),
         "bf16_bound_ms": sum(r["bound_ms"] for r in bf16_rows),
         "bf16_library_ms": sum(r["library_ms"] for r in bf16_rows),
-        # one bf16 train step's six launches, and its backward
+        # one bf16 train step's six launches
         "train_step_ms": sum(r["ms"] for r in step_rows),
         "train_step_bound_ms": sum(r["bound_ms"] for r in step_rows),
         "train_step_library_ms": sum(r["library_ms"] for r in step_rows),
-        "train_backward_ms": sum(r.get("backward_ms", 0.0)
-                                 for r in step_rows),
-        "train_backward_bound_ms": sum(r.get("backward_bound_ms", 0.0)
-                                       for r in step_rows),
-        "train_backward_library_ms": sum(r.get("backward_library_ms", 0.0)
-                                         for r in step_rows),
         # the data-parallel shapes: a rank's shards of the step, f32 and
         # bf16, and its member batch, f32 (each checked in a [kernel] line)
         "dp_shapes_max_abs_err": {
             d: max(r["max_abs_err"] for r in dp_rows if r["dtype"] == d)
             for d in ("float32", "bfloat16")},
+    }, {
+        "name": "upsample2_conv3_backward",
+        "route": "cuda",
+        "source": "prdisagg_torch/csrc/upsample_conv.cu",
+        # K1's custom_vjp backward (XLA's autodiff of the phase form)
+        "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:99",
+        # dx, dk, dk's fold and split dx's reduce on the training and
+        # data-parallel paths (the others run no backward)
+        "launches": sum(bwd_train.values()) + sum(bwd_dp.values()),
+        "launches_by_path": {"train": sum(bwd_train.values()),
+                             "dp": sum(bwd_dp.values())},
+        "launches_by_kernel": {k: n + bwd_dp.get(k, 0)
+                               for k, n in bwd_train.items()},
+        # the generator update's three backward passes at B 32, bf16 (every
+        # backward checked, B 16 in both dtypes too, is in the [kernel]
+        # lines)
+        "max_abs_err": max(r["backward_max_abs_err"] for r in bwd_rows),
+        "ms": sum(r["backward_ms"] for r in step_bwd),
+        "call_ms": sum(r["backward_call_ms"] for r in step_bwd),
+        "plain_ms": sum(r["backward_plain_ms"] for r in step_bwd),
+        "bound_ms": sum(r["backward_bound_ms"] for r in step_bwd),
+        "bound_by": "operations" if all(
+            r["backward_bound_by"] == "operations" for r in step_bwd)
+        else "bytes",
+        "library_ms": sum(r["backward_library_ms"] for r in step_bwd),
+        "per_stage_ms": [r["backward_ms"] for r in step_bwd],
     }, {
         "name": "gather_patches",
         "route": "cuda",

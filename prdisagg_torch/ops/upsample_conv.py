@@ -24,11 +24,18 @@ Three implementations of one function:
   folded weights packed K-major by :func:`pack_phase_kernels`.
 * :func:`upsample2_conv3`, the dispatcher: a CPU tensor takes the plain
   version, a CUDA tensor the kernel, anything else raises.  It is an
-  ``autograd.Function`` whose backward, :func:`upsample2_conv3_backward`,
-  is the 8 phase convolutions' own input and weight gradients (cuDNN on the
-  card), the same on the CPU and the card.  The JAX package does likewise:
-  its Pallas kernel's custom_vjp delegates to XLA's autodiff of the phase
-  form (pallas_upsample_conv.py:99-108).
+  ``autograd.Function``, the counterpart of the Pallas op's custom_vjp
+  (pallas_upsample_conv.py:90-118), whose backward has the same two forms:
+  the plain :func:`upsample2_conv3_backward` (the 8 phase convolutions' own
+  input and weight gradients) on the CPU, and on the card
+  :func:`upsample2_conv3_backward_cuda`, the hand-written kernels of
+  ``csrc/upsample_conv.cu``: dx as one implicit GEMM over the cotangent's
+  4^3 windows at stride 2 (weights permuted by :func:`pack_backward_kernels`
+  from the forward's packing),
+  dkernel as one GEMM per phase over the positions, each with a
+  deterministic split of its reduction (:func:`k1_backward_plan`), partials
+  summed in a fixed order by a second kernel that also rounds (dx) or folds
+  onto the 3^3 kernel (dkernel).
 """
 
 from __future__ import annotations
@@ -228,6 +235,211 @@ def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
     return out
 
 
+# K1's backward on the card
+
+#: the fast backward kernels' reduction slices: dx's along Cout (bf16), dk's
+#: along positions (bf16); the f32 fast and general kernels' tiles and slices
+BWD_FAST_BK = 64
+BWD_FMA_TILE, BWD_FMA_BK = 64, 16
+#: a split keeps at least this many reduction slices
+MIN_SPLIT_SLICES = 2
+BACKWARD_KERNELS = ("dx_fast", "dx_general", "dk_fast", "dk_general",
+                    "dx_reduce", "dk_fold")
+#: launches of :func:`upsample2_conv3_backward_cuda`'s kernels, by kernel
+backward_launches_by_variant = dict.fromkeys(BACKWARD_KERNELS, 0)
+
+
+def pack_backward_kernels(kp: torch.Tensor) -> torch.Tensor:
+    """The dx kernels' weights, (Cin, 64*Cout), K-major with
+    k = off*Cout + co, contiguous, from the forward's packing kp (8 phases,
+    Cout, 8*Cin) of :func:`pack_phase_kernels` (folded in float32, cast
+    once).  Per axis, low-res index d feeds the full-res output 2d + 2 - j,
+    j = 2p + a, through K2[phase a, tap p], so offset j holds K2[a, p] and
+    off = 16*j_d + 4*j_h + j_w: a permutation of kp, one copy."""
+    cout, cin = kp.shape[1], kp.shape[2] // 8
+    k8 = kp.view(2, 2, 2, cout, 2, 2, 2, cin)  # (a, b, c, co, p, q, r, ci)
+    return k8.permute(7, 4, 0, 5, 1, 6, 2, 3).reshape(cin, 64 * cout)
+
+
+def split_range(kt: int, splits: int, s: int) -> tuple:
+    """The reduction slices [begin, end) of split s of `splits`, as the
+    kernels compute them: contiguous, disjoint, covering [0, kt)."""
+    return kt * s // splits, kt * (s + 1) // splits
+
+
+class GemmPlan(NamedTuple):
+    """One backward GEMM's tile (bm x bn), reduction slice bk, slices of
+    the whole reduction kt, splits and CTA count."""
+    bm: int
+    bn: int
+    bk: int
+    kt: int
+    splits: int
+    ctas: int
+
+
+class K1BackwardPlan(NamedTuple):
+    """Which kernels a backward takes ("fast" or "general"), and dx's and
+    dk's GEMMs."""
+    variant: str
+    dx: GemmPlan
+    dk: GemmPlan
+
+
+def _gemm_plan(bm: int, bn: int, bk: int, tiles: int, kt: int) -> GemmPlan:
+    """Splits of the reduction so that the grid fills the card's SMS SMs,
+    each split keeping at least MIN_SPLIT_SLICES slices."""
+    splits = 1
+    if tiles < SMS:
+        splits = max(1, min(_ceil(SMS, tiles), kt // MIN_SPLIT_SLICES))
+    return GemmPlan(bm, bn, bk, kt, splits, tiles * splits)
+
+
+def k1_backward_plan(dtype: torch.dtype, b: int, d: int, h: int, w: int,
+                     cin: int, cout: int, general: bool = False
+                     ) -> K1BackwardPlan:
+    """The backward kernels, tiles and splits for x (b, d, h, w, cin) ->
+    cout channels.
+
+    The fast kernels need Cin and Cout to be multiples of 64: bf16 on wgmma
+    (dx 128 positions x 128 or 64 channels of Cin, slices of 64 along Cout;
+    dk 128 or 64 (tap, ci) rows x 128 or 64 channels of Cout, slices of 64
+    positions), f32 on FMA with 16-byte loads (64 x 64 tiles, slices of
+    16).  Other widths, or `general`, take the general FMA kernels (64 x
+    64, slices of 16).  Each GEMM's reduction is split until its grid fills
+    the card."""
+    m = b * d * h * w
+    fast = cin % 64 == 0 and cout % 64 == 0 and not general
+    if fast and dtype == torch.bfloat16:
+        dxt = (128, 128 if cin % 128 == 0 else 64, BWD_FAST_BK)
+        dkt = (128 if cin % 128 == 0 else 64, 128 if cout % 128 == 0 else 64,
+               BWD_FAST_BK)
+    else:
+        dxt = dkt = (BWD_FMA_TILE, BWD_FMA_TILE, BWD_FMA_BK)
+    dx = _gemm_plan(*dxt, _ceil(m, dxt[0]) * _ceil(cin, dxt[1]),
+                    64 * _ceil(cout, dxt[2]))
+    dk = _gemm_plan(*dkt, 8 * _ceil(8 * cin, dkt[0]) * _ceil(cout, dkt[1]),
+                    _ceil(m, dkt[2]))
+    return K1BackwardPlan("fast" if fast else "general", dx, dk)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_fns(variant: str, dtype: torch.dtype):
+    """The dx, dk, dx-reduce and dk-fold entries of one variant and dtype."""
+    lib = _build.load("upsample_conv")
+    tag = _ENTRY_DTYPES[dtype]
+    gemm = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    dx = getattr(lib, f"prdisagg_k1_dx_{variant}_{tag}")
+    dx.argtypes = [ctypes.c_void_p] * 4 + gemm
+    dk = getattr(lib, f"prdisagg_k1_dk_{variant}_{tag}")
+    dk.argtypes = [ctypes.c_void_p] * 3 + gemm
+    reduce = getattr(lib, f"prdisagg_k1_dx_reduce_{tag}")
+    reduce.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p]
+    fold = lib.prdisagg_k1_dk_fold
+    fold.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    for fn in (dx, dk, reduce, fold):
+        fn.restype = ctypes.c_int
+    return dx, dk, reduce, fold
+
+
+def _launched(name: str, err: int) -> None:
+    """Raise if a backward launch failed, else count it."""
+    if err != 0:
+        err_str = _kernel_fn("general", torch.float32)[1]
+        raise RuntimeError(f"upsample2_conv3 backward {name} kernel launch "
+                           f"failed: {err_str(err).decode()} (cuda error "
+                           f"{err})")
+    backward_launches_by_variant[name] += 1
+
+
+def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
+                                  g: torch.Tensor, need_dx: bool = True,
+                                  need_dk: bool = True, kp=None):
+    """:func:`upsample2_conv3_backward` on the card's hand-written kernels.
+
+    x: (B, D, H, W, Cin) f32 or bf16; kernel: (3, 3, 3, Cin, Cout), any
+    float dtype; g: (B, 2D, 2H, 2W, Cout), cast to x's dtype.  All on one
+    CUDA device.  dx accumulates in float32 and rounds once to x's dtype;
+    dkernel accumulates and folds in float32 and comes back in kernel's
+    dtype.  kp, the forward's :func:`pack_phase_kernels` of kernel in x's
+    dtype, spares packing the weights again.  The partial sums live in
+    workspaces allocated here (a graph capture takes them from its pool)
+    and are summed in a fixed order, so two calls give the same bits.  Runs
+    on the current stream."""
+    for name, t in (("x", x), ("kernel", kernel), ("g", g)):
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; every operand must "
+                             f"be on the CUDA device of x ({x.device})")
+    if x.dtype not in _ENTRY_DTYPES:
+        raise TypeError(f"upsample2_conv3 backward takes float32 or bfloat16 "
+                        f"x, got {x.dtype}")
+    if x.dim() != 5 or kernel.dim() != 5 or kernel.shape[:3] != (3, 3, 3) \
+            or kernel.shape[3] != x.shape[4]:
+        raise ValueError(f"x must be (B, D, H, W, Cin) and kernel (3, 3, 3, "
+                         f"Cin, Cout), got {tuple(x.shape)}, "
+                         f"{tuple(kernel.shape)}")
+    b, d, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    if tuple(g.shape) != (b, 2 * d, 2 * h, 2 * w, cout):
+        raise ValueError(f"g must be {(b, 2 * d, 2 * h, 2 * w, cout)}, got "
+                         f"{tuple(g.shape)}")
+    if kp is not None and (kp.dtype != x.dtype
+                           or tuple(kp.shape) != (8, cout, 8 * cin)):
+        raise ValueError(f"kp must be (8, {cout}, {8 * cin}) of {x.dtype}, "
+                         f"got {tuple(kp.shape)} of {kp.dtype}")
+    if g.numel() // max(cout, 1) >= 2 ** 31:
+        raise ValueError(f"{g.numel() // cout} cotangent rows: the kernels "
+                         f"index rows in 32 bits")
+    x = x.contiguous()
+    g = g.to(x.dtype).contiguous()
+    dx = torch.empty_like(x) if need_dx else None
+    dk = torch.empty(kernel.shape, dtype=torch.float32, device=x.device) \
+        if need_dk else None
+    if x.numel() == 0 or kernel.numel() == 0:
+        if need_dx:
+            dx.zero_()
+        if need_dk:
+            dk.zero_()
+        return dx, None if dk is None else dk.to(kernel.dtype)
+    plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout)
+    wb = None
+    if need_dx:
+        if kp is None:
+            kp = pack_phase_kernels(kernel, x.dtype)
+        wb = pack_backward_kernels(kp)
+    variant = plan.variant
+    if variant == "fast" and any(t is not None and t.data_ptr() % 16
+                                 for t in (x, g, wb)):
+        variant = "general"  # 16-byte loads need it
+        plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout, general=True)
+    fdx, fdk, freduce, ffold = _backward_fns(variant, x.dtype)
+    m = b * d * h * w
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if need_dx:
+            p = plan.dx
+            part = torch.empty((p.splits, m, cin), dtype=torch.float32,
+                               device=x.device) if p.splits > 1 else dx
+            _launched(f"dx_{variant}", fdx(
+                g.data_ptr(), wb.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                b, d, h, w, cin, cout, p.bm, p.bn, p.splits, stream))
+            if p.splits > 1:
+                _launched("dx_reduce", freduce(part.data_ptr(), dx.data_ptr(),
+                                               m * cin, p.splits, stream))
+        if need_dk:
+            p = plan.dk
+            part = torch.empty((p.splits, 8, 8 * cin, cout),
+                               dtype=torch.float32, device=x.device)
+            _launched(f"dk_{variant}", fdk(
+                x.data_ptr(), g.data_ptr(), part.data_ptr(), b, d, h, w, cin,
+                cout, p.bm, p.bn, p.splits, stream))
+            _launched("dk_fold", ffold(part.data_ptr(), dk.data_ptr(), cin,
+                                       cout, p.splits, stream))
+    return dx, None if dk is None else dk.to(kernel.dtype)
+
+
 def _fold_transpose(dk2: torch.Tensor) -> torch.Tensor:
     """Adjoint of :func:`phase_kernels`: (2,2,2, 2,2,2, Cin, Cout) phase-tap
     gradients -> the (3,3,3, Cin, Cout) kernel's gradient."""
@@ -277,27 +489,33 @@ def upsample2_conv3_backward(x: torch.Tensor, kernel: torch.Tensor,
 
 
 class _UpsampleConv3(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) forward; the phase
-    convolutions' gradients backward.  Differentiable once: the gradient
+    """The kernels forward and backward on the card, the plain versions on
+    the CPU.  Differentiable once: the gradient
     penalty's second order runs through the critic only, since the fakes
     it sees are detached from the generator."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias):
-        ctx.save_for_backward(x, kernel)
         ctx.bias_dtype = bias.dtype
-        if x.device.type == "cpu":
+        cpu = x.device.type == "cpu"
+        # the packed weights serve the card's backward too
+        kp = None if cpu else pack_phase_kernels(kernel, x.dtype)
+        ctx.save_for_backward(x, kernel, kp)
+        if cpu:
             return upsample2_conv3_reference(x, kernel, bias)
-        return upsample2_conv3_cuda(x, pack_phase_kernels(kernel, x.dtype),
-                                    bias.to(torch.float32).contiguous())
+        return upsample2_conv3_cuda(x, kp, bias.to(torch.float32).contiguous())
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         global backward_calls
-        x, kernel = ctx.saved_tensors
+        x, kernel, kp = ctx.saved_tensors
         need_dx, need_dk, need_db = ctx.needs_input_grad
-        dx, dk = upsample2_conv3_backward(x, kernel, g, need_dx, need_dk)
+        if x.device.type == "cpu":
+            dx, dk = upsample2_conv3_backward(x, kernel, g, need_dx, need_dk)
+        else:
+            dx, dk = upsample2_conv3_backward_cuda(x, kernel, g, need_dx,
+                                                   need_dk, kp=kp)
         db = g.float().sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype) \
             if need_db else None
         backward_calls += 1

@@ -279,11 +279,14 @@ graph_launches = collections.Counter()
 
 def kernel_counts() -> dict:
     """The kernel wrappers' counters: K1's launches, by variant too, K1's
-    backward passes, and K2's launches."""
+    backward passes and its backward kernels' launches, and K2's
+    launches."""
     return {"upsample2_conv3": upsample_conv.launches,
             **{f"upsample2_conv3_{v}": n
                for v, n in upsample_conv.launches_by_variant.items()},
             "upsample2_conv3_backward": upsample_conv.backward_calls,
+            **{f"upsample2_conv3_backward_{k}": n for k, n in
+               upsample_conv.backward_launches_by_variant.items()},
             "gather_patches": gather.launches}
 
 

@@ -102,12 +102,18 @@ def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 2, 2, 16, 4), (3, 5, 3, 7, 40, 70),
-                                   (4, 6, 4, 4, 256, 128)])
+                                   (4, 6, 4, 4, 256, 128),
+                                   # the flagship stages at the train batch
+                                   (32, 3, 2, 2, 256, 256),
+                                   (32, 6, 4, 4, 256, 128),
+                                   (32, 12, 8, 8, 128, 64)])
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-4),
                                              ("bfloat16", 2e-2, 2e-2)])
 def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
     """The kernel's autograd.Function against autograd through the plain
-    version, on the card: dx, dkernel and dbias."""
+    version, on the card: dx, dkernel and dbias; the backward launches the
+    kernels k1_backward_plan names (dx, its reduce when split, dk and its
+    fold) and gives the same bits on a second call."""
     from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32
 
@@ -123,20 +129,45 @@ def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
                      device=cuda).to(dt)
     grads = []
     before = (upsample_conv.launches, upsample_conv.backward_calls)
+    kernels = dict(upsample_conv.backward_launches_by_variant)
     with full_f32():
         for fn in (upsample_conv.upsample2_conv3,
-                   upsample_conv.upsample2_conv3_reference):
+                   upsample_conv.upsample2_conv3_reference,
+                   upsample_conv.upsample2_conv3):
             leaves = [t.detach().requires_grad_(True) for t in (x, k, bias)]
             grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
     torch.cuda.synchronize()
     assert (upsample_conv.launches, upsample_conv.backward_calls) == (
-        before[0] + 1, before[1] + 1)
-    for got, want in zip(*grads):
+        before[0] + 2, before[1] + 2)
+    plan = upsample_conv.k1_backward_plan(dt, *shape)
+    v = plan.variant
+    want = {f"dx_{v}": 2, f"dk_{v}": 2, "dk_fold": 2,
+            "dx_reduce": 2 * (plan.dx.splits > 1)}
+    ran = {n: c - kernels[n] for n, c in
+           upsample_conv.backward_launches_by_variant.items()}
+    assert ran == {n: want.get(n, 0) for n in ran}
+    for got, again in zip(grads[0], grads[2]):
+        assert torch.equal(got, again)  # no atomics: the same bits
+    for got, want in zip(grads[0], grads[1]):
         assert got.dtype == want.dtype and got.shape == want.shape
         scale = want.float().abs().max().item()
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    rtol=rtol, atol=atol * scale)
+
+
+def test_upsample2_conv3_backward_refuses_what_it_cannot_take(cuda):
+    from prdisagg_torch.ops import upsample_conv
+
+    x = torch.randn(2, 3, 2, 2, 8, device=cuda)
+    k = torch.randn(3, 3, 3, 8, 4, device=cuda)
+    g = torch.randn(2, 6, 4, 4, 4, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        upsample_conv.upsample2_conv3_backward_cuda(x.half(), k, g)
+    with pytest.raises(ValueError, match="CUDA device"):
+        upsample_conv.upsample2_conv3_backward_cuda(x, k.cpu(), g)
+    with pytest.raises(ValueError, match="g must be"):
+        upsample_conv.upsample2_conv3_backward_cuda(x, k, g[:, :5])
 
 
 def test_upsample2_conv3_kernel_refuses_what_it_cannot_take(cuda):
@@ -355,7 +386,9 @@ def test_graphed_step_matches_eager_steps(graph_setup, drawn):
     """Each replay draws what the eager step draws from the same generator
     state, bit for bit, and trains to the same parameters (1e-4 of their
     scale) and losses from mid-training Adam moments; the graph holds K1's
-    6 launches, 3 backward passes and K2's 2 launches per step."""
+    6 launches, 3 backward passes (each K1's backward kernels) and K2's 2
+    launches per step."""
+    from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.train import wgan_gp
     from prdisagg_torch.train.state import clone_train_state, \
         create_train_state
@@ -383,6 +416,17 @@ def test_graphed_step_matches_eager_steps(graph_setup, drawn):
             for k, n in wgan_gp.graph_launches.items()}
     assert grew["upsample2_conv3"] == 18 and grew["gather_patches"] == 6
     assert grew["upsample2_conv3_backward"] == 9
+    # each backward pass's kernels, in each of the 3 replays: the smoke
+    # width takes the general kernels
+    stages = [(4, d, h, w, c, c) for d, h, w, c in
+              zip((3, 6, 12), (2, 4, 8), (2, 4, 8), mc.gen_channels)]
+    plans = [upsample_conv.k1_backward_plan(torch.float32, *s)
+             for s in stages]
+    assert {p.variant for p in plans} == {"general"}
+    assert {k[len("upsample2_conv3_backward_"):]: n for k, n in grew.items()
+            if k.startswith("upsample2_conv3_backward_") and n} == {
+        "dx_general": 9, "dk_general": 9, "dk_fold": 9,
+        "dx_reduce": 3 * sum(p.dx.splits > 1 for p in plans)}
 
 
 def test_graphed_step_matches_eager_step_from_cold_adam(graph_setup, drawn):
