@@ -13,12 +13,14 @@ Run from the repository root.  Phases:
    STG.E.128) in K2's;
 3. kernel check (K1): the upsample-conv kernel against its plain PyTorch
    version at the flagship generator's three stage shapes (batch 1000) and
-   at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, and
-   at the training shapes (bf16, batch 160 and 32), with its time beside the
+   at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, at
+   the training shapes (bf16, batch 160 and 32), and at the 64x64
+   generator's three stages (large_k1_cases), with its time beside the
    plain version's, one cuDNN convolution of the upsampled input (timed
    only) and the card's bound for the same work; every shape must take the
-   fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32
-   and at a gloo rank's 16 also its backward kernels (dx and dkernel with
+   fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32,
+   at a gloo rank's 16 and at the 64x64 f32 step's 4 also its backward
+   kernels (dx and dkernel with
    their split reductions), held against autograd through the plain
    version and a second call bit for bit, timed beside the plain backward
    (the phase convolutions' cuDNN gradients), autograd through the cuDNN
@@ -43,7 +45,7 @@ Run from the repository root.  Phases:
    request, reload, stats and shutdown;
 8. train: Trainer.fit at the flagship defaults (bf16, batch 32, n_disc 5)
    on the card-resident dataset, the step a CUDA graph: one epoch with the
-   warm-up and capture, then 4 calls of 50 replays timed; checks finite
+   warm-up and capture, then 2 calls of 50 replays timed; checks finite
    metrics, changed parameters, the kernel counts (6 K1 launches, all fast,
    3 K1 backward passes with their fast dx, dk and fold kernels and the
    reduces of split dx, and 2 K2 launches per step, through the wrappers
@@ -116,7 +118,7 @@ Run from the repository root.  Phases:
    gloo's rates are printed and compared with nothing.  ``python3
    chip_smoke.py --dp-worker nccl|gloo`` is that worker, for this script's
    own use;
-16. data: the data pipeline at the per-day size of a real day, 16 days of
+16. data: the data pipeline at the per-day size of a real day, 4 days of
    288 five-minute frames of the dataset's 256 x 256 grid, dated across a
    leap day: raw SMHI bytes made on the card from --seed (255 missing, dBZ
    = x * 0.4 - 30, drifting rain blobs, a missing border); TIFFs through
@@ -140,16 +142,33 @@ Run from the repository root.  Phases:
    the cli phase's run: after its first heartbeat the training child
    (found by its workdir in /proc/*/cmdline) is SIGSTOPped; the supervisor
    must kill its group, probe the card, relaunch, and the relaunch resume
-   and finish (rc 0, restarts=1 stalls=1, every epoch once in hist.csv).
+   and finish (rc 0, restarts=1 stalls=1, every epoch once in hist.csv);
+18. protocols: every prdisagg_torch.protocols driver as a subprocess on
+   the card at flagship width, cut in depth (large_domain, variants,
+   paper with --mini's battery, then paper again in its workdir, every
+   stage from its cache with the same verdict, and paper_finish,
+   l1_rehearsal), each exiting 0;
+19. variants: the 64x64 large domain trained graphed on the dataset's
+   tensor (kernel counts by name in the replays, busy ms and K1's share of
+   a step, idle share, peak bytes, conservation, an f32 step with K1's
+   kernels against K1's plain route on the card), 64x64 f32
+   generate_scenarios at the default max_batch (peak within half the
+   card), and lon trained graphed with its .npz export's forward against
+   the live generator's.
 
-Prints a {"kernels": [...]} line and, last, a device line.  Exits non-zero,
-printing no result, if any phase fails or no CUDA device is present.
+The phases that only check subprocesses (cli, eval_cli, serve_cli and the
+protocol drivers) run together, each printing its own seconds; every phase
+that times the card or the host (data and ops among them) runs alone.
+Prints a {"kernels": [...]} line
+and, last, a device line.  Exits non-zero, printing no result, if any
+phase fails or no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
@@ -190,12 +209,36 @@ TRAIN_STAGES = [(f"{name}_b{b}", b, d, h, w, cin, cout)
                 for name, _, d, h, w, cin, cout in STAGES[:3]]
 DATASET_SHAPE = (448, 24, 256, 256)  # days, hours, ny, nx: 2.8 GB float32
 ND_LARGE = 64  # the 64x64 domain's patch, gathered from the same tensor
-# Trainer.fit: one epoch with the warm-up and capture, then 4 x 50 graphed
+# the 64x64 large domain's generator stages (name, D, H, W, Cin, Cout)
+LARGE_STAGES = [("ld_stage0", 3, 8, 8, 256, 256),
+                ("ld_stage1", 6, 16, 16, 256, 128),
+                ("ld_stage2", 12, 32, 32, 128, 64)]
+# its graphed Trainer.fit at the training cell's defaults (bf16, B 32, n_disc
+# 5): a warm-up epoch, then timed epochs of one call of replays each
+LARGE_WARM_EPOCHS, LARGE_TIMED_EPOCHS, LARGE_STEPS = 1, 2, 10
+# its profiled call: 3 replays (about 10,000 device events; CUPTI dropped
+# some of the 32,000 of 10 replays once)
+LARGE_PROFILE_REPLAYS = 3
+# its float32 step: K1's kernels against K1's plain route on the card
+LARGE_F32_CHECK = dict(n_disc=2, batch=4, rtol=1e-4)
+# sample_statistics' chunk, the large-domain protocol's 64x64 f32 forward
+EVAL_CHUNK = 500
+# the lon variant's graphed Trainer.fit at the flagship 16x16
+LON_EPOCHS, LON_STEPS = 2, 20
+# a K1 shape with at least this many FLOPs is timed over fewer calls
+HEAVY_FLOPS = 1e12
+# the protocols phase: the large-domain and variants drivers' days, the
+# paper protocol's (days, held-out days, epochs) at --mini's battery, and
+# each driver's time limit
+PROTOCOL_DAYS = 8
+PAPER_RUN = (16, 16, 2)
+PROTOCOL_LIMIT_S = 600
+# Trainer.fit: one epoch with the warm-up and capture, then 2 x 50 graphed
 # steps timed, one call of 50 replays an epoch
-WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 4, 50
+WARM_EPOCHS, TIMED_EPOCHS, STEPS_PER_EPOCH = 1, 2, 50
 PROFILE_REPLAYS = 10  # the profiled call of the graphed step
 DEVICE_TRACE_TRIES = 3  # device_ms: traces taken before an empty one fails
-EAGER_STEPS = 100  # timed eager steps, for the eager rate
+EAGER_STEPS = 50  # timed eager steps, for the eager rate
 GRAPH_CHECK_STEPS = 4  # graphed vs eager steps
 RESUME_STEPS = 4  # steps per epoch of the resume check
 CLI_STEPS = 4  # steps per epoch of the CLI runs
@@ -248,7 +291,7 @@ DP_SCORE_STAGES = [(f"{name}_b{EVAL_MEMBER_BATCH}", EVAL_MEMBER_BATCH, d, h, w,
 # scan at two chunk sizes; cli train's steps per epoch (2 epochs); the
 # trained generator's conditions and scenarios for its conservation check,
 # one f32 forward at B = SCENARIOS, a shape K1_CASES holds (stage0-2)
-DATA_DAYS, DATA_FIRST_DAY = 16, "2012-02-20"
+DATA_DAYS, DATA_FIRST_DAY = 4, "2012-02-27"
 DATA_SCAN_CHUNKS = (1, DATA_DAYS)
 DATA_TRAIN_STEPS = 4
 DATA_CONDS, DATA_SCENARIOS = 8, 125
@@ -263,11 +306,29 @@ K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("float32",)) for s in DP_SCORE_STAGES])
 
 
-def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH) -> dict:
+def large_k1_cases() -> list:
+    """K1_CASES' counterpart at the 64x64 generator's stages: bf16 at the
+    step's n_disc * B and B (the backward at B), f32 at serving's default
+    max_batch, at sample_statistics' chunk, and at the f32 step check's
+    n_disc * B and B (the backward at B)."""
+    from prdisagg_torch.api.pretrained import default_max_batch
+
+    f32_b = LARGE_F32_CHECK["batch"]
+    per_dtype = {"bfloat16": (N_DISC * TRAIN_BATCH, TRAIN_BATCH),
+                 "float32": (default_max_batch(ND_LARGE), EVAL_CHUNK,
+                             LARGE_F32_CHECK["n_disc"] * f32_b, f32_b)}
+    return [((f"{name}_b{b}", b, d, h, w, cin, cout), (dtype,))
+            for name, d, h, w, cin, cout in LARGE_STAGES
+            for dtype, batches in per_dtype.items() for b in batches]
+
+
+def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
+                   stages=None) -> dict:
     """The wrappers' counts of one flagship train step whose generator
     update runs at `batch` in `dtype`: TRAIN_PER_STEP, and K1's backward
     kernels at each stage as k1_backward_plan picks them (dx, dk and dk's
-    fold; dx's reduce where its reduction is split)."""
+    fold; dx's reduce where its reduction is split).  `stages` are the
+    generator's (name, D, H, W, Cin, Cout), the 16x16 ones by default."""
     import torch
 
     from prdisagg_torch.ops import upsample_conv
@@ -275,7 +336,9 @@ def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH) -> dict:
     per = dict(TRAIN_PER_STEP)
     per.update({f"upsample2_conv3_backward_{k}": 0
                 for k in upsample_conv.BACKWARD_KERNELS})
-    for _, _, d, h, w, cin, cout in STAGES[:3]:
+    if stages is None:
+        stages = [s[:1] + s[2:] for s in STAGES[:3]]
+    for _, d, h, w, cin, cout in stages:
         plan = upsample_conv.k1_backward_plan(getattr(torch, dtype), batch, d,
                                               h, w, cin, cout)
         ran = [f"dx_{plan.variant}", f"dk_{plan.variant}", "dk_fold"]
@@ -528,12 +591,30 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
             lib_out, lib_leaves, lib_g, retain_graph=True), 10))
 
 
+def _compare(got, ref, rtol: float, atol: float) -> tuple:
+    """(every element within rtol * |ref| + atol * max|ref|, max |got -
+    ref|, max |ref|), a batch slice at a time: the difference of a whole
+    64x64 f32 stage at serving's batch would hold another 13 GB."""
+    step = max(1, (1 << 28) // max(1, ref[0].numel()))
+    chunks = range(0, len(ref), step)
+    scale = max(ref[i:i + step].float().abs().max().item() for i in chunks)
+    ok, worst = True, 0.0
+    for i in chunks:
+        r, e = ref[i:i + step].float(), got[i:i + step].float()
+        e = (e - r).abs()
+        ok &= bool((e <= atol * scale + rtol * r.abs()).all().item())
+        worst = max(worst, e.max().item())
+    return ok, worst, scale
+
+
 def phase_kernel_check(seed: int) -> dict:
-    """K1 against its plain version at every shape of K1_CASES, with its
-    time beside the plain version's and one cuDNN convolution of the
-    upsampled input (timed only); at the generator update's batch (one
-    card's and a gloo rank's) also its backward.  Forward times are device times (:func:`queued_ms`);
-    ``call_ms`` is one call timed with CUDA events, launch included."""
+    """K1 against its plain version at every shape of K1_CASES and
+    large_k1_cases(), with its time beside the plain version's and one
+    cuDNN convolution of the upsampled input (timed only); at the generator
+    update's batch (one card's, a gloo rank's and the 64x64 f32 step
+    check's) also its backward.  Forward times are device times
+    (:func:`queued_ms`); ``call_ms`` is one call timed with CUDA events,
+    launch included."""
     import torch
     import torch.nn.functional as F
 
@@ -549,7 +630,9 @@ def phase_kernel_check(seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     ok = True
-    for (name, b, d, h, w, cin, cout), dtypes in K1_CASES:
+    backward_batches = (TRAIN_BATCH, TRAIN_BATCH // DP_GLOO_WORLD,
+                        LARGE_F32_CHECK["batch"])
+    for (name, b, d, h, w, cin, cout), dtypes in K1_CASES + large_k1_cases():
         x32 = torch.randn((b, d, h, w, cin), generator=gen, device=dev)
         k = 0.02 * torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev)
         bias = 0.02 * torch.randn((cout,), generator=gen, device=dev)
@@ -569,28 +652,26 @@ def phase_kernel_check(seed: int) -> dict:
                 torch.cuda.synchronize()
                 variant = [v for v in counts if counts[v] != before[v]]
                 plan = upsample_conv.k1_plan(dtype, b, d, h, w, cin, cout)
-                err = (got.float() - ref.float()).abs()
-                scale = ref.float().abs().max().item()
-                good = bool((err <= atol * scale
-                             + rtol * ref.float().abs()).all().item())
+                good, max_err, scale = _compare(got, ref, rtol, atol)
                 # every flagship and 64x64 stage takes the fast kernel
                 good &= variant == ["fast"]
-                max_err = err.max().item()
-                del got, err
+                out_shape = ref.shape
+                del got, ref
                 extra = {}
-                # the generator update's backward, at one card's batch
-                # and at a rank's of the gloo world
-                if b in (TRAIN_BATCH, TRAIN_BATCH // DP_GLOO_WORLD):
-                    g = torch.randn(ref.shape, generator=gen,
+                # the generator update's backward, at one card's batch,
+                # at a rank's of the gloo world and at the 64x64 f32 step's
+                if b in backward_batches:
+                    g = torch.randn(out_shape, generator=gen,
                                     device=dev).to(dtype)
                     extra = _k1_backward(x, k, bias, g, flops, peak,
                                          (rtol, atol))
                     good &= extra["backward_ok"]
-                reps = 10
+                    del g
+                reps = 10 if flops < HEAVY_FLOPS else 1
                 ms = queued_ms(lambda: upsample2_conv3_cuda(x, kp, bias), reps)
                 # one call timed with CUDA events, the Python launch included
                 call_ms = cuda_ms(lambda: upsample2_conv3_cuda(x, kp, bias),
-                                  reps)
+                                  reps, warmup=min(reps, 2))
                 plain_ms = queued_ms(
                     lambda: upsample2_conv3_reference(x, k, bias), reps)
                 # library yardstick: one cuDNN conv of the upsampled input
@@ -599,7 +680,7 @@ def phase_kernel_check(seed: int) -> dict:
                 bt = bias.to(dtype)
                 library_ms = queued_ms(
                     lambda: F.conv3d(xu, wt, bt, padding=1), reps)
-                del xu, ref
+                del xu
             row = _kernel_row(
                 name, dname, [b, d, h, w, cin, cout], flops,
                 b * d * h * w * cin * es + 64 * cin * cout * es + 4 * cout
@@ -738,15 +819,41 @@ def phase_gather_check(ds, seed: int) -> dict:
     return {"rows": rows}
 
 
-def _f32_step_check(state, ds, seed: int) -> dict:
+@contextlib.contextmanager
+def _k1_plain_route():
+    """K1 by its plain versions on the card, forward and backward, as a CPU
+    tensor takes them: the forward packs no weights and runs
+    upsample2_conv3_reference, the backward upsample2_conv3_backward."""
+    from prdisagg_torch.ops import upsample_conv as uc
+
+    saved = (uc.pack_phase_kernels, uc.upsample2_conv3_cuda,
+             uc.upsample2_conv3_backward_cuda)
+    uc.pack_phase_kernels = lambda kernel, dtype: kernel
+    uc.upsample2_conv3_cuda = uc.upsample2_conv3_reference
+    uc.upsample2_conv3_backward_cuda = (
+        lambda x, k, g, need_dx=True, need_dk=True, kp=None:
+        uc.upsample2_conv3_backward(x, k, g, need_dx, need_dk))
+    try:
+        yield
+    finally:
+        (uc.pack_phase_kernels, uc.upsample2_conv3_cuda,
+         uc.upsample2_conv3_backward_cuda) = saved
+
+
+def _f32_step_check(state, ds, seed: int, n_disc: int, b: int,
+                    rtol: float, against: str = "cpu") -> dict:
     """One float32 step (dropout 0, pre-drawn inputs) from the trained
-    parameters, with mid-training Adam moments, on the card and on the CPU
-    path; losses within rtol 1e-4 of the losses' scale and every parameter
-    within 1e-4 * max|p| over its net."""
+    parameters, with mid-training Adam moments, on the card against the
+    same step on the CPU path (`against` "cpu") or on the card with K1's
+    plain route ("plain"); losses within `rtol` of the losses' scale and
+    every parameter within rtol * max|p| over its net.  Also reports
+    whether the critic's pad-only taps kept their weights bit for bit on
+    both sides."""
     import torch
 
     from prdisagg_torch.core.config import TrainConfig
     from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.models.critic import pad_only_taps
     from prdisagg_torch.train.state import clone_train_state
     from prdisagg_torch.train.wgan_gp import (
         StepDraws,
@@ -754,33 +861,44 @@ def _f32_step_check(state, ds, seed: int) -> dict:
         unpack_metrics,
     )
 
-    n_disc, b, rtol = (F32_CHECK[k] for k in ("n_disc", "batch", "rtol"))
     cfg = dataclasses.replace(state.gen.cfg, compute_dtype="float32",
                               dropout_rate=0.0)
     tcfg = TrainConfig(n_disc=n_disc)
-    ds_cpu = DeviceDataset.from_tensor(ds.data.cpu(), ds.indices.cpu(),
-                                       ds.cfg)
+    ds_cpu = (DeviceDataset.from_tensor(ds.data.cpu(), ds.indices.cpu(),
+                                        ds.cfg) if against == "cpu" else None)
     g = torch.Generator().manual_seed(seed + 4)
-    draws = dict(real_rows=ds_cpu.draw_rows(n_disc * b, g),
+    rows = ds.indices.cpu()
+    draws = dict(real_rows=rows[torch.randint(0, len(rows), (n_disc * b,),
+                                              generator=g)],
                  latent=torch.randn((n_disc * b, cfg.latent_dim), generator=g),
                  eps=torch.rand((n_disc, b), generator=g),
                  gen_latent=torch.randn((b, cfg.latent_dim), generator=g),
-                 gen_rows=ds_cpu.draw_rows(b, g))
+                 gen_rows=rows[torch.randint(0, len(rows), (b,),
+                                             generator=g)])
     # the trained parameters with mid-training Adam moments (_warm_adam):
-    # a trained critic holds weights whose second moment is exactly 0, and
-    # there Adam moves by about lr * sign(g), so that rounding decides a
-    # 2 lr difference between the two devices
+    # from a trained state's own moments Adam moves a weight whose second
+    # moment is exactly 0 by about lr * sign(g), so that rounding decides
+    # a 2 lr difference between the two sides
     base = clone_train_state(state, cfg, tcfg, CARD)
     _warm_adam(base, seed)
+    pads = pad_only_taps(cfg)
+    sides = ((CARD, CARD, ds, contextlib.nullcontext),
+             (against, "cpu" if against == "cpu" else CARD,
+              ds_cpu if against == "cpu" else ds, _k1_plain_route))
     out = {}
-    for dev, data in ((CARD, ds), ("cpu", ds_cpu)):
+    for side, dev, data, route in sides:
         st = clone_train_state(base, cfg, tcfg, dev)
         dr = StepDraws(masks=[None] * n_disc, gp_masks=[None] * n_disc,
                        gen_masks=None,
                        **{k: v.to(dev) for k, v in draws.items()})
-        m = unpack_metrics(train_step_on(st, data, dr, tcfg)["packed"])
-        out[dev] = (m, st)
-    (mc, sc), (mp, sp) = out[CARD], out["cpu"]
+        with route():
+            m = unpack_metrics(train_step_on(st, data, dr, tcfg)["packed"])
+        kept = all(torch.equal(
+            getattr(st.critic, f"conv{i}").weight.detach().cpu()[mask],
+            getattr(base.critic, f"conv{i}").weight.detach().cpu()[mask])
+            for i, mask in pads.items())
+        out[side] = (m, st, kept)
+    (mc, sc, kc), (mp, sp, kp) = out[CARD], out[against]
     losses = ("d_loss", "gp", "w_distance", "g_loss")
     scale = max(abs(mp[k]) for k in losses)
     loss_err = max(abs(mc[k] - mp[k]) for k in losses) / scale
@@ -789,14 +907,18 @@ def _f32_step_check(state, ds, seed: int) -> dict:
         a, c = getattr(sc, net).state_dict(), getattr(sp, net).state_dict()
         pmax = max(v.abs().max().item() for v in c.values())
         param_err = max(param_err, max(
-            (a[k].cpu() - c[k]).abs().max().item() for k in c) / pmax)
-    row = {"card": {k: mc[k] for k in losses}, "cpu": {k: mp[k] for k in losses},
+            (a[k].cpu() - c[k].cpu()).abs().max().item() for k in c) / pmax)
+    row = {"card": {k: mc[k] for k in losses},
+           against: {k: mp[k] for k in losses},
            "loss_err_over_scale": loss_err, "param_err_over_max": param_err,
-           "n_disc": n_disc, "batch": b, "tolerance": rtol}
-    print("[train] f32 step, card vs CPU: " + json.dumps(row))
+           "pad_only_taps_kept": {CARD: kc, against: kp} if pads else None,
+           "ndomain": cfg.ndomain, "n_disc": n_disc, "batch": b,
+           "tolerance": rtol}
+    print(f"[train] f32 step, card vs {against}: " + json.dumps(row))
     check(not mc["nonfinite"] and not mp["nonfinite"], "non-finite f32 step")
     check(loss_err <= rtol and param_err <= rtol,
-          f"card and CPU f32 steps differ: {row}")
+          f"card and {against} f32 steps differ: {row}")
+    check(not pads or (kc and kp), f"pad-only taps moved: {row}")
     return row
 
 
@@ -869,16 +991,221 @@ def _executed_counts(wrappers: dict, captured: dict, replayed: dict) -> dict:
             for k in wrappers}
 
 
+def _fit_counted(trainer, steps: int, per_step: dict, tag: str) -> tuple:
+    """trainer.fit() with every kernel count set to 0 just before: the
+    step's capture must record `per_step`, the replays launch it every
+    step, and the wrappers count the warm-up steps and the capture.
+    Returns (hist, counts of the kernels run)."""
+    import torch
+
+    from prdisagg_torch.ops import gather
+    from prdisagg_torch.train import wgan_gp
+
+    torch.cuda.synchronize()
+    reset_k1_counts()
+    gather.launches = 0
+    wgan_gp.graph_captured.clear()
+    wgan_gp.graph_launches.clear()
+    hist = trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    wrappers = wgan_gp.kernel_counts()
+    captured = dict(wgan_gp.graph_captured)
+    replayed = dict(wgan_gp.graph_launches)
+    executed = _executed_counts(wrappers, captured, replayed)
+    print(f"[{tag}] main path: Trainer.fit, {steps} steps as CUDA graph "
+          f"replays: wrappers {wrappers} (the {wgan_gp.WARMUP_STEPS} warm-up "
+          f"steps and one capture), captured per replay {captured}, replays "
+          f"launched {replayed}, kernels run {executed}")
+    check(trainer.state.step == steps, trainer.state.step)
+    check(captured == per_step, f"one capture of one step: {captured}")
+    check(replayed == {k: n * steps for k, n in per_step.items()}, replayed)
+    check(wrappers == {k: n * (wgan_gp.WARMUP_STEPS + 1)
+                       for k, n in per_step.items()}, wrappers)
+    counts = {"upsample2_conv3": executed["upsample2_conv3"],
+              "upsample2_conv3_by_variant": {
+                  v: executed[f"upsample2_conv3_{v}"] for v in ("fast",
+                                                               "general")},
+              "upsample2_conv3_backward": executed["upsample2_conv3_backward"],
+              "upsample2_conv3_backward_kernels": _backward_kernels(executed),
+              "gather_patches": executed["gather_patches"]}
+    import numpy as np
+
+    vals = np.array([hist[k] for k in hist if k != "epoch"])
+    check(np.isfinite(vals).all(), f"non-finite metrics {hist}")
+    return hist, counts
+
+
+def _add_counts(total: dict, more: dict) -> dict:
+    """Two paths' kernel counts, summed key by key (nested dicts too)."""
+    return {k: _add_counts(v, more[k]) if isinstance(v, dict)
+            else v + more[k] for k, v in total.items()}
+
+
+def _step_peaks(step_fn, state, ds) -> list:
+    """Peak device bytes above the resident ones of a new graphed step's
+    first call (warm-up on a clone, capture, replays) and of a call of
+    replays alone."""
+    import torch
+
+    peaks = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(state, ds)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - resident)
+    return peaks
+
+
+def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
+                   tag: str, replays: int = PROFILE_REPLAYS) -> dict:
+    """A profile of one call of `replays` graphed steps (step_fn's
+    steps_per_call): device busy and idle share, and the hand-written
+    kernels counted by name inside the replays (K1 forward on wgmma 6 a
+    step, its backward kernels as `per_step` says, K2 2 a step) with their
+    device ms a step.  CUPTI now and then drops events of a long trace, so
+    a trace whose counts differ is taken again, up to DEVICE_TRACE_TRIES
+    traces, before the check fails."""
+    import torch
+
+    want = {"k1_bf16_wgmma": 6, "k2_gather": 2,
+            "k1_dx_bf16_wgmma": per_step["upsample2_conv3_backward_dx_fast"],
+            "k1_dk_bf16_wgmma": per_step["upsample2_conv3_backward_dk_fast"],
+            "k1_dx_reduce": per_step["upsample2_conv3_backward_dx_reduce"],
+            "k1_dk_fold": per_step["upsample2_conv3_backward_dk_fold"]}
+    want = {n: want.get(n, 0) * replays for n in BY_NAME}
+    for _ in range(DEVICE_TRACE_TRIES):
+        prof = profile_breakdown(
+            lambda: (step_fn(state, ds), torch.cuda.synchronize()), what,
+            top=12)
+        check(prof is not None, "no device events in the graphed window")
+        names = prof["count_by_name"]
+        in_graph = {name: sum(n for k, n in names.items() if name in k)
+                    for name in BY_NAME}
+        print(f"[{tag}] kernels in the profiled replays by name: {in_graph} "
+              f"({replays} steps)")
+        if in_graph == want:
+            break
+    check(in_graph == want,
+          f"the graph's kernels are not the hand-written ones: {in_graph}")
+    kernel_ms = {n: sum(ms for k, ms in prof["ms_by_name"].items()
+                        if n in k) / replays
+                 for n in BY_NAME if in_graph[n]}
+    print(f"[{tag}] hand-written kernels' device ms a step in the replays: "
+          + json.dumps(kernel_ms))
+    return {"window_ms": prof["window_ms"], "busy_ms": prof["busy_ms"],
+            "idle_share": prof["idle_share"],
+            "busy_ms_per_step": prof["busy_ms"] / replays,
+            "kernels_by_name": in_graph, "kernel_ms_per_step": kernel_ms}
+
+
+def _conserves(gen, ds, seed: int, n: int = 256) -> float:
+    """max |sum_h frac - 1| of a generator on n of the dataset's
+    conditions; fails above CONSERVATION_RTOL."""
+    import torch
+
+    g = torch.Generator(device=ds.device).manual_seed(seed + 5)
+    latent, cond = ds.sample_latent(n, gen.cfg.latent_dim, g)
+    with torch.no_grad():
+        frac = gen(latent, cond)
+    cons = (frac.sum(dim=1) - 1.0).abs().max().item()
+    nd = ds.cfg.ndomain
+    check(frac.shape == (n, 24, nd, nd, 1) and cons <= CONSERVATION_RTOL,
+          f"conservation {cons}")
+    return cons
+
+
+def _pad_only_grads(state, ds, seed: int) -> dict:
+    """The critic's pad-only taps on the card, from the trained state: the
+    gradient of one critic loss (its gradient penalty included) at every
+    such tap, in float32 and bfloat16, must be exactly 0, as JAX's is; and
+    the kernels that compute conv3's weight gradient alone, by their
+    profiler names."""
+    import torch
+    import torch.nn.functional as F
+
+    from prdisagg_torch.models.critic import Critic, pad_only_taps
+    from prdisagg_torch.ops.core import full_f32
+    from prdisagg_torch.train.wgan_gp import critic_loss
+
+    out = {}
+    b = TRAIN_BATCH
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(state.critic.cfg, compute_dtype=dname)
+        critic = Critic(cfg).to(CARD)
+        critic.load_state_dict(state.critic.state_dict())
+        g = torch.Generator(device=ds.device).manual_seed(seed + 7)
+        frac, cond = ds.sample_real(b, g)
+        latent = torch.randn((b, cfg.latent_dim), generator=g,
+                             device=ds.device)
+        with torch.no_grad():
+            fake = state.gen(latent, cond)
+        eps = torch.rand((b,), generator=g, device=ds.device)
+        loss = critic_loss(critic, frac, cond, fake, eps, None, None, 10.0)[0]
+        pads = pad_only_taps(cfg)
+        grads = torch.autograd.grad(
+            loss, [getattr(critic, f"conv{i}").weight for i in pads])
+        row = {}
+        for (i, mask), gr in zip(pads.items(), grads):
+            row[f"conv{i}"] = {
+                "pad_only_taps": int(mask.sum()),
+                "max_abs_grad_at_pad_only_taps": gr[mask].abs().max().item(),
+                "max_abs_grad_elsewhere": gr[~mask].abs().max().item()}
+        # conv3's weight gradient alone, as the critic calls the conv:
+        # an NDHWC activation viewed as NCDHW, padded, the weight permuted
+        # and cast
+        i, mask = next(iter(pads.items()))
+        conv = getattr(critic, f"conv{i}")
+        cin = conv.weight.shape[3]
+        cd = getattr(torch, dname)
+        x = torch.randn((b, *critic.stage_dims[i - 1], cin), generator=g,
+                        device=ds.device).to(cd).permute(0, 4, 1, 2, 3)
+        x = F.pad(x, critic._pads[i])
+        w = conv.weight.detach().clone().requires_grad_(True)
+        strict = full_f32() if dname == "float32" else contextlib.nullcontext()
+        with strict:
+            y = F.conv3d(x, w.permute(4, 3, 0, 1, 2).to(cd), stride=2)
+            gy = torch.randn(y.shape, generator=g, device=ds.device).to(cd)
+            # CUPTI now and then drops the kernels of a short trace: 10
+            # calls a trace, up to DEVICE_TRACE_TRIES traces
+            kernels = None
+            for _ in range(DEVICE_TRACE_TRIES):
+                prof = profile_breakdown(
+                    lambda: [torch.autograd.grad(y, w, gy, retain_graph=True)
+                             for _ in range(10)],
+                    f"conv{i}'s weight gradient alone, {dname}, B {b}, 10 "
+                    f"calls", top=4)
+                names = [] if prof is None else sorted(prof["ms_by_name"])
+                if any("copy" not in n for n in names):
+                    kernels = names
+                    break
+            (gw,) = torch.autograd.grad(y, w, gy)
+        row[f"conv{i}_alone"] = {
+            "max_abs_grad_at_pad_only_taps": gw[mask].abs().max().item(),
+            "kernels": kernels}
+        print(f"[train] pad-only taps' gradient on the card, {dname}: "
+              + json.dumps(row))
+        out[dname] = row
+    check(all(r["max_abs_grad_at_pad_only_taps"] == 0.0
+              for row in out.values() for r in row.values()),
+          f"a pad-only tap's gradient is not exactly 0: {out}")
+    check(all(row[f"conv{i}_alone"]["kernels"] for row in out.values()),
+          f"no trace of {DEVICE_TRACE_TRIES} named conv{i}'s weight-gradient "
+          f"kernel (only copies, or no device event): {out}")
+    return out
+
+
 def phase_train(ds, seed: int, workdir: str) -> dict:
     """Trainer.fit at the flagship defaults on the card-resident dataset,
     the step running as a CUDA graph, then EAGER_STEPS eager steps
-    in this process, the graphed step's memory and profile, and an eager
-    step's profile."""
-    import numpy as np
+    in this process, the graphed step's memory and profile, an eager
+    step's profile, the critic's pad-only taps and the f32 step against
+    the CPU."""
     import torch
 
-    from prdisagg_torch.ops import gather, upsample_conv
-    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.models.critic import pad_only_taps
+    from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.train.loop import Trainer
     from prdisagg_torch.train.wgan_gp import (
         draw_step_inputs,
@@ -900,43 +1227,23 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
                     getattr(state, net).state_dict().items()}
               for net in ("gen", "critic")}
 
-    torch.cuda.synchronize()
-    reset_k1_counts()
-    gather.launches = 0
-    wgan_gp.graph_captured.clear()
-    wgan_gp.graph_launches.clear()
-    hist = trainer.fit(progress=False)
-    torch.cuda.synchronize()
-    wrappers = wgan_gp.kernel_counts()
-    captured = dict(wgan_gp.graph_captured)
-    replayed = dict(wgan_gp.graph_launches)
     steps = epochs * STEPS_PER_EPOCH
     per_step = train_per_step()
-    executed = _executed_counts(wrappers, captured, replayed)
-    print(f"[train] main path: Trainer.fit, {steps} steps at batch "
-          f"{TRAIN_BATCH}, n_disc {N_DISC}, bf16, as {epochs} calls of "
-          f"{STEPS_PER_EPOCH} CUDA graph replays: wrappers {wrappers} (the "
-          f"{wgan_gp.WARMUP_STEPS} warm-up steps and one capture), captured "
-          f"per replay {captured}, replays launched {replayed}, kernels run "
-          f"{executed}")
-    check(trainer.state.step == steps, trainer.state.step)
-    check(captured == per_step, f"one capture of one step: {captured}")
-    check(replayed == {k: n * steps for k, n in per_step.items()}, replayed)
-    check(wrappers == {k: n * (wgan_gp.WARMUP_STEPS + 1)
-                       for k, n in per_step.items()}, wrappers)
-    counts = {"upsample2_conv3": executed["upsample2_conv3"],
-              "upsample2_conv3_by_variant": {
-                  v: executed[f"upsample2_conv3_{v}"] for v in ("fast",
-                                                               "general")},
-              "upsample2_conv3_backward": executed["upsample2_conv3_backward"],
-              "upsample2_conv3_backward_kernels": _backward_kernels(executed),
-              "gather_patches": executed["gather_patches"]}
-    vals = np.array([hist[k] for k in hist if k != "epoch"])
-    check(np.isfinite(vals).all(), f"non-finite metrics {hist}")
+    hist, counts = _fit_counted(trainer, steps, per_step, "train")
     for net in ("gen", "critic"):
         now = getattr(state, net).state_dict()
         check(any(not torch.equal(before[net][k], v) for k, v in now.items()),
               f"{net} parameters did not change")
+    # JAX's gradient at the critic's pad-only taps is exactly 0, so Adam
+    # leaves their weights where they started; the port's must stay too
+    now = state.critic.state_dict()
+    pads_kept = {f"conv{i}": bool(torch.equal(
+        now[f"conv{i}.weight"][mask], before["critic"][f"conv{i}.weight"][mask]))
+        for i, mask in pad_only_taps(state.critic.cfg).items()}
+    print(f"[train] pad-only taps' weights bit-identical to their initial "
+          f"values after Trainer.fit: {pads_kept}")
+    check(pads_kept and all(pads_kept.values()),
+          f"pad-only taps moved in training: {pads_kept}")
     last = {k: hist[k][-1] for k in hist}
     print(f"[train] last metrics {json.dumps(last)}")
     n_timed = TIMED_EPOCHS * STEPS_PER_EPOCH
@@ -971,57 +1278,22 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     # capture, replays), then a call of replays alone
     step_fn = make_train_step(trainer.model_cfg, exp.train, TRAIN_BATCH,
                               steps_per_call=PROFILE_REPLAYS)
+    peaks = _step_peaks(step_fn, state, ds)
     data_bytes = ds.data.numel() * ds.data.element_size()
-    peaks = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        step_fn(state, ds)
-        torch.cuda.synchronize()
-        peaks.append(torch.cuda.max_memory_allocated() - resident)
+    check(max(peaks) < data_bytes / 2, "a train step copies the dataset")
     print(f"[train] peak memory above the resident bytes: first call "
           f"(warm-up, capture, {PROFILE_REPLAYS} replays) {peaks[0]} bytes "
           f"({peaks[0] / data_bytes:.3f} of the dataset's {data_bytes}); a "
           f"call of {PROFILE_REPLAYS} replays {peaks[1]} bytes; resident "
           f"{torch.cuda.memory_allocated()}")
-    check(max(peaks) < data_bytes / 2, "a train step copies the dataset")
 
-    gen = torch.Generator(device=ds.device).manual_seed(seed + 5)
-    latent, cond = ds.sample_latent(256, trainer.model_cfg.latent_dim, gen)
-    with torch.no_grad():
-        frac = state.gen(latent, cond)
-    cons = (frac.sum(dim=1) - 1.0).abs().max().item()
+    cons = _conserves(state.gen, ds, seed)
     print(f"[train] trained generator: max |sum_h frac - 1| = {cons:.3e} "
           f"over 256 samples (bound {CONSERVATION_RTOL})")
-    check(frac.shape == (256, 24, 16, 16, 1) and cons <= CONSERVATION_RTOL,
-          f"conservation {cons}")
 
-    graph_prof = profile_breakdown(
-        lambda: (step_fn(state, ds), torch.cuda.synchronize()),
-        f"one call of {PROFILE_REPLAYS} graphed steps, bf16 batch "
-        f"{TRAIN_BATCH}", top=12)
-    check(graph_prof is not None, "no device events in the graphed window")
-    names = graph_prof["count_by_name"]
-
-    def runs(part: str) -> int:
-        return sum(n for k, n in names.items() if part in k)
-
-    in_graph = {name: runs(name) for name in BY_NAME}
-    print(f"[train] kernels in the profiled replays by name: {in_graph} "
-          f"({PROFILE_REPLAYS} steps)")
-    bwd = per_step
-    want = {"k1_bf16_wgmma": 6, "k2_gather": 2,
-            "k1_dx_bf16_wgmma": bwd["upsample2_conv3_backward_dx_fast"],
-            "k1_dk_bf16_wgmma": bwd["upsample2_conv3_backward_dk_fast"],
-            "k1_dx_reduce": bwd["upsample2_conv3_backward_dx_reduce"],
-            "k1_dk_fold": bwd["upsample2_conv3_backward_dk_fold"]}
-    check(in_graph == {n: want.get(n, 0) * PROFILE_REPLAYS for n in BY_NAME},
-          f"the graph's kernels are not the hand-written ones: {in_graph}")
-    print("[train] hand-written kernels' device ms a step in the replays: "
-          + json.dumps({n: sum(ms for k, ms in graph_prof["ms_by_name"].items()
-                               if n in k) / PROFILE_REPLAYS
-                        for n in BY_NAME if in_graph[n]}))
+    graph_prof = _graph_kernels(
+        step_fn, state, ds, per_step, f"one call of {PROFILE_REPLAYS} graphed "
+        f"steps, bf16 batch {TRAIN_BATCH}", "train")
 
     def eager_step():
         train_step_on(state, ds, draw_step_inputs(state, ds, TRAIN_BATCH,
@@ -1051,10 +1323,13 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
         else eager["kernels"]["node_ms"]
     print(f"[train] K1 backward device time per step (3 passes, eager "
           f"profile): {k1_bwd} ms")
-    f32 = _f32_step_check(state, ds, seed)
+    pad_grads = _pad_only_grads(state, ds, seed)
+    f32 = _f32_step_check(state, ds, seed, F32_CHECK["n_disc"],
+                          F32_CHECK["batch"], F32_CHECK["rtol"])
     return {"counts": counts, "graphed_steps_per_s": graphed,
             "eager_steps_per_s": eager, "step_peaks": peaks,
-            "conservation": cons, "f32": f32,
+            "conservation": cons, "f32": f32, "pad_only_grads": pad_grads,
+            "pad_only_kept": pads_kept,
             "graph_profile": {k: graph_prof[k] for k in (
                 "window_ms", "busy_ms", "idle_share")},
             "k1_backward_ms": k1_bwd, "eager_profiles": eager}
@@ -1868,13 +2143,15 @@ def phase_eval(ds, sl: dict, seed: int, workdir: str) -> dict:
 
     checks = {"crps_f64": _crps_f64_check(pg, reals, seed),
               "lsd_f64": _lsd_f64_check(sp_gen, sp_real),
-              "median": _median_check(sp_gen, sp_real),
-              "cli": _eval_cli(sl["npz"], reals.cpu().numpy(),
-                               ens[:CLI_CRPS["baseline"]].cpu().numpy(),
-                               os.path.join(workdir, "cli"))}
+              "median": _median_check(sp_gen, sp_real)}
+    # the CLI's subprocesses run later, beside the other subprocess
+    # phases (main)
+    cli_args = (sl["npz"], reals.cpu().numpy(),
+                ens[:CLI_CRPS["baseline"]].cpu().numpy(),
+                os.path.join(workdir, "cli"))
     return {"counts": counts, "items": items, "conservation": cons,
             "daily_cycle_correlation": corr, "lsd_peak_bytes": lsd_peak,
-            **checks}
+            "cli_args": cli_args, **checks}
 
 
 def _rainfarm_checks(batch0: str, slopes0, daily, seed: int) -> dict:
@@ -3034,10 +3311,355 @@ def phase_ops(seed: int, cli_workdir: str, workdir: str) -> dict:
     return res
 
 
+def phase_variants(ds, seed: int, workdir: str) -> dict:
+    """The 64x64 large domain and the lon variant on the card-resident
+    dataset.  64x64: Trainer.fit of large_domain_experiment() at the
+    training cell's defaults (bf16, B 32, n_disc 5), graphed, on the same
+    tensor's nd-64, n_thresh-40 rows; the kernels counted through the
+    wrappers and by name in a profiled call of replays (busy ms a step,
+    K1's share, idle share), the first call's and a replay's peak bytes,
+    the trained generator's conservation, one f32 step with K1's kernels
+    against K1's plain route on the card, and f32 generate_scenarios at the
+    default max_batch (scenarios/s; peak bytes within half the card;
+    conservation).  lon: Trainer.fit of lon_experiment() at the flagship
+    16x16, graphed, its conservation, and its .npz export's f32 forward
+    against the live generator's."""
+    import numpy as np
+    import torch
+
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+    from prdisagg_torch.core.config import (
+        ModelConfig,
+        TrainConfig,
+        large_domain_experiment,
+        lon_experiment,
+    )
+    from prdisagg_torch.data.indices import compute_valid_indices
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.ops import upsample_conv
+    from prdisagg_torch.train.loop import Trainer
+    from prdisagg_torch.train.wgan_gp import make_train_step
+
+    def train_cfg(epochs, steps, checkpoint=0):
+        return TrainConfig(n_disc=N_DISC, schedule=((epochs, TRAIN_BATCH),),
+                           seed=seed, log_every_steps=steps,
+                           checkpoint_every_epochs=checkpoint)
+
+    os.makedirs(workdir, exist_ok=True)
+    out = {}
+    # -- the 64x64 large domain: no exports or checkpoints (the dense layer
+    # alone is 206M parameters)
+    epochs = LARGE_WARM_EPOCHS + LARGE_TIMED_EPOCHS
+    exp = dataclasses.replace(large_domain_experiment(),
+                              train=train_cfg(epochs, LARGE_STEPS))
+    ds64 = DeviceDataset.from_tensor(
+        ds.data, compute_valid_indices(ds.data, exp.data), exp.data)
+    check(ds64.data.data_ptr() == ds.data.data_ptr(), "from_tensor copied")
+    print(f"[variants] 64x64: {ds64.n_samples} valid rows of nd "
+          f"{ds64.cfg.ndomain}, n_thresh {ds64.cfg.n_thresh}, in the "
+          f"resident {tuple(ds.data.shape)} tensor")
+    trainer = Trainer(exp, ds64, os.path.join(workdir, "large_domain"),
+                      steps_per_epoch=LARGE_STEPS, plot_every_epochs=0,
+                      export_weights_every_epochs=0, export_format="npz")
+    check(trainer.model_cfg.ndomain == 64
+          and trainer.model_cfg.compute_dtype == "bfloat16", exp)
+    per_step = train_per_step(stages=LARGE_STAGES)
+    _, counts = _fit_counted(trainer, epochs * LARGE_STEPS, per_step,
+                             "variants")
+    timed = sum(trainer.epoch_seconds[LARGE_WARM_EPOCHS:])
+    graphed = LARGE_TIMED_EPOCHS * LARGE_STEPS / timed
+    step_fn = make_train_step(trainer.model_cfg, exp.train, TRAIN_BATCH,
+                              steps_per_call=LARGE_PROFILE_REPLAYS)
+    peaks = _step_peaks(step_fn, trainer.state, ds64)
+    prof = _graph_kernels(step_fn, trainer.state, ds64, per_step,
+                          f"one call of {LARGE_PROFILE_REPLAYS} graphed 64x64"
+                          f" steps, bf16 batch {TRAIN_BATCH}", "variants",
+                          LARGE_PROFILE_REPLAYS)
+    k1_ms = sum(ms for n, ms in prof["kernel_ms_per_step"].items()
+                if n.startswith("k1_"))
+    cons = _conserves(trainer.state.gen, ds64, seed, N_DISC * TRAIN_BATCH)
+    row = {"graphed_steps_per_s": graphed, "timed_steps":
+           LARGE_TIMED_EPOCHS * LARGE_STEPS, "timed_s": timed,
+           "warm_epoch_s": trainer.epoch_seconds[0],
+           "busy_ms_per_step": prof["busy_ms_per_step"],
+           "idle_share": prof["idle_share"], "k1_ms_per_step": k1_ms,
+           "k1_share_of_busy": k1_ms / prof["busy_ms_per_step"],
+           "first_call_peak_bytes": peaks[0], "replay_peak_bytes": peaks[1],
+           "conservation": cons}
+    print("[variants] 64x64 graphed train: " + json.dumps(row))
+    out["large_domain"] = row
+    c = LARGE_F32_CHECK
+    out["large_domain_f32"] = _f32_step_check(
+        trainer.state, ds64, seed, c["n_disc"], c["batch"], c["rtol"],
+        against="plain")
+    del trainer, step_fn
+    torch.cuda.empty_cache()
+
+    # -- 64x64 f32 serving at the default max_batch
+    cfg64 = ModelConfig(ndomain=ND_LARGE, compute_dtype="float32")
+    npz = os.path.join(workdir, "gen_64x64.npz")
+    np.savez(npz, **{f"params/{layer}/{kind}": arr for layer, d in
+                     _random_generator_tree(cfg64, seed).items()
+                     for kind, arr in d.items()})
+    gen = PretrainedGenerator.from_npz(npz, seed=seed)
+    check(gen.cfg == cfg64, gen.cfg)
+    cond = np.random.RandomState(seed + 2).gamma(
+        0.6, 12.0, (ND_LARGE, ND_LARGE)).astype("f4")
+    n = gen.max_batch
+    reset_k1_counts()
+    t0 = time.perf_counter()
+    scen = gen.generate_scenarios(cond, n)
+    first = time.perf_counter() - t0
+    serve_counts = {"upsample2_conv3": upsample_conv.launches,
+                    "upsample2_conv3_by_variant":
+                        dict(upsample_conv.launches_by_variant)}
+    check(serve_counts["upsample2_conv3_by_variant"] == fast_only(3),
+          serve_counts)
+    check(scen.shape == (n, 24, ND_LARGE, ND_LARGE)
+          and np.isfinite(scen).all(), scen.shape)
+    scen_cons = _conservation_err(scen, cond)
+    del scen
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen.generate_scenarios(cond, n)
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen.generate_scenarios(cond, n)
+    peak = torch.cuda.max_memory_allocated() - base
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    row = {"n": n, "max_batch": gen.max_batch,
+           "scenarios_per_s": n / statistics.median(walls),
+           "median_s": statistics.median(walls), "first_s": first,
+           "peak_bytes": peak, "peak_bytes_per_scenario": peak / n,
+           "card_bytes": card_bytes, "peak_share_of_card": peak / card_bytes,
+           "conservation": scen_cons}
+    print("[variants] 64x64 f32 generate_scenarios: " + json.dumps(row))
+    check(scen_cons <= CONSERVATION_RTOL, f"conservation {scen_cons}")
+    check(peak <= card_bytes / 2, f"64x64 serving takes over half the "
+          f"card at max_batch {n}: {row}")
+    out["large_domain_serving"] = row
+    del gen
+    torch.cuda.empty_cache()
+
+    # -- lon at the flagship 16x16, on the dataset's own rows
+    exp = dataclasses.replace(lon_experiment(),
+                              train=train_cfg(LON_EPOCHS, LON_STEPS))
+    ds_lon = DeviceDataset.from_tensor(ds.data, ds.indices, exp.data)
+    trainer = Trainer(exp, ds_lon, os.path.join(workdir, "lon"),
+                      steps_per_epoch=LON_STEPS, plot_every_epochs=0,
+                      export_weights_every_epochs=LON_EPOCHS,
+                      export_format="npz")
+    check(trainer.model_cfg.n_cond_channels == 2, trainer.model_cfg)
+    _, lon_counts = _fit_counted(trainer, LON_EPOCHS * LON_STEPS,
+                                 train_per_step(), "variants")
+    lon_cons = _conserves(trainer.state.gen, ds_lon, seed,
+                          N_DISC * TRAIN_BATCH)
+    export = os.path.join(trainer.outdir, f"gen_{trainer.params_str}_"
+                          f"{LON_EPOCHS:04d}.npz")
+    loaded = PretrainedGenerator.from_npz(export, n_cond_channels=2,
+                                          seed=seed)
+    live = PretrainedGenerator(
+        {k: v.detach().clone() for k, v in trainer.state.gen.state_dict()
+         .items()}, dataclasses.replace(trainer.model_cfg,
+                                        compute_dtype="float32"), seed=seed)
+    g = torch.Generator(device=ds.device).manual_seed(seed + 8)
+    lat = torch.randn((SCENARIOS, live.cfg.latent_dim), generator=g,
+                      device=ds.device)
+    _, cond = ds_lon.sample_real(SCENARIOS, g)
+    a, b = live.predict_fractions(lat, cond), loaded.predict_fractions(
+        lat, cond)
+    err, scale = (a - b).abs().max().item(), a.abs().max().item()
+    row = {"steps": LON_EPOCHS * LON_STEPS,
+           "steps_per_s": LON_EPOCHS * LON_STEPS / sum(trainer.epoch_seconds),
+           "conservation": lon_cons, "export": os.path.basename(export),
+           "round_trip_max_abs": err, "round_trip_max": scale,
+           "round_trip_samples": SCENARIOS}
+    print("[variants] lon: " + json.dumps(row))
+    check(loaded.cfg.n_cond_channels == 2 and err <= 1e-5 * scale,
+          f"the lon export does not round-trip: {row}")
+    out["lon"] = row
+    total = _add_counts(_add_counts(counts, lon_counts), {
+        **serve_counts, "upsample2_conv3_backward": 0,
+        "upsample2_conv3_backward_kernels": dict.fromkeys(
+            counts["upsample2_conv3_backward_kernels"], 0),
+        "gather_patches": 0})
+    out["counts"] = total
+    return out
+
+
+def _protocol_proc(module: str, args: list, workdir: str, name: str):
+    """`python -m prdisagg_torch.protocols.<module>` on the card, its
+    output in WORKDIR/<name>.log; returns (process, log, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(workdir, f"{name}.log"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", f"prdisagg_torch.protocols.{module}",
+             *args], cwd=root, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True), log, time.perf_counter()
+    except OSError:
+        log.close()
+        raise
+
+
+def _kill_protocols(procs: dict) -> None:
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        log.close()
+
+
+def _protocols_wait(procs: dict, workdir: str, limit: float) -> dict:
+    """Waits for each (process, log, start) of `procs`, killing any still
+    running after `limit` seconds; returns {name: {rc, seconds since its
+    start}} and fails on a non-zero exit, with its log's tail."""
+    t0, out, bad = time.perf_counter(), {}, []
+    for name, (proc, log, start) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, limit - (time.perf_counter()
+                                                     - t0)))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            rc = proc.wait()
+        finally:
+            log.close()
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - start}
+        print(f"[protocols] {name}: " + json.dumps(out[name]))
+        if rc != 0:
+            with open(os.path.join(workdir, f"{name}.log")) as fh:
+                print(fh.read()[-4000:])
+            bad.append(name)
+    check(not bad, f"protocol drivers failed: {bad}")
+    return out
+
+
+def start_protocols(workdir: str) -> dict:
+    """Starts the protocol drivers as subprocesses on the card at flagship
+    width, cut in depth: protocols.large_domain and protocols.variants
+    (PROTOCOL_DAYS training days and their own held-out days, 2 epochs),
+    protocols.paper with --mini's battery
+    (PAPER_RUN's days and epochs) and protocols.l1_rehearsal.  The card
+    has no h5py and no matplotlib: exports are .npz and figures off.
+    Returns what phase_protocols waits for."""
+    os.makedirs(workdir, exist_ok=True)
+    days = str(PROTOCOL_DAYS)
+    npz = ["--export-format", "npz"]
+    paper_wd = os.path.join(workdir, "paper")
+    paper = ["--mini", "--n-days", str(PAPER_RUN[0]), "--heldout-days",
+             str(PAPER_RUN[1]), "--epochs", str(PAPER_RUN[2]), "--no-plots",
+             "--workdir", paper_wd, *npz]
+    procs = {}
+    try:
+        for name, module, args in (
+                ("paper", "paper", paper),
+                ("large_domain", "large_domain",
+                 [days, "2", "32", "1", "2", "--no-plots", "--workdir",
+                  os.path.join(workdir, "large_domain"), *npz]),
+                ("variants", "variants",
+                 [days, "2", "--workdir",
+                  os.path.join(workdir, "variants"), *npz]),
+                ("l1_rehearsal", "l1_rehearsal",
+                 [os.path.join(workdir, "l1"), "--no-plots", *npz])):
+            procs[name] = _protocol_proc(module, args, workdir, name)
+    except BaseException:
+        _kill_protocols(procs)
+        raise
+    return {"workdir": workdir, "paper": paper, "procs": procs,
+            "paper_wd": paper_wd,
+            "t0": time.perf_counter()}
+
+
+def phase_protocols(started: dict) -> dict:
+    """Waits for start_protocols' drivers, each of which must exit 0;
+    once the paper protocol is done, runs it again in its workdir (every
+    battery stage from its cache, with the same values) and then
+    protocols.paper_finish (the same LSD medians and CRPS)."""
+    try:
+        return _protocols_results(**started)
+    finally:
+        _kill_protocols(started["procs"])  # what a failure left running
+
+
+def _protocols_results(workdir: str, paper: list, procs: dict,
+                       paper_wd: str, t0: float) -> dict:
+    limit = PROTOCOL_LIMIT_S - (time.perf_counter() - t0)
+    out = _protocols_wait({"paper": procs.pop("paper")}, workdir, limit)
+    summary_path = os.path.join(paper_wd, "paper_protocol_summary.json")
+    with open(summary_path) as fh:
+        first = json.load(fh)
+    out.update(_protocols_wait({"paper_rerun": _protocol_proc(
+        "paper", paper + ["--reuse-train"], workdir, "paper_rerun")},
+        workdir, PROTOCOL_LIMIT_S))
+    with open(summary_path) as fh:
+        second = json.load(fh)
+    cached = {k: second["stages"][k].get("cached") is True
+              for k in ("datasets", "eval_phases_1to5", "rainfarm", "crps",
+                        "lsd")}
+    same = ({k: v for k, v in first["verdict"].items()
+             if k != "total_wall_clock_minutes"}
+            == {k: v for k, v in second["verdict"].items()
+                if k != "total_wall_clock_minutes"})
+    print(f"[protocols] paper rerun: stages cached {cached}, the same "
+          f"verdict {same}; verdict {json.dumps(first['verdict'])}")
+    v = first["verdict"]
+    out.update(_protocols_wait({"paper_finish": _protocol_proc(
+        "paper_finish", [paper_wd, v["peak_epoch"],
+                         str(v["heldout_daily_cycle_corr"]),
+                         str(v["ks_frac_distinct_p05"]), "200",
+                         "--no-plots"], workdir, "paper_finish")},
+        workdir, PROTOCOL_LIMIT_S))
+    with open(summary_path) as fh:
+        finished = json.load(fh)["verdict"]
+    out.update(_protocols_wait(procs, workdir, PROTOCOL_LIMIT_S - (
+        time.perf_counter() - t0)))
+    procs.clear()
+    check(all(cached.values()) and same, "the paper protocol's rerun did "
+          "not take every stage from its cache with the same values")
+    check(finished["lsd_medians"] == v["lsd_medians"]
+          and finished["crps"] == v["crps"],
+          f"paper_finish's verdict differs: {finished}")
+    with open(os.path.join(workdir, "l1", "l1_rehearsal_summary.json")) as fh:
+        l1 = json.load(fh)
+    check(l1["ok"] and l1["n_valid_samples"] > 0, l1)
+    for name in ("large_domain", "variants"):
+        with open(os.path.join(workdir, f"{name}.log")) as fh:
+            lines = [ln for ln in fh.read().splitlines()
+                     if ln.startswith("[") and not ln.startswith("[resume")]
+        print(f"[protocols] {name}: " + " | ".join(lines))
+    out["paper_verdict"] = v
+    return out
+
+
+def _shape_rows(rows: list, prefix: str = "") -> list:
+    """The [kernel] lines' rows of the 64x64 stages, in brief."""
+    keys = ("stage", "dtype", "shape", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share",
+            "library_ratio")
+    out = []
+    for r in rows:
+        if not r["stage"].startswith("ld_"):
+            continue
+        if not prefix:
+            out.append({k: r[k] for k in keys})
+        elif f"{prefix}ms" in r:
+            out.append({"stage": r["stage"], "dtype": r["dtype"],
+                        "shape": r["shape"],
+                        **{k: r[f"{prefix}{k}"] for k in keys[3:9]},
+                        "bound_share": r[f"{prefix}bound_ms"]
+                        / r[f"{prefix}ms"],
+                        "library_ratio": r[f"{prefix}ms"]
+                        / r[f"{prefix}library_ms"]})
+    return out
+
+
 def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                   slice_by_variant: dict, eval_counts: dict,
                   rf_counts: dict, dp_counts: dict,
-                  data_counts: dict) -> list:
+                  data_counts: dict, var_counts: dict) -> list:
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
@@ -3050,6 +3672,7 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
     step_bwd = [r for r in step_rows if "backward_ms" in r]
     bwd_train = counts["upsample2_conv3_backward_kernels"]
     bwd_dp = dp_counts["upsample2_conv3_backward_kernels"]
+    bwd_var = var_counts["upsample2_conv3_backward_kernels"]
     k2 = {r["stage"]: r for r in gc["rows"]}
     real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
     cond = k2[f"cond_b{TRAIN_BATCH}"]
@@ -3066,19 +3689,22 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                      + eval_counts["upsample2_conv3"]
                      + rf_counts["upsample2_conv3"]
                      + dp_counts["upsample2_conv3"]
-                     + data_counts["upsample2_conv3"]),
+                     + data_counts["upsample2_conv3"]
+                     + var_counts["upsample2_conv3"]),
         "launches_by_path": {"slice": slice_launches,
                              "train": counts["upsample2_conv3"],
                              "eval": eval_counts["upsample2_conv3"],
                              "rainfarm": rf_counts["upsample2_conv3"],
                              "dp": dp_counts["upsample2_conv3"],
-                             "data": data_counts["upsample2_conv3"]},
+                             "data": data_counts["upsample2_conv3"],
+                             "variants": var_counts["upsample2_conv3"]},
         "launches_by_variant": {
             v: n + slice_by_variant[v]
             + eval_counts["upsample2_conv3_by_variant"][v]
             + rf_counts["upsample2_conv3_by_variant"][v]
             + dp_counts["upsample2_conv3_by_variant"][v]
             + data_counts["upsample2_conv3_by_variant"][v]
+            + var_counts["upsample2_conv3_by_variant"][v]
             for v, n in counts["upsample2_conv3_by_variant"].items()},
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
@@ -3105,6 +3731,8 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "dp_shapes_max_abs_err": {
             d: max(r["max_abs_err"] for r in dp_rows if r["dtype"] == d)
             for d in ("float32", "bfloat16")},
+        # the 64x64 generator's stages (large_k1_cases)
+        "large_domain_shapes": _shape_rows(kc["rows"]),
     }, {
         "name": "upsample2_conv3_backward",
         "route": "cuda",
@@ -3113,10 +3741,12 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:99",
         # dx, dk, dk's fold and split dx's reduce on the training and
         # data-parallel paths (the others run no backward)
-        "launches": sum(bwd_train.values()) + sum(bwd_dp.values()),
+        "launches": (sum(bwd_train.values()) + sum(bwd_dp.values())
+                     + sum(bwd_var.values())),
         "launches_by_path": {"train": sum(bwd_train.values()),
-                             "dp": sum(bwd_dp.values())},
-        "launches_by_kernel": {k: n + bwd_dp.get(k, 0)
+                             "dp": sum(bwd_dp.values()),
+                             "variants": sum(bwd_var.values())},
+        "launches_by_kernel": {k: n + bwd_dp.get(k, 0) + bwd_var.get(k, 0)
                                for k, n in bwd_train.items()},
         # the generator update's three backward passes at B 32, bf16 (every
         # backward checked, B 16 in both dtypes too, is in the [kernel]
@@ -3131,6 +3761,7 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         else "bytes",
         "library_ms": sum(r["backward_library_ms"] for r in step_bwd),
         "per_stage_ms": [r["backward_ms"] for r in step_bwd],
+        "large_domain_shapes": _shape_rows(kc["rows"], "backward_"),
     }, {
         "name": "gather_patches",
         "route": "cuda",
@@ -3143,12 +3774,14 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "launches": (counts["gather_patches"] + eval_counts["gather_patches"]
                      + rf_counts["gather_patches"]
                      + dp_counts["gather_patches"]
-                     + data_counts["gather_patches"]),
+                     + data_counts["gather_patches"]
+                     + var_counts["gather_patches"]),
         "launches_by_path": {"train": counts["gather_patches"],
                              "eval": eval_counts["gather_patches"],
                              "rainfarm": rf_counts["gather_patches"],
                              "dp": dp_counts["gather_patches"],
-                             "data": data_counts["gather_patches"]},
+                             "data": data_counts["gather_patches"],
+                             "variants": var_counts["gather_patches"]},
         # one train step's two launches: the n_disc*B real patches and the
         # generator update's conditions (every gather checked is in the
         # [kernel] lines)
@@ -3202,7 +3835,9 @@ def main() -> int:
     out: dict = {}
     workdir = tempfile.TemporaryDirectory(prefix="chip_smoke-")
 
-    def run(name, fn, needs=()):
+    def run(name, fn, needs=(), own_s=None):
+        """Runs phase `name`; a phase that ran in a thread (`own_s` holds
+        its seconds) is waited for, and its own seconds printed."""
         missing = [n for n in needs if n not in out]
         if missing:
             failed.append(f"{name} (skipped: {', '.join(missing)} failed)")
@@ -3213,7 +3848,12 @@ def main() -> int:
         except Exception:  # noqa: BLE001 — report, run the other phases
             traceback.print_exc()
             failed.append(name)
-        print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        if own_s is None:
+            print(f"[time] {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        else:
+            print(f"[time] {name}: {own_s[name]:.1f} s (in its thread, "
+                  f"beside the other subprocess phases)", flush=True)
 
     run("kernel_check", lambda: phase_kernel_check(args.seed))
     run("dataset", lambda: phase_dataset(args.seed))
@@ -3229,24 +3869,57 @@ def main() -> int:
     run("resume_check", lambda: phase_resume_check(
         out["dataset"], args.seed, os.path.join(workdir.name, "resume")),
         needs=("dataset",))
-    run("cli", lambda: phase_cli(args.seed, os.path.join(workdir.name, "cli")))
     run("eval", lambda: phase_eval(out["dataset"], out["slice"], args.seed,
                                    os.path.join(workdir.name, "eval")),
         needs=("dataset", "slice"))
     run("rainfarm", lambda: phase_rainfarm(
         out["dataset"], out["slice"], args.seed,
         os.path.join(workdir.name, "rainfarm")), needs=("dataset", "slice"))
-    run("serve_cli", lambda: phase_serve_cli(
-        out["slice"], os.path.join(workdir.name, "serve_cli")),
-        needs=("slice",))
     run("dp", lambda: phase_dp(out["slice"], out["train"], args.seed,
                                os.path.join(workdir.name, "dp"), card),
         needs=("slice", "train"))
+    # the phases that check subprocesses' exit codes and files, not a time,
+    # run together, and beside no phase that times the card or the host:
+    # the protocol drivers, and the cli, eval CLI and serving CLI phases,
+    # each a thread waiting on its subprocesses; each prints its own seconds
+    run("protocols_start", lambda: start_protocols(
+        os.path.join(workdir.name, "protocols")))
+    beside = {"cli": (lambda: phase_cli(
+                  args.seed, os.path.join(workdir.name, "cli")), ()),
+              "eval_cli": (lambda: _eval_cli(*out["eval"]["cli_args"]),
+                           ("eval",)),
+              "serve_cli": (lambda: phase_serve_cli(
+                  out["slice"], os.path.join(workdir.name, "serve_cli")),
+                  ("slice",))}
+    own_s = {}
+
+    def own(name, fn):
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                own_s[name] = time.perf_counter() - t0
+        return timed
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(beside))
+    jobs = {name: pool.submit(own(name, fn))
+            for name, (fn, needs) in beside.items()
+            if all(n in out for n in needs)}
+    run("protocols", lambda: phase_protocols(out["protocols_start"]),
+        needs=("protocols_start",))
+    for name, (_, needs) in beside.items():
+        run(name, jobs[name].result if name in jobs else None, needs=needs,
+            own_s=own_s)
+    pool.shutdown()
     run("data", lambda: phase_data(args.seed,
                                    os.path.join(workdir.name, "data")))
     run("ops", lambda: phase_ops(args.seed, os.path.join(workdir.name, "cli"),
                                  os.path.join(workdir.name, "ops")),
         needs=("cli",))
+    run("variants", lambda: phase_variants(
+        out["dataset"], args.seed, os.path.join(workdir.name, "variants")),
+        needs=("dataset",))
     workdir.cleanup()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -3256,7 +3929,7 @@ def main() -> int:
                             out["train"]["counts"], out["slice"]["launches"],
                             out["slice"]["by_variant"], out["eval"]["counts"],
                             out["rainfarm"]["counts"], out["dp"]["counts"],
-                            out["data"]["counts"])
+                            out["data"]["counts"], out["variants"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,12 @@ NORM_SCALE = 127.4
 MAX_BATCH_16 = 8192
 
 
+def default_max_batch(ndomain: int) -> int:
+    """:data:`MAX_BATCH_16` scaled by the domain's activation footprint
+    (~ndomain^2), at least 32."""
+    return max(32, int(MAX_BATCH_16 * (16 / ndomain) ** 2))
+
+
 def _bucket(n: int) -> int:
     """Smallest b >= n with b in {2^k, 1.5*2^k}: bounds the set of fused
     batch shapes; padding stays under 50% (worst case is just above a power
@@ -116,8 +122,7 @@ class PretrainedGenerator:
             self.device = mesh.device
         self.norm_scale = norm_scale
         if max_batch is None:
-            max_batch = max(32, int(MAX_BATCH_16
-                                    * (16 / self.cfg.ndomain) ** 2))
+            max_batch = default_max_batch(self.cfg.ndomain)
         if mesh is not None:  # chunks must divide evenly over the mesh
             max_batch = max(mesh.size, max_batch - max_batch % mesh.size)
         self.max_batch = max_batch

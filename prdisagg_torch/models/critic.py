@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +50,30 @@ def critic_stage_dims(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
     for i in range(len(cfg.critic_channels)):
         dims = tuple((n - 3) // 2 + 1 if i == 0 else -(-n // 2) for n in dims)
         out.append(dims)
+    return out
+
+
+def pad_only_taps(cfg: ModelConfig) -> Dict[int, torch.Tensor]:
+    """{stage: (3, 3, 3) bool mask} of the SAME conv stages' taps that read
+    only padding at every output position, for stages that have any.  A
+    tap reads data iff, on each axis, some output o reads input
+    2 o + k - lo inside [0, n), lo the stage's low pad.  Such a tap's
+    weights never touch data, so their gradient is exactly 0: at the
+    flagship 16x16 that is 15 of conv3's 27 taps (ky = 2 or kx = 2), its
+    input being (3, 2, 2) with pads (1, 1), (0, 1), (0, 1)."""
+    dims = critic_stage_dims(cfg)
+    out = {}
+    for i in range(1, len(cfg.critic_channels)):
+        dead = []  # per axis: the taps that read only padding
+        for n in dims[i - 1]:
+            lo = _same_pads(n)[0]
+            dead.append(torch.tensor([
+                all(not 0 <= 2 * o + k - lo < n for o in range(-(-n // 2)))
+                for k in range(3)]))
+        mask = (dead[0][:, None, None] | dead[1][None, :, None]
+                | dead[2][None, None, :])
+        if mask.any():
+            out[i] = mask
     return out
 
 

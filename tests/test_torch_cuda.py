@@ -37,6 +37,9 @@ SHAPES = [
     (1, 1, 1, 1, 1, 1),      # one voxel, one channel
     (5, 6, 4, 4, 256, 128),  # flagship stage-1 widths, small batch
 ]
+# the 64x64 large domain's generator stages, at B 8
+LARGE_DOMAIN = [(8, 3, 8, 8, 256, 256), (8, 6, 16, 16, 256, 128),
+                (8, 12, 32, 32, 128, 64)]
 # the fast kernels' edge cases, each with the tile k1_plan gives it
 FAST_EDGES = [
     ((3, 3, 2, 2, 256, 256), (64, 64)),     # stage 0 at B 3: M = 36 < 64
@@ -90,6 +93,14 @@ def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
     assert _check_forward(cuda, shape, dtype, rtol, atol) == want
 
 
+@pytest.mark.parametrize("shape", LARGE_DOMAIN)
+@pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
+def test_upsample2_conv3_large_domain_stages_match_plain(cuda, shape, dtype,
+                                                         rtol, atol):
+    """The 64x64 generator's three stages take the fast kernel."""
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
+
+
 @pytest.mark.parametrize("shape,tile", FAST_EDGES)
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
 def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
@@ -106,7 +117,8 @@ def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
                                    # the flagship stages at the train batch
                                    (32, 3, 2, 2, 256, 256),
                                    (32, 6, 4, 4, 256, 128),
-                                   (32, 12, 8, 8, 128, 64)])
+                                   (32, 12, 8, 8, 128, 64)]
+                         + LARGE_DOMAIN)
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-4),
                                              ("bfloat16", 2e-2, 2e-2)])
 def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
@@ -154,6 +166,33 @@ def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    rtol=rtol, atol=atol * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pad_only_taps_have_exactly_zero_gradient_on_the_card(cuda, dtype):
+    """The flagship critic's conv3 taps that read only SAME padding get an
+    exactly 0 gradient from the critic loss, its gradient penalty
+    included, on the card's convolutions too, as in JAX."""
+    import dataclasses
+
+    from prdisagg_torch.core.config import ModelConfig
+    from prdisagg_torch.models.critic import Critic, pad_only_taps
+    from prdisagg_torch.train.wgan_gp import critic_loss
+
+    cfg = dataclasses.replace(ModelConfig(), compute_dtype=dtype)
+    torch.manual_seed(0)
+    crit = Critic(cfg).to(cuda)
+    rng = np.random.RandomState(2)
+    frac, fake = (torch.tensor(rng.rand(16, 24, 16, 16, 1).astype("f4"),
+                               device=cuda) for _ in range(2))
+    cond = torch.tensor(rng.rand(16, 16, 16, 1).astype("f4"), device=cuda)
+    eps = torch.tensor(rng.rand(16).astype("f4"), device=cuda)
+    loss = critic_loss(crit, frac, cond, fake, eps, None, None, 10.0)[0]
+    (grad,) = torch.autograd.grad(loss, crit.conv3.weight)
+    mask = pad_only_taps(cfg)[3]
+    assert int(mask.sum()) == 15
+    assert grad[mask.to(cuda)].abs().max().item() == 0.0
+    assert grad[~mask.to(cuda)].abs().max().item() > 0.0
 
 
 def test_upsample2_conv3_backward_refuses_what_it_cannot_take(cuda):

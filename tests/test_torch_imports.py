@@ -1,5 +1,6 @@
 """The port stands alone: nothing under prdisagg_torch/, nor chip_smoke.py,
-imports JAX, its libraries or the JAX package.
+imports JAX, its libraries, the JAX package or its drivers under scripts/
+(the protocol drivers in prdisagg_torch/protocols/ keep their own copies).
 
 A static scan, because the test process itself has JAX loaded (the parity
 tests import both), which makes a sys.modules check meaningless.
@@ -11,7 +12,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prdisagg_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prdisagg_tpu",
+             "scripts")
 PORT_FILES = sorted((ROOT / "prdisagg_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -49,6 +51,9 @@ def test_port_files_found():
         assert f"prdisagg_torch/data/{module}.py" in names
     for module in ("watchdog", "stagecache", "profiling"):
         assert f"prdisagg_torch/utils/{module}.py" in names
+    for module in ("__init__", "large_domain", "variants", "epoch_curve",
+                   "paper", "paper_finish", "l1_rehearsal"):
+        assert f"prdisagg_torch/protocols/{module}.py" in names
     assert "chip_smoke.py" in names
 
 

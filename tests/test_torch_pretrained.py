@@ -34,20 +34,30 @@ def _cfgs(smoke=True, **kw):
     return jc, tc
 
 
-@pytest.fixture(scope="module")
-def weights(tmp_path_factory):
+def _save_weights(d, **kw):
     """Smoke-width generator weights (std 0.3, far from uniform fractions)
     saved by the JAX package as .npz and Keras .h5."""
-    jc, tc = _cfgs(init_stddev=0.3)
+    jc, tc = _cfgs(init_stddev=0.3, **kw)
     lat = np.zeros((1, jc.latent_dim), "f4")
     cond = np.zeros((1, jc.ndomain, jc.ndomain, 1), "f4")
     params = jax.tree_util.tree_map(
         np.asarray, JaxGenerator(jc).init(jax.random.PRNGKey(3), lat, cond))
-    d = tmp_path_factory.mktemp("torch_weights")
     npz, h5 = str(d / "gen.npz"), str(d / "gen.h5")
     save_params_npz(npz, params)
     save_keras_generator_h5(h5, params, jc)
     return dict(jc=jc, tc=tc, npz=npz, h5=h5, params=params)
+
+
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    return _save_weights(tmp_path_factory.mktemp("torch_weights"))
+
+
+@pytest.fixture(scope="module")
+def weights64(tmp_path_factory):
+    """The same at the large domain's 64x64."""
+    return _save_weights(tmp_path_factory.mktemp("torch_weights64"),
+                         ndomain=64)
 
 
 def _cond(nd=16, k=None, seed=0):
@@ -56,8 +66,10 @@ def _cond(nd=16, k=None, seed=0):
     return rng.gamma(0.6, 12.0, shape).astype("f4")
 
 
-@pytest.mark.parametrize("fmt", ["npz", "h5"])
-def test_generate_scenarios_matches_jax(weights, fmt):
+@pytest.mark.parametrize("fmt,nd", [("npz", 16), ("h5", 16), ("npz", 64)],
+                         ids=["npz", "h5", "npz-64x64"])
+def test_generate_scenarios_matches_jax(request, fmt, nd):
+    weights = request.getfixturevalue("weights" if nd == 16 else "weights64")
     jc, tc = weights["jc"], weights["tc"]
     if fmt == "npz":
         want_gen = jpre.PretrainedGenerator.from_npz(weights["npz"], cfg=jc)
@@ -68,21 +80,21 @@ def test_generate_scenarios_matches_jax(weights, fmt):
                                                           cfg=jc)
         gen = tpre.PretrainedGenerator.from_keras_h5(weights["h5"], cfg=tc,
                                                      device="cpu")
-    cond = _cond()
+    cond = _cond(nd)
     lat = np.random.RandomState(1).randn(5, tc.latent_dim).astype("f4")
     want = want_gen.generate_scenarios(cond, 5, latent=lat)
     got = gen.generate_scenarios(cond, 5, latent=lat)
-    assert got.shape == want.shape == (5, 24, 16, 16)
+    assert got.shape == want.shape == (5, 24, nd, nd)
     scale = cond.max()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
-    np.testing.assert_allclose(got.sum(1), np.broadcast_to(cond, (5, 16, 16)),
+    np.testing.assert_allclose(got.sum(1), np.broadcast_to(cond, (5, nd, nd)),
                                rtol=1e-5, atol=1e-6 * scale)
 
-    conds = _cond(k=3, seed=2)
+    conds = _cond(nd, k=3, seed=2)
     lat = np.random.RandomState(4).randn(3 * 2, tc.latent_dim).astype("f4")
     want = want_gen.generate_scenarios_batch(conds, 2, latent=lat)
     got = gen.generate_scenarios_batch(conds, 2, latent=lat)
-    assert got.shape == want.shape == (3, 2, 24, 16, 16)
+    assert got.shape == want.shape == (3, 2, 24, nd, nd)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * conds.max())
 
 

@@ -389,6 +389,43 @@ def test_critic_flagship_pads_and_layout():
     assert w.max().item() <= limit and w.max().item() > 0.9 * limit
 
 
+def test_pad_only_taps_have_exactly_zero_gradient_in_both_packages():
+    """The critic's conv taps that read only SAME padding at the flagship
+    16x16 geometry (narrow channels): where JAX's gradient of the critic
+    loss, its gradient penalty included, is exactly 0, the port's is too,
+    and both are the taps of ``pad_only_taps``."""
+    from prdisagg_torch.models.critic import pad_only_taps
+
+    jc, tc = _model_pair(compute_dtype="float32", dropout_rate=0.0,
+                         critic_channels=(4, 8, 8, 4))
+    rng = np.random.RandomState(11)
+    frac = rng.rand(2, 24, 16, 16, 1).astype("f4")
+    fake = rng.rand(2, 24, 16, 16, 1).astype("f4")
+    cond = rng.rand(2, 16, 16, 1).astype("f4")
+    eps = rng.rand(2).astype("f4")
+    torch.manual_seed(4)
+    crit = Critic(tc)
+    cp = params_to_jax(crit.state_dict())
+    (_, _), jgrads = jax.value_and_grad(
+        lambda c: _jax_critic_loss(JaxCritic(jc), c, frac, cond, fake, eps,
+                                   10.0), has_aux=True)(cp)
+    loss = twgan.critic_loss(crit, torch.tensor(frac), torch.tensor(cond),
+                             torch.tensor(fake), torch.tensor(eps), None,
+                             None, 10.0)[0]
+    names = [n for n, _ in crit.named_parameters()]
+    got = dict(zip(names, torch.autograd.grad(loss, list(crit.parameters()))))
+    masks = pad_only_taps(tc)
+    assert list(masks) == [3] and int(masks[3].sum()) == 15
+    for i in range(4):
+        want = np.asarray(jgrads["params"][f"conv{i}"]["kernel"])
+        zero_jax = np.all(want == 0, axis=(3, 4))
+        zero_port = (got[f"conv{i}.weight"] == 0).all(dim=-1).all(dim=-1)
+        expect = masks.get(i, torch.zeros(3, 3, 3, dtype=torch.bool))
+        assert np.array_equal(zero_jax, zero_port.numpy()), i
+        assert np.array_equal(zero_jax, expect.numpy()), i
+    assert pad_only_taps(tcfg.ModelConfig(ndomain=64)) == {}
+
+
 # --------------------------------------------------------------------------
 # K1's gradient
 # --------------------------------------------------------------------------
@@ -448,6 +485,18 @@ def train_setup():
     data, idx, dcfg = make_synthetic_dataset(n_days=4, ny=32, nx=32, seed=1)
     ds = DeviceDataset.from_numpy(data, idx, tcfg.DataConfig(), device="cpu")
     jds = JaxDataset.from_numpy(data, idx, jcfg.DataConfig())
+    return data, idx, ds, jds
+
+
+@pytest.fixture(scope="module")
+def train_setup64():
+    """The 64x64 domain's data (large_domain_experiment's n_thresh 40)."""
+    kw = dict(ndomain=64, n_thresh=40)
+    data, idx, _ = make_synthetic_dataset(n_days=2, ny=80, nx=80, seed=1,
+                                          cfg=tcfg.DataConfig(**kw))
+    ds = DeviceDataset.from_numpy(data, idx, tcfg.DataConfig(**kw),
+                                  device="cpu")
+    jds = JaxDataset.from_numpy(data, idx, jcfg.DataConfig(**kw))
     return data, idx, ds, jds
 
 
@@ -626,8 +675,8 @@ def _jax_full_step(jc, gp, cp, jds, dr, n_disc, batch, c_opt, g_opt):
     for i in range(n_disc):
         cp, c_opt, _, aux, _ = critic_update(
             cp, c_opt, frac[i], cond[i], fake[i], jnp.asarray(dr["eps"][i]))
-    dsum = np.asarray(jds.dsum)
-    cond_g = np.stack([dsum[t, y:y + 16, x:x + 16]
+    dsum, nd = np.asarray(jds.dsum), jc.ndomain
+    cond_g = np.stack([dsum[t, y:y + nd, x:x + nd]
                        for t, y, x in dr["gen_rows"]])[..., None] / 127.4
     gp, g_opt, g_loss, _ = gen_update(gp, g_opt, cp,
                                       jnp.asarray(dr["gen_latent"]),
@@ -635,16 +684,21 @@ def _jax_full_step(jc, gp, cp, jds, dr, n_disc, batch, c_opt, g_opt):
     return gp, cp, aux, g_loss
 
 
-@pytest.mark.parametrize("smoke,n_disc,batch", [(True, 2, 4),
-                                                (False, 1, 2)],
-                         ids=["smoke-ndisc2-b4", "flagship-ndisc1-b2"])
-def test_full_step_matches_jax_and_optax(train_setup, smoke, n_disc, batch):
+@pytest.mark.parametrize("smoke,n_disc,batch,ndomain",
+                         [(True, 2, 4, 16), (False, 1, 2, 16),
+                          (True, 2, 2, 64)],
+                         ids=["smoke-ndisc2-b4", "flagship-ndisc1-b2",
+                              "smoke64x64-ndisc2-b2"])
+def test_full_step_matches_jax_and_optax(request, smoke, n_disc, batch,
+                                         ndomain):
     """One full port step (n_disc critic updates, one generator update, Adam)
     on pre-drawn inputs, from the same mid-training optimizer state, equals
-    the JAX composition plus optax.adam."""
-    data, idx, ds, jds = train_setup
-    jc, tc = _model_pair(smoke=smoke, compute_dtype="float32",
-                         dropout_rate=0.0)
+    the JAX composition plus optax.adam; at 16x16 and at the large domain's
+    64x64."""
+    data, idx, ds, jds = request.getfixturevalue(
+        "train_setup" if ndomain == 16 else "train_setup64")
+    jc, tc = _model_pair(smoke=smoke, ndomain=ndomain,
+                         compute_dtype="float32", dropout_rate=0.0)
     train_cfg = tcfg.TrainConfig(n_disc=n_disc)
     gp, cp = _nets(tc, seed=1)
     state = _load_state(tc, train_cfg, gp, cp)
