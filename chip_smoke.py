@@ -15,11 +15,13 @@ Run from the repository root.  Phases:
    version at the flagship generator's three stage shapes (batch 1000) and
    at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, at
    the training shapes (bf16, batch 160 and 32), and at the 64x64
-   generator's three stages (large_k1_cases), with its time beside the
+   generator's three stages (large_k1_cases) and at the spatial and fused
+   paths' shapes (spatial_k1_cases), with its time beside the
    plain version's, one cuDNN convolution of the upsampled input (timed
    only) and the card's bound for the same work; every shape must take the
    fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32,
-   at a gloo rank's 16 and at the 64x64 f32 step's 4 also its backward
+   at a gloo rank's 16, at the 64x64 f32 step's 4, at the spatial
+   step's 2, and at the fused steps' 192 and 24 also its backward
    kernels (dx and dkernel with
    their split reductions), held against autograd through the plain
    version and a second call bit for bit, timed beside the plain backward
@@ -155,6 +157,29 @@ Run from the repository root.  Phases:
    generate_scenarios at the default max_batch (peak within half the
    card), and lon trained graphed with its .npz export's forward against
    the live generator's.
+
+20. fused: fused_gen_forward (one (n_disc + 1) B generator forward, its
+   gradient run after the critic updates) beside the default step, both
+   CUDA graphs in one process at the flagship defaults: steps/s over
+   calls of 50 replays in the order default, fused, fused, default, the
+   fused replay's kernels through the wrappers (3 K1 forward launches, K1's
+   backward at B 192), and one f32 step of each from the same state and
+   draws (metrics within 2e-4, parameters within 1e-4 of max|p|);
+21. spatial: the conv activations' y rows split over a mesh axis, through
+   4 gloo workers on the one card started by this script: the 64x64
+   (large_domain_experiment) generator's and critic's forward at B 32, y
+   split 4 ways and 2 ways (the spatial axis of a 2 x 2 data x spatial
+   grid), in f32 (within 1e-5 of max) and bf16 (K1's bf16 limits) against
+   the same forward without a mesh; the f32 step on the grid (B 4, n_disc
+   2, mid-training Adam moments) against the single-process step on the
+   same global draws (losses within 1e-4 of their scale, parameters of
+   max|p|, every gradient that reaches an update within 1e-2 of its
+   parameter's largest), and the same step with a fault planted (the
+   latent projection's gradient summed over the spatial axis), which the
+   gradient check must catch; the seconds of a forward and a step, the
+   halo exchanges' share of them, each rank's peak bytes beside one
+   device's, and the graphed step's refusal of gloo.  ``python3 chip_smoke.py --spatial-worker`` is
+   that worker, for this script's own use.
 
 The phases that only check subprocesses (cli, eval_cli, serve_cli and the
 protocol drivers) run together, each printing its own seconds; every phase
@@ -300,6 +325,25 @@ DATA_CONDS, DATA_SCENARIOS = 8, 125
 # timeout shorter than a torch import
 OPS_EPOCHS, OPS_STALL_S, OPS_TIMEOUT_S = 6, 10, 240
 OPS_SHORT_TIMEOUT = 0.3
+# the fused generator forward (phase 20): replays in a timed call of each
+# graphed step; the fused f32 step's metrics within JAX's rtol
+# (tests/test_train_step.py), losses of their scale
+FUSED_STEPS = 50
+FUSED_RTOL = 2e-4
+# spatial sharding (phase 21): one gloo world of SPATIAL_WORLD ranks on the
+# card (y split 4 ways, and 2 ways on a (data 2, spatial 2) grid), the
+# 64x64 forward's batch, timed calls, the step's dataset (days, ny, nx) and
+# the workers' time limit
+SPATIAL_WORLD = 4
+SPATIAL_BATCH = 32
+SPATIAL_REPS = 3
+SPATIAL_DATASET = (8, 128, 128)
+SPATIAL_LIMIT_S = 420
+# the grid step's gradients against one device's, each parameter's of its
+# largest (_grad_err): a gradient counted twice reads about 1, the clean
+# step up to 7.4e-4 on the card (the critic's conv1 bias in its second
+# update, alike on every rank and run)
+SPATIAL_GRAD_TOL = 1e-2
 K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("bfloat16",)) for s in TRAIN_STAGES]
             + [(s, ("float32", "bfloat16")) for s in DP_STAGES]
@@ -320,6 +364,31 @@ def large_k1_cases() -> list:
     return [((f"{name}_b{b}", b, d, h, w, cin, cout), (dtype,))
             for name, d, h, w, cin, cout in LARGE_STAGES
             for dtype, batches in per_dtype.items() for b in batches]
+
+
+def spatial_k1_cases() -> list:
+    """K1 at the spatial and fused paths' new shapes: the 64x64 generator's
+    stage inputs on one rank's rows with a halo row each side (y 8/P + 2,
+    16/P + 2, 32/P + 2 at P 2 and 4) in f32 and bf16 at the forward's
+    batch; at P 2 the f32 step's held-over and generator-update batches on
+    one data rank (of 2); the fused step's (n_disc + 1) B at 16x16, bf16,
+    and the f32 fused check's.  phase_kernel_check runs the backward at
+    SPATIAL_BATCH, the data rank's update batch and both fused batches."""
+    c = LARGE_F32_CHECK
+    local = c["batch"] // 2
+    cases = [((f"sp{p}_{name}_b{SPATIAL_BATCH}", SPATIAL_BATCH, d, h // p + 2,
+               w, cin, cout), ("float32", "bfloat16"))
+             for p in (2, 4) for name, d, h, w, cin, cout in LARGE_STAGES]
+    cases += [((f"sp2_{name}_b{b}", b, d, h // 2 + 2, w, cin, cout),
+               ("float32",))
+              for b in (c["n_disc"] * local, local)
+              for name, d, h, w, cin, cout in LARGE_STAGES]
+    for b, dtype in (((N_DISC + 1) * TRAIN_BATCH, "bfloat16"),
+                     ((F32_CHECK["n_disc"] + 1) * F32_CHECK["batch"],
+                      "float32")):
+        cases += [((f"fused_{name}_b{b}", b, d, h, w, cin, cout), (dtype,))
+                  for name, _, d, h, w, cin, cout in STAGES[:3]]
+    return cases
 
 
 def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
@@ -496,17 +565,22 @@ def _kernel_row(name, dtype, shape, flops, nbytes, peak_flops, **kw) -> dict:
                 library_ratio=kw["ms"] / kw["library_ms"])
 
 
-def _plain_backward_ms(fn) -> dict:
-    """The plain backward's device time by :func:`queued_ms`; where cuDNN
-    makes the host wait inside a call (seen in float32), so that the calls
-    cannot be queued, the median of CUDA-event-timed calls instead, and
+def _plain_backward_ms(fn, dtype) -> dict:
+    """The plain backward's device time by :func:`queued_ms`; in float32,
+    where cuDNN makes the host wait inside a call so that the calls cannot
+    be queued (at every float32 shape measured on an H100), and wherever
+    queueing fails, the median of CUDA-event-timed calls instead, and
     which of the two it is."""
-    try:
-        return {"backward_plain_ms": queued_ms(fn, 10),
-                "backward_plain_timer": "queued"}
-    except AssertionError:
-        return {"backward_plain_ms": cuda_ms(fn, 10),
-                "backward_plain_timer": "events"}
+    import torch
+
+    if dtype != torch.float32:
+        try:
+            return {"backward_plain_ms": queued_ms(fn, 10),
+                    "backward_plain_timer": "queued"}
+        except AssertionError:
+            pass
+    return {"backward_plain_ms": cuda_ms(fn, 10),
+            "backward_plain_timer": "events"}
 
 
 def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
@@ -584,7 +658,8 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
              / c.float().abs().max()).item() for a, c in zip(got, want)),
         backward_ms=queued_ms(kernels, 10),
         backward_call_ms=cuda_ms(kernels, 10),
-        **_plain_backward_ms(lambda: upsample2_conv3_backward(x, k, g)),
+        **_plain_backward_ms(lambda: upsample2_conv3_backward(x, k, g),
+                             x.dtype),
         backward_bound_ms=max(ops_ms, bytes_ms),
         backward_bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         backward_library_ms=queued_ms(lambda: torch.autograd.grad(
@@ -631,8 +706,11 @@ def phase_kernel_check(seed: int) -> dict:
     rows = []
     ok = True
     backward_batches = (TRAIN_BATCH, TRAIN_BATCH // DP_GLOO_WORLD,
-                        LARGE_F32_CHECK["batch"])
-    for (name, b, d, h, w, cin, cout), dtypes in K1_CASES + large_k1_cases():
+                        LARGE_F32_CHECK["batch"], LARGE_F32_CHECK["batch"] // 2,
+                        (N_DISC + 1) * TRAIN_BATCH,
+                        (F32_CHECK["n_disc"] + 1) * F32_CHECK["batch"])
+    for (name, b, d, h, w, cin, cout), dtypes in (
+            K1_CASES + large_k1_cases() + spatial_k1_cases()):
         x32 = torch.randn((b, d, h, w, cin), generator=gen, device=dev)
         k = 0.02 * torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev)
         bias = 0.02 * torch.randn((cout,), generator=gen, device=dev)
@@ -2529,6 +2607,54 @@ def _is_nccl(kernel: str) -> bool:
     return "nccl" in kernel.lower() or "onerankreduce" in kernel.lower()
 
 
+class _GradLog:
+    """Hooks on a train state's two optimizers that see the gradients
+    reaching each update, in order (n_disc critic updates, then the
+    generator's).  Without `want` it keeps a copy of each; with `want`
+    (another log's copies, of the same step on the same draws) it compares
+    each as it comes and keeps the largest reading of :func:`_grad_err` and
+    the parameter that gave it.  close() removes the hooks."""
+
+    def __init__(self, state, want=None):
+        self.grads, self.err, self.worst, self.want = [], 0.0, None, want
+        self.names = {id(opt): [f"{net}.{n}" for n, _ in getattr(
+            state, net).named_parameters()]
+            for opt, net in ((state.critic_opt, "critic"),
+                             (state.gen_opt, "gen"))}
+        self.handles = [opt.register_step_pre_hook(self._hook)
+                        for opt in (state.critic_opt, state.gen_opt)]
+
+    def _hook(self, opt, args, kwargs):
+        got = [p.grad for g in opt.param_groups for p in g["params"]]
+        if self.want is None:
+            self.grads.append([x.detach().clone() for x in got])
+            return
+        err, i = _grad_err(got, self.want[len(self.grads)])
+        if err > self.err:
+            self.err = err
+            self.worst = f"update {len(self.grads)} {self.names[id(opt)][i]}"
+        self.grads.append(None)
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _grad_err(got, want) -> tuple:
+    """One update's gradients against another run's: the largest over the
+    parameters of max |got - want| over the parameter's own largest |want|,
+    floored at 1e-2 of the update's largest (some gradients are zero
+    analytically, the head's bias, and hold only rounding noise), and the
+    index of the parameter that gave it.  A gradient counted twice, or a
+    share of one, reads about 1 on its parameter."""
+    scale = max(w.abs().max().item() for w in want)
+    errs = [(g - w).abs().max().item() / max(w.abs().max().item(),
+                                             1e-2 * scale)
+            for g, w in zip(got, want)]
+    i = max(range(len(errs)), key=errs.__getitem__)
+    return errs[i], i
+
+
 def _param_err(a, b) -> float:
     """max |a - b| over both nets, over max |b|, the larger net's."""
     err = 0.0
@@ -2963,6 +3089,419 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
         "cli": {k: res[k]["seconds"] for k in ("cli_train", "cli_crps",
                                                 "cli_serve")},
         "serve_err": serve_err}
+
+
+
+# ---------------------------------------------------------------------------
+# the fused generator forward (phase 20) and spatial sharding (phase 21)
+# ---------------------------------------------------------------------------
+
+def _graphed_rate(step_fn, state, ds) -> float:
+    """Steps/s of one call of `step_fn` (FUSED_STEPS graphed replays)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(state, ds)
+    torch.cuda.synchronize()
+    return FUSED_STEPS / (time.perf_counter() - t0)
+
+
+def phase_fused(ds, seed: int) -> dict:
+    """fused_gen_forward beside the default step, in this process, at the
+    flagship defaults (bf16, B 32, n_disc 5) on the card-resident dataset,
+    each a CUDA graph: their steps/s over calls of FUSED_STEPS replays in
+    the order default, fused, fused, default; the fused graph's kernels
+    through the wrappers (one K1 forward a stage, at (n_disc + 1) B, and
+    K1's backward at that batch); then one f32 step of each from the same
+    state (mid-training Adam moments, dropout on) on the same draws."""
+    import torch
+
+    from prdisagg_torch.core.config import ModelConfig, TrainConfig
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import clone_train_state, create_train_state
+
+    mc = ModelConfig()
+    tcfg = TrainConfig(n_disc=N_DISC, seed=seed)
+    steps, rates, counts = {}, {"default": [], "fused": []}, {}
+    for name in ("default", "fused", "fused", "default"):
+        if name not in steps:
+            state = create_train_state(mc, tcfg, device=CARD)
+            fn = wgan_gp.make_train_step(mc, tcfg, TRAIN_BATCH, FUSED_STEPS,
+                                         fused_gen_forward=name == "fused")
+            torch.cuda.synchronize()
+            _reset_counts()
+            wgan_gp.graph_captured.clear()
+            wgan_gp.graph_launches.clear()
+            fn(state, ds)  # warm-up, capture and the first call
+            torch.cuda.synchronize()
+            captured = dict(wgan_gp.graph_captured)
+            counts[name] = {
+                "per_replay": captured,
+                "executed": _executed_counts(_dp_counts(), captured,
+                                             dict(wgan_gp.graph_launches))}
+            steps[name] = (fn, state)
+        rates[name].append(_graphed_rate(*steps[name], ds))
+    want = train_per_step("bfloat16", (N_DISC + 1) * TRAIN_BATCH)
+    want["upsample2_conv3"] = want["upsample2_conv3_fast"] = 3
+    check(counts["fused"]["per_replay"] == want,
+          f"fused replay's launches {counts['fused']['per_replay']}, "
+          f"expected {want}")
+    check(counts["default"]["per_replay"] == train_per_step(),
+          counts["default"]["per_replay"])
+    for _, state in steps.values():
+        check(all(torch.isfinite(p).all() for p in state.gen.parameters()),
+              "non-finite parameters after the graphed steps")
+    del steps
+    torch.cuda.empty_cache()
+
+    # one f32 step of each on the same draws
+    c = F32_CHECK
+    f32 = dataclasses.replace(mc, compute_dtype="float32")
+    t32 = TrainConfig(n_disc=c["n_disc"], seed=seed)
+    base = create_train_state(f32, t32, device=CARD)
+    _warm_adam(base, seed)
+    draws = wgan_gp.draw_step_inputs(base, ds, c["batch"], c["n_disc"])
+    res = {}
+    for name in ("default", "fused"):
+        st = clone_train_state(base, f32, t32, CARD)
+        _reset_counts()
+        m = wgan_gp.unpack_metrics(wgan_gp.train_step_on(
+            st, ds, draws, t32, fused_gen_forward=name == "fused")["packed"])
+        res[name] = (m, st, _dp_counts())
+    (ma, sa, _), (mb, sb, cb) = res["default"], res["fused"]
+    losses = ("d_loss", "d_loss_mean", "gp", "w_distance", "g_loss")
+    scale = max(abs(ma[k]) for k in losses)
+    metric_err = max([abs(mb[k] - ma[k]) / scale for k in losses]
+                     + [abs(mb[k] - ma[k]) / ma[k]
+                        for k in ("d_grad_norm", "g_grad_norm")])
+    param_err = _param_err(sb, sa)
+    critic_equal = all(torch.equal(a, b) for a, b in zip(
+        sa.critic.parameters(), sb.critic.parameters()))
+    cond = ds._real_from_rows(draws.real_rows)[1]
+    f32_row = {"metric_rel_err": metric_err,
+               "param_err_over_max": param_err,
+               "critic_bit_identical": critic_equal,
+               "fakes_by_layer": _batch_dependence(
+                   base.gen, draws.latent, cond, draws.gen_latent,
+                   ds._cond_from_rows(draws.gen_rows)),
+               "n_disc": c["n_disc"], "batch": c["batch"],
+               "k1_backward_kernels": _backward_kernels(cb)}
+    check(not mb["nonfinite"] and metric_err <= FUSED_RTOL
+          and param_err <= DP_TOL, f"fused vs default f32 step: {f32_row}")
+    for k in counts["fused"]["executed"]:  # the f32 steps are on the path
+        counts["fused"]["executed"][k] += res["fused"][2].get(k, 0)
+    row = {"graphed_steps_per_s_abba": rates,
+           "fused_over_default": sum(rates["fused"]) / sum(rates["default"]),
+           "per_replay": {k: v["per_replay"] for k, v in counts.items()},
+           "f32_step": f32_row}
+    print("[fused] " + json.dumps(row))
+    return {**row, "counts": _path_counts(counts["fused"]["executed"])}
+
+
+def _batch_dependence(gen, lat, cond, lat_more, cond_more) -> dict:
+    """Whether the generator's layers give the held-over rows (lat, cond)
+    bit for bit alike when the generator update's rows ride in the same
+    batch, as under fused_gen_forward: for the latent projection, each
+    upsample-conv stage and the fractions (pixel-norm, the head conv and
+    the softmax after the last stage), whether the rows' input and output
+    are equal.  The first layer whose input is equal and output is not is
+    the one whose result depends on the batch it runs in."""
+    import torch
+    import torch.nn.functional as F
+
+    from prdisagg_torch.ops.core import full_f32
+
+    def run(lt, cd):
+        seen = {}
+        hooks = [st.register_forward_hook(
+            lambda m, a, y, i=i: seen.__setitem__(f"conv{i}", (a[0], y)))
+            for i, st in enumerate(gen.stages())]
+        try:
+            with torch.no_grad():
+                y = gen(lt, cd)
+                seen["fractions"] = (seen[f"conv{len(hooks) - 1}"][1], y)
+                with full_f32():
+                    x = torch.cat([lt, cd.reshape(len(lt), -1)], dim=-1)
+                    seen["latent_proj"] = (x, F.linear(
+                        x, gen.latent_proj.weight, gen.latent_proj.bias))
+        finally:
+            for h in hooks:
+                h.remove()
+        return seen
+
+    a = run(lat, cond)
+    b = run(torch.cat([lat, lat_more]), torch.cat([cond, cond_more]))
+    n = len(lat)
+    return {k: {"input_equal": torch.equal(a[k][0], b[k][0][:n]),
+                "output_equal": torch.equal(a[k][1], b[k][1][:n])}
+            for k in ["latent_proj"] + [f"conv{i}" for i in range(
+                len(gen.stages()))] + ["fractions"]}
+
+
+def _path_counts(c: dict) -> dict:
+    """A path's counters in the shape the kernels line sums."""
+    return {"upsample2_conv3": c["upsample2_conv3"],
+            "upsample2_conv3_by_variant": {
+                "fast": c["upsample2_conv3_fast"],
+                "general": c["upsample2_conv3_general"]},
+            "upsample2_conv3_backward": c["upsample2_conv3_backward"],
+            "upsample2_conv3_backward_kernels": _backward_kernels(c),
+            "gather_patches": c["gather_patches"]}
+
+
+def _seconds(fn, reps: int) -> float:
+    """Median wall seconds of fn() over `reps` calls, each waited for."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _halo_share(fn) -> dict:
+    """One more call of fn() with every exchange waited for and timed: its
+    seconds, the exchanges' seconds by kind and their share."""
+    from prdisagg_torch.parallel import spatial
+
+    spatial.exchange_seconds.clear()
+    spatial.timed = True
+    try:
+        secs = _seconds(fn, 1)
+    finally:
+        spatial.timed = False
+    ex = dict(spatial.exchange_seconds)
+    return {"seconds": secs, "exchange_seconds": ex,
+            "exchange_share": sum(ex.values()) / secs}
+
+
+def _timed_peak(fn) -> tuple:
+    """Wall seconds of one call of fn(), waited for, and its peak device
+    bytes above the resident ones."""
+    import torch
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - resident)
+
+
+def spatial_worker(seed: int, workdir: str) -> dict:
+    """One rank of the gloo world on the one card: the 64x64 generator's
+    and critic's forward with y split over the world (P 4) and over the
+    spatial axis of a (data 2, spatial 2) grid (P 2), in f32 and bf16
+    against the same forward in this process without a mesh; then the f32
+    step on the grid from mid-training Adam moments against the
+    single-process step on the same global draws, its gradients update by
+    update too, and the grid step with a planted fault.  Seconds, the halo
+    exchanges' share and peak bytes beside one device's."""
+    import torch
+
+    from prdisagg_torch.core.config import TrainConfig, large_domain_experiment
+    from prdisagg_torch.data.indices import compute_valid_indices
+    from prdisagg_torch.data.sampler import DeviceDataset
+    from prdisagg_torch.data.synthetic import make_synthetic_dataset_torch
+    from prdisagg_torch.models.critic import Critic
+    from prdisagg_torch.models.generator import Generator
+    from prdisagg_torch.parallel import spatial
+    from prdisagg_torch.parallel.distributed import initialize_multihost
+    from prdisagg_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import clone_train_state, create_train_state
+
+    check(initialize_multihost(device=CARD, backend="gloo"),
+          "the launcher's environment started no process group")
+    line = make_mesh(SPATIAL_WORLD, device=CARD, axis="spatial")
+    grid = make_mesh_2d(2, SPATIAL_WORLD // 2, device=CARD)
+    exp = large_domain_experiment()
+    counts = collections.Counter()
+
+    def counted(fn):
+        """fn() with its K1 and K2 launches added to the path's."""
+        _reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts.update(_dp_counts())
+        return res
+
+    out = {"rank": line.rank, "forward": {}}
+    dev = torch.device(CARD, torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    lat = torch.randn((SPATIAL_BATCH, 100), generator=g, device=dev)
+    cond = 0.1 * torch.rand((SPATIAL_BATCH, ND_LARGE, ND_LARGE, 1),
+                            generator=g, device=dev)
+    # one set of weights, made on the card from the seed alike on every
+    # rank, shared by the nets of both dtypes with and without the mesh
+    torch.manual_seed(seed)
+    with torch.device(dev):
+        weights = [Generator(exp.model()).state_dict(),
+                   Critic(exp.model()).state_dict()]
+
+    def nets(cfg):
+        with torch.device("meta"):
+            pair = Generator(cfg), Critic(cfg)
+        for net, sd in zip(pair, weights):
+            net.load_state_dict(sd, assign=True)
+        return pair
+
+    for dname in ("float32", "bfloat16"):
+        base = dataclasses.replace(exp.model(), compute_dtype=dname)
+        check(base.latent_dim == lat.shape[1] and base.ndomain == ND_LARGE,
+              base)
+        gen, critic = nets(base)
+        gs, cs = nets(dataclasses.replace(base, spatial_axis="spatial"))
+        with torch.no_grad():
+            ref = gen(lat, cond)
+            ref_scores = critic(ref, cond)
+            one = {"seconds": _seconds(lambda: gen(lat, cond), SPATIAL_REPS),
+                   "peak_bytes": _timed_peak(lambda: gen(lat, cond))[1]}
+            rtol, atol = TOL[dname] if dname == "bfloat16" else (0.0, 1e-5)
+            for name, mesh in (("p4", line), ("p2", grid)):
+                sp = mesh.axis_mesh("spatial")
+                with spatial.use_mesh(mesh):
+                    rows = counted(lambda: gs(lat, cond))
+                    full = gs.assemble(rows)
+                    scores = counted(lambda: cs(
+                        spatial.shard_rows(ref, 2, sp), cond))
+                    fwd = lambda: gs(lat, cond)  # noqa: E731
+                    row = {
+                        "rows": list(rows.shape),
+                        "seconds": _seconds(fwd, SPATIAL_REPS),
+                        "halo": _halo_share(fwd),
+                        "peak_bytes": _timed_peak(fwd)[1],
+                        "one_device": one}
+                ok_g, err_g, max_g = _compare(full, ref, rtol, atol)
+                ok_c, err_c, max_c = _compare(scores, ref_scores, rtol, atol)
+                lo, hi = spatial.own_rows(ND_LARGE, sp)
+                row.update(gen_ok=ok_g and torch.equal(
+                    rows, full[:, :, lo:hi]), gen_err_over_max=err_g / max_g,
+                    critic_ok=ok_c, critic_err_over_max=err_c / max_c,
+                    rtol=rtol, atol_over_max=atol)
+                out["forward"][f"{name}_{dname}"] = row
+        del gen, critic, gs, cs, ref, full
+    del weights
+    torch.cuda.empty_cache()
+
+    # the f32 step on the (data, spatial) grid against one process's
+    c = LARGE_F32_CHECK
+    mc = dataclasses.replace(exp.model(), compute_dtype="float32")
+    sp_cfg = dataclasses.replace(mc, spatial_axis="spatial")
+    tcfg = TrainConfig(n_disc=c["n_disc"], seed=seed)
+    days, ny, nx = SPATIAL_DATASET
+    data, _, _ = make_synthetic_dataset_torch(days, ny, nx, seed, dev,
+                                              cfg=exp.data)
+    ds = DeviceDataset.from_tensor(data, compute_valid_indices(
+        data, exp.data), exp.data)
+    single = create_train_state(mc, tcfg, device=dev)
+    _warm_adam(single, seed)
+    state = clone_train_state(single, sp_cfg, tcfg, dev)
+    fault = clone_train_state(single, sp_cfg, tcfg, dev)
+    draws = wgan_gp.draw_step_inputs(single, ds, c["batch"], c["n_disc"])
+    log_one = _GradLog(single)
+    m_one = wgan_gp.unpack_metrics(wgan_gp.train_step_on(
+        single, ds, draws, tcfg)["packed"])
+    log_one.close()
+    log_sp = _GradLog(state, log_one.grads)
+    spatial.exchanges.clear()
+    m_sp = counted(lambda: wgan_gp.unpack_metrics(wgan_gp.train_step_on(
+        state, ds, draws, tcfg, mesh=grid)["packed"]))
+    log_sp.close()
+    losses = ("d_loss", "gp", "w_distance", "g_loss")
+    scale = max(abs(m_one[k]) for k in losses)
+    step = {"loss_err_over_scale": max(abs(m_sp[k] - m_one[k])
+                                       for k in losses) / scale,
+            "param_err_over_max": _param_err(state, single),
+            "grad_err": log_sp.err, "grad_worst": log_sp.worst,
+            "updates": len(log_sp.grads),
+            "nonfinite": m_sp["nonfinite"],
+            "exchanges": dict(spatial.exchanges)}
+    # the same step with a fault planted: the latent projection's
+    # gradient, whole on every rank, summed over the spatial axis (counted
+    # twice); the gradient check must catch it
+    log_fault = _GradLog(fault, log_one.grads)
+    partial = fault.gen.spatial_partial_params
+    fault.gen.spatial_partial_params = (
+        lambda: partial() | {"latent_proj.weight"})
+    wgan_gp.train_step_on(fault, ds, draws, tcfg, mesh=grid)
+    log_fault.close()
+    del fault.gen.spatial_partial_params
+    step["planted_fault"] = {"grad_err": log_fault.err,
+                             "grad_worst": log_fault.worst,
+                             "param_err_over_max": _param_err(fault, single)}
+    probe = state
+    del single, fault, log_one
+    torch.cuda.empty_cache()
+    go = lambda: wgan_gp.train_step_on(  # noqa: E731
+        probe, ds, draws, tcfg, mesh=grid)
+    step["seconds"], step["peak_bytes"] = counted(lambda: _timed_peak(go))
+    step["halo"] = counted(lambda: _halo_share(go))
+    one = clone_train_state(probe, mc, tcfg, dev)
+    secs, peak = _timed_peak(lambda: wgan_gp.train_step_on(
+        one, ds, draws, tcfg))
+    step["one_device"] = {"seconds": secs, "peak_bytes": peak}
+    # gloo's collectives cannot be captured: the graphed step refuses
+    try:
+        wgan_gp.make_train_step(sp_cfg, tcfg, c["batch"], mesh=grid)(
+            probe, ds)
+        step["graph_refused"] = False
+    except ValueError as e:
+        step["graph_refused"] = "cannot be captured" in str(e)
+    out["step"] = step
+    out["counts"] = dict(counts)
+    return out
+
+
+def phase_spatial(seed: int, workdir: str, card: str) -> dict:
+    """Spatial sharding through SPATIAL_WORLD gloo workers on the one card
+    (phase 21 of the docstring), alone."""
+    os.makedirs(workdir, exist_ok=True)
+    me = [os.path.abspath(__file__), "--seed", str(seed), "--workdir",
+          workdir, "--spatial-worker"]
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = {f"spatial{r}": _dp_proc(me, r, SPATIAL_WORLD, 0, port,
+                                     os.path.join(workdir, f"spatial{r}.out"))
+             for r in range(SPATIAL_WORLD)}
+    ends = _wait_all(procs, SPATIAL_LIMIT_S, t0)
+    ranks = [_worker_result(name, workdir, proc, ends[name])
+             for name, proc in procs.items()]
+    counts = collections.Counter()
+    for r in ranks:
+        counts.update(r["counts"])
+        for name, f in r["forward"].items():
+            print(f"[spatial] rank {r['rank']} forward {name} ({card}; "
+                  f"{SPATIAL_WORLD} gloo ranks share the card, so seconds "
+                  f"are not rates of one device): " + json.dumps(f))
+            check(f["gen_ok"] and f["critic_ok"],
+                  f"spatial forward {name} differs from one device's: {f}")
+        st = r["step"]
+        print(f"[spatial] rank {r['rank']} data 2 x spatial 2 f32 step "
+              f"({card}): " + json.dumps(st))
+        check(st["loss_err_over_scale"] <= DP_TOL
+              and st["param_err_over_max"] <= DP_TOL
+              and st["grad_err"] <= SPATIAL_GRAD_TOL
+              and st["updates"] == LARGE_F32_CHECK["n_disc"] + 1
+              and st["planted_fault"]["grad_err"] > SPATIAL_GRAD_TOL
+              and not st["nonfinite"] and st["graph_refused"]
+              and st["exchanges"].get("halo", 0) > 0, f"spatial step: {st}")
+    check(counts["upsample2_conv3_general"] == 0
+          and counts["upsample2_conv3_backward_dx_general"] == 0
+          and counts["upsample2_conv3_backward_dk_general"] == 0
+          and counts["upsample2_conv3"] > 0
+          and counts["upsample2_conv3_backward"] > 0
+          and counts["gather_patches"] > 0,
+          f"spatial launches {dict(counts)}")
+    return {"ranks": ranks, "counts": _path_counts(counts),
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -3634,14 +4173,16 @@ def _protocols_results(workdir: str, paper: list, procs: dict,
     return out
 
 
-def _shape_rows(rows: list, prefix: str = "") -> list:
-    """The [kernel] lines' rows of the 64x64 stages, in brief."""
+def _shape_rows(rows: list, prefix: str = "", stage: str = "ld_") -> list:
+    """The [kernel] lines' rows whose stage starts with `stage` (the 64x64
+    stages by default), in brief: the forward's, or with `prefix`
+    "backward_" the backward's."""
     keys = ("stage", "dtype", "shape", "max_abs_err", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "bound_share",
             "library_ratio")
     out = []
     for r in rows:
-        if not r["stage"].startswith("ld_"):
+        if not r["stage"].startswith(stage):
             continue
         if not prefix:
             out.append({k: r[k] for k in keys})
@@ -3659,7 +4200,11 @@ def _shape_rows(rows: list, prefix: str = "") -> list:
 def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                   slice_by_variant: dict, eval_counts: dict,
                   rf_counts: dict, dp_counts: dict,
-                  data_counts: dict, var_counts: dict) -> list:
+                  data_counts: dict, var_counts: dict, fused_counts: dict,
+                  spatial_counts: dict) -> list:
+    paths = {"eval": eval_counts, "rainfarm": rf_counts, "dp": dp_counts,
+             "data": data_counts, "variants": var_counts,
+             "fused": fused_counts, "spatial": spatial_counts}
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
@@ -3671,8 +4216,8 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
     bwd_rows = [r for r in kc["rows"] if "backward_ms" in r]
     step_bwd = [r for r in step_rows if "backward_ms" in r]
     bwd_train = counts["upsample2_conv3_backward_kernels"]
-    bwd_dp = dp_counts["upsample2_conv3_backward_kernels"]
-    bwd_var = var_counts["upsample2_conv3_backward_kernels"]
+    bwd = {p: c["upsample2_conv3_backward_kernels"] for p, c in paths.items()
+           if "upsample2_conv3_backward_kernels" in c}
     k2 = {r["stage"]: r for r in gc["rows"]}
     real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
     cond = k2[f"cond_b{TRAIN_BATCH}"]
@@ -3686,25 +4231,15 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         # three-arm protocol; dp's: its workers'; data's: the trained doy
         # generator's scenarios)
         "launches": (slice_launches + counts["upsample2_conv3"]
-                     + eval_counts["upsample2_conv3"]
-                     + rf_counts["upsample2_conv3"]
-                     + dp_counts["upsample2_conv3"]
-                     + data_counts["upsample2_conv3"]
-                     + var_counts["upsample2_conv3"]),
+                     + sum(c["upsample2_conv3"] for c in paths.values())),
         "launches_by_path": {"slice": slice_launches,
                              "train": counts["upsample2_conv3"],
-                             "eval": eval_counts["upsample2_conv3"],
-                             "rainfarm": rf_counts["upsample2_conv3"],
-                             "dp": dp_counts["upsample2_conv3"],
-                             "data": data_counts["upsample2_conv3"],
-                             "variants": var_counts["upsample2_conv3"]},
+                             **{p: c["upsample2_conv3"]
+                                for p, c in paths.items()}},
         "launches_by_variant": {
             v: n + slice_by_variant[v]
-            + eval_counts["upsample2_conv3_by_variant"][v]
-            + rf_counts["upsample2_conv3_by_variant"][v]
-            + dp_counts["upsample2_conv3_by_variant"][v]
-            + data_counts["upsample2_conv3_by_variant"][v]
-            + var_counts["upsample2_conv3_by_variant"][v]
+            + sum(c["upsample2_conv3_by_variant"][v]
+                  for c in paths.values())
             for v, n in counts["upsample2_conv3_by_variant"].items()},
         # one flagship float32 forward's three launches at batch 1000 (every
         # stage and dtype checked is in the [kernel] lines)
@@ -3733,6 +4268,10 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
             for d in ("float32", "bfloat16")},
         # the 64x64 generator's stages (large_k1_cases)
         "large_domain_shapes": _shape_rows(kc["rows"]),
+        # a spatial rank's stage inputs with their halo rows, and the
+        # fused steps' (n_disc + 1) B (spatial_k1_cases)
+        "spatial_shapes": _shape_rows(kc["rows"], "", "sp"),
+        "fused_shapes": _shape_rows(kc["rows"], "", "fused_"),
     }, {
         "name": "upsample2_conv3_backward",
         "route": "cuda",
@@ -3741,12 +4280,11 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:99",
         # dx, dk, dk's fold and split dx's reduce on the training and
         # data-parallel paths (the others run no backward)
-        "launches": (sum(bwd_train.values()) + sum(bwd_dp.values())
-                     + sum(bwd_var.values())),
+        "launches": (sum(bwd_train.values())
+                     + sum(sum(b.values()) for b in bwd.values())),
         "launches_by_path": {"train": sum(bwd_train.values()),
-                             "dp": sum(bwd_dp.values()),
-                             "variants": sum(bwd_var.values())},
-        "launches_by_kernel": {k: n + bwd_dp.get(k, 0) + bwd_var.get(k, 0)
+                             **{p: sum(b.values()) for p, b in bwd.items()}},
+        "launches_by_kernel": {k: n + sum(b.get(k, 0) for b in bwd.values())
                                for k, n in bwd_train.items()},
         # the generator update's three backward passes at B 32, bf16 (every
         # backward checked, B 16 in both dtypes too, is in the [kernel]
@@ -3762,6 +4300,8 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "library_ms": sum(r["backward_library_ms"] for r in step_bwd),
         "per_stage_ms": [r["backward_ms"] for r in step_bwd],
         "large_domain_shapes": _shape_rows(kc["rows"], "backward_"),
+        "spatial_shapes": _shape_rows(kc["rows"], "backward_", "sp"),
+        "fused_shapes": _shape_rows(kc["rows"], "backward_", "fused_"),
     }, {
         "name": "gather_patches",
         "route": "cuda",
@@ -3771,17 +4311,11 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         # and data paths (RainFARM's: calibration's draws and the scored
         # real patches; dp's: each rank's shard of a step's rows; data's:
         # the patch store, one a day with rows)
-        "launches": (counts["gather_patches"] + eval_counts["gather_patches"]
-                     + rf_counts["gather_patches"]
-                     + dp_counts["gather_patches"]
-                     + data_counts["gather_patches"]
-                     + var_counts["gather_patches"]),
+        "launches": (counts["gather_patches"]
+                     + sum(c["gather_patches"] for c in paths.values())),
         "launches_by_path": {"train": counts["gather_patches"],
-                             "eval": eval_counts["gather_patches"],
-                             "rainfarm": rf_counts["gather_patches"],
-                             "dp": dp_counts["gather_patches"],
-                             "data": data_counts["gather_patches"],
-                             "variants": var_counts["gather_patches"]},
+                             **{p: c["gather_patches"]
+                                for p, c in paths.items()}},
         # one train step's two launches: the n_disc*B real patches and the
         # generator update's conditions (every gather checked is in the
         # [kernel] lines)
@@ -3803,6 +4337,9 @@ def main() -> int:
     ap.add_argument("--dp-worker", choices=["nccl", "gloo"],
                     help=argparse.SUPPRESS)
     ap.add_argument("--workdir", help=argparse.SUPPRESS)
+    # the spatial phase's workers: this script, started by itself
+    ap.add_argument("--spatial-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3811,10 +4348,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
-    if args.dp_worker:
-        worker = {"nccl": dp_worker_nccl, "gloo": dp_worker_gloo}
-        name = args.dp_worker + ("" if args.dp_worker == "nccl"
-                                 else os.environ["RANK"])
+    if args.dp_worker or args.spatial_worker:
+        worker = {"nccl": dp_worker_nccl, "gloo": dp_worker_gloo,
+                  None: spatial_worker}
+        name = ("spatial" if args.spatial_worker else args.dp_worker) + (
+            "" if args.dp_worker == "nccl" else os.environ["RANK"])
         res = worker[args.dp_worker](args.seed, args.workdir)
         res["counts"] = dict(res["counts"])
         with open(os.path.join(args.workdir, f"{name}.json"), "w") as fh:
@@ -3866,6 +4404,8 @@ def main() -> int:
         needs=("dataset",))
     run("graph_check", lambda: phase_graph_check(out["dataset"], args.seed),
         needs=("dataset",))
+    run("fused", lambda: phase_fused(out["dataset"], args.seed),
+        needs=("dataset",))
     run("resume_check", lambda: phase_resume_check(
         out["dataset"], args.seed, os.path.join(workdir.name, "resume")),
         needs=("dataset",))
@@ -3878,6 +4418,8 @@ def main() -> int:
     run("dp", lambda: phase_dp(out["slice"], out["train"], args.seed,
                                os.path.join(workdir.name, "dp"), card),
         needs=("slice", "train"))
+    run("spatial", lambda: phase_spatial(
+        args.seed, os.path.join(workdir.name, "spatial"), card))
     # the phases that check subprocesses' exit codes and files, not a time,
     # run together, and beside no phase that times the card or the host:
     # the protocol drivers, and the cli, eval CLI and serving CLI phases,
@@ -3929,7 +4471,8 @@ def main() -> int:
                             out["train"]["counts"], out["slice"]["launches"],
                             out["slice"]["by_variant"], out["eval"]["counts"],
                             out["rainfarm"]["counts"], out["dp"]["counts"],
-                            out["data"]["counts"], out["variants"]["counts"])
+                            out["data"]["counts"], out["variants"]["counts"],
+                            out["fused"]["counts"], out["spatial"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,9 @@
 
 Field for field the same knobs as the JAX package's configuration, so a
 weight file, a test or a CLI flag names the same network and run in both
-packages.  Left out, because the port has no counterpart yet:
-
-* ``ModelConfig.spatial_axis`` (SPMD sharding of activations);
-* ``TrainConfig.pallas_gather`` (on CUDA the sampler always gathers with
-  the hand-written kernel of ops/gather.py; there is no choice to make).
+packages.  Left out: ``TrainConfig.pallas_gather``, which chooses between
+two gathers in the JAX package; on CUDA the sampler always gathers with the
+hand-written kernel of ops/gather.py, so there is no choice to make.
 
 :meth:`DataConfig.params_string` reproduces the reference's filename codec,
 so exported weights keep the reference's names.
@@ -113,6 +111,11 @@ class ModelConfig:
     # Fold nearest-upsample+Conv3D into 8 low-res phase convs (exact, 3.375x
     # fewer MACs; ops/upsample_conv.py).  Same parameter layout either way.
     fused_upsample: bool = True
+    # Spatial sharding: the name of a mesh axis that the y dimension of the
+    # conv activations is split over (parallel/spatial.py, with halo rows
+    # exchanged between neighbouring ranks); apply the nets under
+    # ``parallel.spatial.use_mesh(mesh)``.  None = replicated (default).
+    spatial_axis: Optional[str] = None
 
     def __post_init__(self):
         if self.ndomain % 8 != 0:

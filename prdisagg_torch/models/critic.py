@@ -19,6 +19,15 @@ Three details decide parity with the JAX weights and outputs:
 
 Dropout takes explicit keep masks (:meth:`Critic.draw_masks` draws them from
 a ``torch.Generator``), so the training step controls every random draw.
+
+With ``cfg.spatial_axis`` set, under a mesh with that axis
+(parallel/spatial.py ``use_mesh``), each stage's output rows are split
+over the axis' ranks: the sample comes in as this rank's rows (as the
+generator gives them) and the condition and the masks whole, sliced here;
+each stride-2 conv fetches the input rows its output rows need, from the
+pads above (stage 0 VALID), and the score is a partial dot over the rank's
+rows summed over the axis, its bias added once after the sum.  A stage
+whose output has fewer rows than the axis has ranks runs replicated.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from torch import nn
 from prdisagg_torch.core.config import ModelConfig
 from prdisagg_torch.models.generator import torch_dtype
 from prdisagg_torch.ops.core import full_f32, leaky_relu
+from prdisagg_torch.parallel import spatial
 
 
 def _same_pads(n: int) -> Tuple[int, int]:
@@ -136,25 +146,75 @@ class Critic(nn.Module):
                 masks: Optional[Sequence[torch.Tensor]] = None
                 ) -> torch.Tensor:
         """sample: (B, nhours, nd, nd, 1); cond: (B, nd, nd, n_cond_channels);
-        masks: None (deterministic) or one keep mask per stage.
+        masks: None (deterministic) or one keep mask per stage.  Under a
+        spatial mesh, sample is this rank's rows (B, nhours, rows, nd, 1)
+        and cond and masks are whole.
 
         Returns critic scores (B, 1) in float32."""
         cfg, cd = self.cfg, self.compute_dtype
+        sp = spatial.axis_mesh(cfg.spatial_axis)
         keep = 1.0 - cfg.dropout_rate
         strict = (full_f32() if cd == torch.float32
                   else contextlib.nullcontext())
         with strict:
             b = sample.shape[0]
+            n = cfg.ndomain  # y rows, dim 3 of the NCDHW view
+            cond = spatial.shard_rows(cond, 1, sp)
             cond_b = cond[:, None].expand(b, cfg.nhours, *cond.shape[1:])
             x = torch.cat([sample, cond_b], dim=-1).to(cd)
             x = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the NDHWC tensor
             for i, conv in enumerate(self.convs()):
-                if i > 0:
-                    x = F.pad(x, self._pads[i])
-                x = F.conv3d(x, conv.weight.permute(4, 3, 0, 1, 2).to(cd),
-                             conv.bias.to(cd), stride=2)
+                x = self._conv(i, conv, x, n, sp)
+                n = self.stage_dims[i][1]
                 x = leaky_relu(x, cfg.leak)
                 if masks is not None:
-                    x = torch.where(masks[i], x / keep, 0.0)
+                    x = torch.where(spatial.shard_rows(masks[i], 3, sp),
+                                    x / keep, 0.0)
             x = x.permute(0, 2, 3, 4, 1).reshape(b, -1).float()
-            return self.score(x)
+            if not spatial.is_sharded(n, sp):
+                return self.score(x)
+            lo, hi = spatial.own_rows(n, sp)
+            w = self.score.weight.view(*self.stage_dims[-1], -1)[:, lo:hi]
+            part = F.linear(x, w.reshape(1, -1))
+            return spatial.all_reduce_sum(part, sp) + self.score.bias
+
+    def _conv(self, i: int, conv: Conv3dNDHWC, x: torch.Tensor, n: int, sp
+              ) -> torch.Tensor:
+        """Stage i's stride-2 conv on x's n rows (NCDHW; this rank's, or
+        all): output row o reads input rows 2 o - lo to 2 o + 2 - lo, lo
+        the stage's low y pad."""
+        cd = self.compute_dtype
+        w = conv.weight.permute(4, 3, 0, 1, 2).to(cd)
+        n_out = self.stage_dims[i][1]
+        if not spatial.is_sharded(n_out, sp):
+            x = spatial.gather_rows(x, n, sp, 3)
+            if i > 0:
+                x = F.pad(x, self._pads[i])
+            return F.conv3d(x, w, conv.bias.to(cd), stride=2)
+        lo = 0 if i == 0 else self._pads[i][2]
+
+        def need(r):
+            c, d = spatial.row_bounds(n_out, r, sp.size)
+            return 2 * c - lo, 2 * d + 1 - lo
+
+        spatial.own_rows(n_out, sp)  # raises where a rank would own none
+        x = spatial.fetch_rows(x, n, sp, need, 3)
+        if i > 0:  # the hour and x pads; y's zero rows came with the fetch
+            p = self._pads[i]
+            x = F.pad(x, (p[0], p[1], 0, 0, p[4], p[5]))
+        return F.conv3d(x, w, conv.bias.to(cd), stride=2)
+
+    def spatial_partial_params(self) -> set:
+        """The parameters whose gradient each rank holds only its share of
+        under the ambient spatial mesh (the stages whose output rows are
+        split, and the score's weight when the last one is), to be summed
+        over the axis; the others' (the score's bias among them) are whole
+        on every rank."""
+        sp = spatial.axis_mesh(self.cfg.spatial_axis)
+        out = set()
+        for i, (_, n, _) in enumerate(self.stage_dims):
+            if spatial.is_sharded(n, sp):
+                out |= {f"conv{i}.weight", f"conv{i}.bias"}
+        if spatial.is_sharded(self.stage_dims[-1][1], sp):
+            out.add("score.weight")
+        return out

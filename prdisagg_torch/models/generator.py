@@ -12,6 +12,16 @@ condition flatten and the dense reshape keep the channel-last order that
 reference and JAX weights expect.  Parameters are float32; conv and matmul
 inputs run in ``cfg.compute_dtype``; pixel-norm (when ``pixelnorm_f32``) and
 the softmax run in float32.
+
+With ``cfg.spatial_axis`` set, under a mesh with that axis
+(parallel/spatial.py ``use_mesh``), the y rows of every stage's output are
+split over the axis' ranks: the latent projection runs replicated (it needs
+the whole condition), each stage takes the input rows its output rows
+need (its own and one halo row on each side, from its neighbours) through
+the upsample-conv and crops what came from the halo, the head conv takes a
+one-row halo too, and pixel-norm, leaky-ReLU and the hour softmax, which
+work per position, stay local.  The forward then returns the rank's rows
+of the fractions; :meth:`Generator.assemble` puts them together.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from prdisagg_torch.ops.core import (
     upsample3d_nearest,
 )
 from prdisagg_torch.ops.upsample_conv import upsample2_conv3
+from prdisagg_torch.parallel import spatial
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -89,8 +100,10 @@ class Generator(nn.Module):
     def forward(self, latent: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """latent: (B, latent_dim); cond: (B, nd, nd, n_cond_channels).
 
-        Returns fractions (B, nhours, nd, nd, 1), softmax over hours."""
+        Returns fractions (B, nhours, nd, nd, 1), softmax over hours; under
+        a spatial mesh, this rank's rows of them (B, nhours, rows, nd, 1)."""
         cfg, cd = self.cfg, self.compute_dtype
+        sp = spatial.axis_mesh(cfg.spatial_axis)
         strict = (full_f32() if cd == torch.float32
                   else contextlib.nullcontext())
         with strict:
@@ -100,12 +113,69 @@ class Generator(nn.Module):
                          self.latent_proj.bias.to(cd))
             x = leaky_relu(x, cfg.leak)
             x = x.reshape(b, *cfg.latent_grid, cfg.base_channels)
-            for stage in self.stages():
-                x = stage(x.to(cd))
+            n = cfg.latent_grid[1]  # y rows, dim 2
+            for i, stage in enumerate(self.stages()):
+                # the latent grid is replicated, every later input as split
+                x = self._stage(stage, x.to(cd), n, sp,
+                                i > 0 and spatial.is_sharded(n, sp))
+                n *= 2
                 if cfg.pixelnorm_f32:
                     x = leaky_relu(pixel_norm(x.float()), cfg.leak).to(cd)
                 else:
                     x = leaky_relu(pixel_norm_mixed(x), cfg.leak)
-            x = F.conv3d(x.permute(0, 4, 1, 2, 3), self.head.weight.to(cd),
-                         self.head.bias.to(cd), padding=1)
+            x = self._head(x, n, sp)
         return hour_softmax(x.permute(0, 2, 3, 4, 1))
+
+    @staticmethod
+    def _stage(stage: UpsampleConv, x: torch.Tensor, n: int, sp,
+               sharded: bool) -> torch.Tensor:
+        """One upsample-conv stage on x's n rows (this rank's if `sharded`,
+        else all): output row o reads input rows (o - 1) // 2 to
+        (o + 1) // 2."""
+        if not spatial.is_sharded(2 * n, sp):
+            return stage(spatial.gather_rows(x, n, sp, 2, sharded))
+
+        def need(r):
+            c, d = spatial.row_bounds(2 * n, r, sp.size)
+            return (c - 1) // 2, d // 2 + 1
+
+        c, d = spatial.own_rows(2 * n, sp)
+        y = stage(spatial.fetch_rows(x, n, sp, need, 2, sharded))
+        return y.narrow(2, c - 2 * need(sp.rank)[0], d - c)
+
+    def _head(self, x: torch.Tensor, n: int, sp) -> torch.Tensor:
+        """The 64 -> 1 head conv (SAME), NCDHW out, on a one-row halo of
+        this rank's rows where n is sharded."""
+        cd = self.compute_dtype
+        w, bias = self.head.weight.to(cd), self.head.bias.to(cd)
+        if not spatial.is_sharded(n, sp):
+            x = spatial.gather_rows(x, n, sp, 2)
+            return F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=1)
+
+        def need(r):
+            c, d = spatial.row_bounds(n, r, sp.size)
+            return c - 1, d + 1
+
+        x = spatial.fetch_rows(x, n, sp, need, 2)
+        return F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=(1, 0, 1))
+
+    def assemble(self, fractions: torch.Tensor) -> torch.Tensor:
+        """The whole (B, nhours, nd, nd, 1) fractions, replicated, from each
+        rank's rows under a spatial mesh (unchanged without one)."""
+        sp = spatial.axis_mesh(self.cfg.spatial_axis)
+        return spatial.gather_rows(fractions, self.cfg.ndomain, sp, 2)
+
+    def spatial_partial_params(self) -> set:
+        """The parameters whose gradient each rank holds only its share of
+        under the ambient spatial mesh (those of the stages whose output
+        rows are split), to be summed over the axis; the others' gradients
+        are whole on every rank."""
+        sp = spatial.axis_mesh(self.cfg.spatial_axis)
+        out, n = set(), self.cfg.latent_grid[1]
+        for i in range(len(self.cfg.gen_channels)):
+            n *= 2
+            if spatial.is_sharded(n, sp):
+                out |= {f"conv{i}.weight", f"conv{i}.bias"}
+        if spatial.is_sharded(n, sp):
+            out |= {"head.weight", "head.bias"}
+        return out

@@ -19,6 +19,13 @@ The sharding helpers are pure functions of ``(rank, size)``, so a
 any world for them.  Collectives run on the mesh's process group: NCCL on
 the card, gloo on the CPU (gloo also takes CUDA tensors, so several ranks
 can share one card).
+
+A :class:`DataMesh` may name another axis: ``make_mesh(4, axis="spatial")``
+is the JAX package's 1-D spatial mesh, over which parallel/spatial.py
+splits the y rows of the conv activations.  :func:`make_mesh_2d` lays the
+world out as a (data, spatial) grid, the counterpart of
+``Mesh(devices.reshape(D, S), ("data", "spatial"))``: one process group per
+row (the spatial ranks of one data shard) and per column.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from prdisagg_torch.core.device import resolve_device
 
 DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,13 +58,45 @@ class DataMesh:
     def backend(self) -> str:
         return dist.get_backend(self.group)
 
+    def axis_mesh(self, name: str) -> Optional["DataMesh"]:
+        """This mesh if it is the axis `name`, else None."""
+        return self if name == self.axis else None
 
-def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
-    """The mesh of the started process group (parallel/distributed.py
-    ``initialize_multihost``), computing on `device`: "cuda" is this
-    process's current card.  Raises when no group was started, or when
-    `n_devices` is given and differs from its world size: a data-parallel
-    run never shrinks to a single process on its own."""
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """Rank `rank` of a world of `size` processes laid out as a (data,
+    spatial) grid: world rank = data index * spatial size + spatial index.
+    `data` and `spatial` are this rank's 1-D meshes along each axis, each
+    over its own process group; `group` is the whole world's, over which
+    :func:`replicate` broadcasts."""
+
+    data: DataMesh
+    spatial: DataMesh
+    group: Optional[object] = None
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def rank(self) -> int:
+        return self.data.rank * self.spatial.size + self.spatial.rank
+
+    @property
+    def size(self) -> int:
+        return self.data.size * self.spatial.size
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+    def axis_mesh(self, name: str) -> Optional[DataMesh]:
+        """The 1-D mesh of axis `name`, or None if the grid has no such
+        axis."""
+        return {self.data.axis: self.data,
+                self.spatial.axis: self.spatial}.get(name)
+
+
+def _world_device(n_devices: Optional[int], device) -> torch.device:
+    """The device of this rank of the started process group, checked."""
     if not dist.is_initialized():
         raise RuntimeError(
             "no process group: data parallelism needs one process per "
@@ -72,8 +112,42 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
     if dist.get_backend() == "nccl" and device.type != "cuda":
         raise ValueError(f"an NCCL process group computes on the card, not "
                          f"on {device}")
-    return DataMesh(rank=dist.get_rank(), size=world,
-                    group=dist.group.WORLD, device=device)
+    return device
+
+
+def make_mesh(n_devices: Optional[int] = None, device="cuda",
+              axis: str = DATA_AXIS) -> DataMesh:
+    """The 1-D mesh named `axis` over the started process group
+    (parallel/distributed.py ``initialize_multihost``), computing on
+    `device`: "cuda" is this process's current card.  Raises when no group
+    was started, or when `n_devices` is given and differs from its world
+    size: a data-parallel run never shrinks to a single process on its
+    own."""
+    device = _world_device(n_devices, device)
+    return DataMesh(rank=dist.get_rank(), size=dist.get_world_size(),
+                    group=dist.group.WORLD, device=device, axis=axis)
+
+
+def make_mesh_2d(n_data: int, n_spatial: int, device="cuda") -> Mesh2D:
+    """The started process group as an (n_data, n_spatial) grid of axes
+    ``data`` and ``spatial``, computing on `device` (as :func:`make_mesh`).
+    World rank r sits at data index r // n_spatial and spatial index
+    r % n_spatial.
+    Makes one process group per row and per column; a collective, called
+    by every rank in the same order."""
+    device = _world_device(n_data * n_spatial, device)
+    rank = dist.get_rank()
+    di, si = divmod(rank, n_spatial)
+    rows = [dist.new_group([d * n_spatial + s for s in range(n_spatial)])
+            for d in range(n_data)]
+    cols = [dist.new_group([d * n_spatial + s for d in range(n_data)])
+            for s in range(n_spatial)]
+    return Mesh2D(
+        data=DataMesh(rank=di, size=n_data, group=cols[si], device=device,
+                      axis=DATA_AXIS),
+        spatial=DataMesh(rank=si, size=n_spatial, group=rows[di],
+                         device=device, axis=SPATIAL_AXIS),
+        group=dist.group.WORLD, device=device)
 
 
 # -- sharding: pure functions of (rank, size) ---------------------------------

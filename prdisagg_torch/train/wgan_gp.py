@@ -32,7 +32,24 @@ bucket of the net's gradients and the update's loss terms, so that every
 rank applies the same update and reports the global batch's metrics:
 n_disc + 1 collectives a step, inside the CUDA graph on the card.
 
-Not ported here: ``fused_gen_forward``.
+With ``ModelConfig.spatial_axis`` set and a mesh with that axis (a 1-D
+spatial mesh, or the (data, spatial) grid of parallel/mesh.py
+``make_mesh_2d``), the nets split the y rows of their activations over
+it (parallel/spatial.py): the draws are sharded over ``data`` as above,
+the real patches are gathered whole by K2 and sliced to the rank's rows,
+the gradient penalty's per-sample squared norm is summed over ``spatial``,
+and each gradient reaches the update summed over ``spatial`` where each
+rank holds a share of it (``spatial_partial_params``), then averaged over
+``data``.
+
+``fused_gen_forward`` is the JAX package's restructure of the generator's
+work: the generator update's B latents join the held-over n_disc*B in ONE
+(n_disc+1)*B forward with its graph kept; the critic updates read the
+detached fakes, and after the last one the generator's loss on the last
+B, scored by the updated critic, runs its backward through that forward.
+Same draws and semantics as the default; a bigger generator backward for
+fewer, larger forwards.  It needs the one forward, so it cannot be
+combined with a chunked held-over forward.
 """
 
 from __future__ import annotations
@@ -48,7 +65,8 @@ from prdisagg_torch.core.config import ModelConfig, TrainConfig
 from prdisagg_torch.data.sampler import DeviceDataset
 from prdisagg_torch.ops import gather, upsample_conv
 from prdisagg_torch.ops.core import full_f32
-from prdisagg_torch.parallel.mesh import all_reduce_mean, shard_bounds
+from prdisagg_torch.parallel import spatial
+from prdisagg_torch.parallel.mesh import Mesh2D, all_reduce_mean, shard_bounds
 from prdisagg_torch.train.state import GANTrainState
 
 # order of the scalar metrics in the packed vector (one host fetch instead
@@ -169,10 +187,12 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
 
 
 def critic_loss(critic, frac_real, cond, fake, eps, masks, gp_masks,
-                gp_weight: float):
+                gp_weight: float, sp=None):
     """One critic update's loss on given data, fakes, eps and masks.
     Returns (loss, d_loss, gp, w_distance); the loss keeps its graph through
-    the gradient penalty's first derivative."""
+    the gradient penalty's first derivative.  Under a spatial mesh `sp`,
+    frac_real and fake are the rank's rows, and the penalty's per-sample
+    squared norm is summed over its ranks."""
     b = frac_real.shape[0]
     scores = critic(torch.cat([frac_real, fake]), torch.cat([cond, cond]),
                     masks)
@@ -181,7 +201,10 @@ def critic_loss(critic, frac_real, cond, fake, eps, masks, gp_masks,
     interp = (e * frac_real + (1.0 - e) * fake).requires_grad_(True)
     (g,) = torch.autograd.grad(critic(interp, cond, gp_masks).sum(), interp,
                                create_graph=True)
-    norm = torch.sqrt(g.reshape(b, -1).square().sum(dim=1) + 1e-12)
+    sq = g.reshape(b, -1).square().sum(dim=1)
+    if spatial.is_sharded(critic.cfg.ndomain, sp):
+        sq = spatial.all_reduce_sum(sq, sp)
+    norm = torch.sqrt(sq + 1e-12)
     gp = (norm - 1.0).square().mean()
     loss_valid, loss_fake = (-d_real).mean(), d_fake.mean()
     loss = loss_valid + loss_fake + gp_weight * gp
@@ -189,9 +212,35 @@ def critic_loss(critic, frac_real, cond, fake, eps, masks, gp_masks,
             -(loss_valid + loss_fake))
 
 
+def split_mesh(mesh, model_cfg: ModelConfig) -> tuple:
+    """(data mesh, spatial mesh) of a step's `mesh`: a (data, spatial)
+    grid's two axes; a 1-D mesh is the spatial one when it is the axis
+    that ``model_cfg.spatial_axis`` names, else the data one."""
+    if mesh is None:
+        return None, None
+    if isinstance(mesh, Mesh2D):
+        if model_cfg.spatial_axis != mesh.spatial.axis:
+            raise ValueError(f"a (data, spatial) mesh needs the model's "
+                             f"spatial_axis to be {mesh.spatial.axis!r}, "
+                             f"got {model_cfg.spatial_axis!r}")
+        return mesh.data, mesh.spatial
+    if model_cfg.spatial_axis is not None \
+            and mesh.axis == model_cfg.spatial_axis:
+        return None, mesh
+    return mesh, None
+
+
+def check_fused(fused_gen_forward: bool, chunks: int) -> None:
+    """Refuse a fused generator forward beside a chunked held-over one."""
+    if fused_gen_forward and chunks > 1:
+        raise ValueError("hoisted_chunks and fused_gen_forward are mutually "
+                         "exclusive (the fused path needs one forward with "
+                         "its graph)")
+
+
 def train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
                   train_cfg: TrainConfig, chunks: int = 1,
-                  mesh=None) -> dict:
+                  mesh=None, fused_gen_forward: bool = False) -> dict:
     """One fused step on given draws; updates `state` in place and returns
     the metrics as device tensors, with ``packed`` the (8,) vector of
     :data:`METRIC_KEYS` and the non-finite flag.  Raises ValueError when an
@@ -199,27 +248,61 @@ def train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
 
     With a `mesh`, `draws` are the global step's and every rank must call
     this with the same ones; `chunks` splits the rank's own held-over
-    forward.  The eager data-parallel step: on the CPU, and over gloo."""
+    forward.  The eager data-parallel or spatial step: on the CPU, and
+    over gloo."""
+    check_fused(fused_gen_forward, chunks)
     ds.check_rows(draws.real_rows)
     ds.check_rows(draws.gen_rows)
-    metrics = _train_step_on(state, ds, draws, train_cfg, chunks, mesh)
+    metrics = _train_step_on(state, ds, draws, train_cfg, chunks, mesh,
+                             fused_gen_forward)
     state.step += 1
     return metrics
 
 
 def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
-                   train_cfg: TrainConfig, chunks: int, mesh=None) -> dict:
-    if mesh is not None:
-        draws = shard_step_draws(draws, mesh)
+                   train_cfg: TrainConfig, chunks: int, mesh=None,
+                   fused: bool = False) -> dict:
+    dm, sp = split_mesh(mesh, state.gen.cfg)
+    if dm is not None:
+        draws = shard_step_draws(draws, dm)
+    ambient = (spatial.use_mesh(mesh) if sp is not None
+               else contextlib.nullcontext())
+    with ambient:
+        return _step(state, ds, draws, train_cfg, chunks, dm, sp, fused)
+
+
+def _step(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
+          train_cfg: TrainConfig, chunks: int, dm, sp, fused: bool) -> dict:
     gen, critic = state.gen, state.critic
     n_disc, b = draws.eps.shape
     strict = (full_f32() if gen.compute_dtype == torch.float32
               else contextlib.nullcontext())
+
+    def reduce(grads, terms, net):
+        """A net's gradients summed over `sp` where partial, then with the
+        update's terms averaged over `dm`."""
+        if sp is not None:
+            grads = spatial.sum_partial_grads(
+                grads, [n for n, _ in net.named_parameters()],
+                net.spatial_partial_params(), sp)
+        if dm is not None:
+            grads, terms = _all_reduce_bucket(grads, terms, dm)
+        return grads, terms
+
     with strict:
         frac, cond = ds._real_from_rows(draws.real_rows)
-        with torch.no_grad():
-            fake = torch.cat([gen(lat, cnd) for lat, cnd in zip(
-                draws.latent.chunk(chunks), cond.chunk(chunks))])
+        frac = spatial.shard_rows(frac, 2, sp)
+        if fused:
+            # the generator update's B ride the held-over forward, whose
+            # graph stays alive across the critic updates
+            cond_g = ds._cond_from_rows(draws.gen_rows)
+            fake_all = gen(torch.cat([draws.latent, draws.gen_latent]),
+                           torch.cat([cond, cond_g]))
+            fake = fake_all[:n_disc * b].detach()
+        else:
+            with torch.no_grad():
+                fake = torch.cat([gen(lat, cnd) for lat, cnd in zip(
+                    draws.latent.chunk(chunks), cond.chunk(chunks))])
         frac = frac.reshape(n_disc, b, *frac.shape[1:])
         cond = cond.reshape(n_disc, b, *cond.shape[1:])
         fake = fake.reshape(n_disc, b, *fake.shape[1:])
@@ -229,23 +312,24 @@ def _train_step_on(state: GANTrainState, ds: DeviceDataset, draws: StepDraws,
         for i in range(n_disc):
             loss, d_loss, gp, w_dist = critic_loss(
                 critic, frac[i], cond[i], fake[i], draws.eps[i],
-                draws.masks[i], draws.gp_masks[i], train_cfg.gp_weight)
+                draws.masks[i], draws.gp_masks[i], train_cfg.gp_weight, sp)
             grads = torch.autograd.grad(loss, c_params)
-            terms = (d_loss.detach(), gp.detach(), w_dist.detach())
-            if mesh is not None:
-                grads, terms = _all_reduce_bucket(grads, terms, mesh)
+            grads, terms = reduce(
+                grads, (d_loss.detach(), gp.detach(), w_dist.detach()),
+                critic)
             _apply(state.critic_opt, c_params, grads)
             aux.append((*terms, _global_norm(grads)))
 
         g_params = list(gen.parameters())
-        cond_g = ds._cond_from_rows(draws.gen_rows)
-        d_fake = critic(gen(draws.gen_latent, cond_g), cond_g,
-                        draws.gen_masks)
+        if fused:
+            fake_g = fake_all[n_disc * b:]
+        else:
+            cond_g = ds._cond_from_rows(draws.gen_rows)
+            fake_g = gen(draws.gen_latent, cond_g)
+        d_fake = critic(fake_g, cond_g, draws.gen_masks)
         g_loss = (-d_fake).mean()
         g_grads = torch.autograd.grad(g_loss, g_params)
-        g_loss = g_loss.detach()
-        if mesh is not None:
-            g_grads, (g_loss,) = _all_reduce_bucket(g_grads, (g_loss,), mesh)
+        g_grads, (g_loss,) = reduce(g_grads, (g_loss.detach(),), gen)
         _apply(state.gen_opt, g_params, g_grads)
         if train_cfg.ema_decay > 0:
             d = train_cfg.ema_decay
@@ -358,7 +442,8 @@ class _StepGraph:
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    batch_size: int, steps_per_call: int = 1, mesh=None):
+                    batch_size: int, steps_per_call: int = 1, mesh=None,
+                    fused_gen_forward: bool = False):
     """The fused train step ``(state, ds) -> (state, metrics)``, running
     `steps_per_call` steps per call: each step draws from ``state.rng``,
     then runs on those draws, whose rows need no check.  The state is
@@ -377,22 +462,31 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     With a data-parallel `mesh`, `batch_size` is the global batch, which
     must divide over the mesh, and the state must be replicated
-    (train/state.py); every rank calls the step.  On the card the mesh must
-    be NCCL's: gloo's collectives cannot be captured, and the step does not
-    fall back to eager."""
+    (train/state.py); every rank calls the step.  A mesh with the model's
+    ``spatial_axis`` (1-D, or the (data, spatial) grid) splits the
+    activations' rows over that axis too.  On the card the mesh must be
+    NCCL's: gloo's collectives cannot be captured, and the step does not
+    fall back to eager.
+
+    `fused_gen_forward` runs the generator's forward once for the critic
+    updates and its own update (see the module's docstring); it raises
+    ValueError beside a chunked held-over forward."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     local_batch = batch_size
-    if mesh is not None:
-        lo, hi = shard_bounds(batch_size, mesh)
+    dm = split_mesh(mesh, model_cfg)[0]
+    if dm is not None:
+        lo, hi = shard_bounds(batch_size, dm)
         local_batch = hi - lo
     chunks = hoisted_chunk_count(train_cfg, local_batch)
+    check_fused(fused_gen_forward, chunks)
     n_disc = train_cfg.n_disc
     graphs: list = []
 
     def step_on(state: GANTrainState, ds: DeviceDataset) -> dict:
         draws = draw_step_inputs(state, ds, batch_size, n_disc)
-        return _train_step_on(state, ds, draws, train_cfg, chunks, mesh)
+        return _train_step_on(state, ds, draws, train_cfg, chunks, mesh,
+                              fused_gen_forward)
 
     def train_step(state: GANTrainState, ds: DeviceDataset):
         if state.gen.cfg != model_cfg:
@@ -412,8 +506,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         elif dev.type == "cuda":
             if mesh is not None and mesh.backend != "nccl":
                 raise ValueError(
-                    f"a data-parallel step on the card is a CUDA graph with "
-                    f"its all-reduces inside, which {mesh.backend} cannot "
+                    f"a step over a mesh on the card is a CUDA graph with "
+                    f"its collectives inside, which {mesh.backend} cannot "
                     f"be captured in; use NCCL, or the eager "
                     f"draw_step_inputs + train_step_on")
             if not graphs:

@@ -40,6 +40,13 @@ SHAPES = [
 # the 64x64 large domain's generator stages, at B 8
 LARGE_DOMAIN = [(8, 3, 8, 8, 256, 256), (8, 6, 16, 16, 256, 128),
                 (8, 12, 32, 32, 128, 64)]
+# a spatial rank's 64x64 stage inputs, its rows and a halo row each side
+# (y 8/P + 2, 16/P + 2, 32/P + 2 at P 2 and 4), at B 4
+SPATIAL_SLABS = [(4, d, h // p + 2, w, cin, cout) for p in (2, 4)
+                 for _, d, h, w, cin, cout in LARGE_DOMAIN]
+# the fused step's (n_disc + 1) B forward at the flagship stages
+FUSED = [(192, 3, 2, 2, 256, 256), (192, 6, 4, 4, 256, 128),
+         (192, 12, 8, 8, 128, 64)]
 # the fast kernels' edge cases, each with the tile k1_plan gives it
 FAST_EDGES = [
     ((3, 3, 2, 2, 256, 256), (64, 64)),     # stage 0 at B 3: M = 36 < 64
@@ -101,6 +108,15 @@ def test_upsample2_conv3_large_domain_stages_match_plain(cuda, shape, dtype,
     assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
 
 
+@pytest.mark.parametrize("shape", SPATIAL_SLABS + FUSED)
+@pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
+def test_upsample2_conv3_spatial_and_fused_shapes_match_plain(
+        cuda, shape, dtype, rtol, atol):
+    """A spatial rank's slabs (y != x) and the fused step's batch take the
+    fast kernel."""
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
+
+
 @pytest.mark.parametrize("shape,tile", FAST_EDGES)
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
 def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
@@ -118,7 +134,7 @@ def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
                                    (32, 3, 2, 2, 256, 256),
                                    (32, 6, 4, 4, 256, 128),
                                    (32, 12, 8, 8, 128, 64)]
-                         + LARGE_DOMAIN)
+                         + LARGE_DOMAIN + SPATIAL_SLABS + FUSED)
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-4),
                                              ("bfloat16", 2e-2, 2e-2)])
 def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
@@ -466,6 +482,38 @@ def test_graphed_step_matches_eager_steps(graph_setup, drawn):
             if k.startswith("upsample2_conv3_backward_") and n} == {
         "dx_general": 9, "dk_general": 9, "dk_fold": 9,
         "dx_reduce": 3 * sum(p.dx.splits > 1 for p in plans)}
+
+
+def test_graphed_fused_step_matches_eager_steps(graph_setup, drawn):
+    """fused_gen_forward as a CUDA graph: each replay's draws are the eager
+    default step's, bit for bit, its losses and parameters within 1e-4 of
+    their scale from mid-training Adam moments; the graph holds one K1
+    forward a stage ((n_disc + 1) B) and its 3 backward passes a step."""
+    from prdisagg_torch.train import wgan_gp
+    from prdisagg_torch.train.state import clone_train_state, \
+        create_train_state
+
+    ds, mc, cfg = graph_setup
+    state = create_train_state(mc, cfg, device=ds.device)
+    _warm_adam(state)
+    eager = clone_train_state(state, mc, cfg, ds.device)
+    eager.rng.set_state(state.rng.get_state())
+    before = dict(wgan_gp.graph_launches)
+    step = wgan_gp.make_train_step(mc, cfg, 4, fused_gen_forward=True)
+    for i in range(3):
+        _, got = step(state, ds)
+        static = drawn[wgan_gp.WARMUP_STEPS]
+        ed = wgan_gp.draw_step_inputs(eager, ds, 4, cfg.n_disc)
+        drawn.pop()
+        assert _draws_equal(ed, static), f"step {i}: draws differ"
+        want = wgan_gp.train_step_on(eager, ds, ed, cfg)
+        g, w = got["packed"][:-1], want["packed"][:-1]
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    assert _max_param_err(state, eager) <= 1e-4
+    grew = {k: n - before.get(k, 0)
+            for k, n in wgan_gp.graph_launches.items()}
+    assert grew["upsample2_conv3"] == 9 and grew["gather_patches"] == 6
+    assert grew["upsample2_conv3_backward"] == 9
 
 
 def test_graphed_step_matches_eager_step_from_cold_adam(graph_setup, drawn):

@@ -98,9 +98,8 @@ def test_experiment_presets_match_jax(preset):
     assert dataclasses.asdict(got.data) == dataclasses.asdict(want.data)
     assert dataclasses.asdict(got.eval) == dataclasses.asdict(want.eval)
     assert got.name == want.name
-    assert dataclasses.asdict(got.model()) == {
-        k: v for k, v in dataclasses.asdict(want.model()).items()
-        if k != "spatial_axis"}
+    assert dataclasses.asdict(got.model()) == dataclasses.asdict(
+        want.model())
 
 
 # --------------------------------------------------------------------------

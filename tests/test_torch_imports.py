@@ -43,6 +43,8 @@ def test_port_files_found():
     assert "prdisagg_torch/ops/gather.py" in names
     assert "prdisagg_torch/train/wgan_gp.py" in names
     assert "prdisagg_torch/ops/stats.py" in names
+    for module in ("distributed", "mesh", "spatial"):
+        assert f"prdisagg_torch/parallel/{module}.py" in names
     for module in ("crps", "lsd", "evaluate", "parity"):
         assert f"prdisagg_torch/eval/{module}.py" in names
     for module in ("core", "pipeline"):

@@ -79,10 +79,8 @@ def _model_pair(**kw):
 # configuration
 # --------------------------------------------------------------------------
 
-# JAX-only fields: the port has no device mesh yet and always gathers with
-# its CUDA kernel on the card
-JAX_ONLY_FIELDS = {"ModelConfig": {"spatial_axis"},
-                   "TrainConfig": {"pallas_gather"}}
+# JAX-only field: the port always gathers with its CUDA kernel on the card
+JAX_ONLY_FIELDS = {"TrainConfig": {"pallas_gather"}}
 
 
 @pytest.mark.parametrize("name", ["DataConfig", "ModelConfig", "TrainConfig",
@@ -106,9 +104,7 @@ def test_experiment_config_matches_jax(conditioning):
     for dtype in (None, "float32"):
         jm = jcfg.ExperimentConfig(data=jd, compute_dtype=dtype).model()
         tm = tcfg.ExperimentConfig(data=td, compute_dtype=dtype).model()
-        assert dataclasses.asdict(tm) == {
-            k: v for k, v in dataclasses.asdict(jm).items()
-            if k != "spatial_axis"}
+        assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tcfg.TrainConfig(schedule=((2, 4), (3, 8))).total_epochs == 5
 
 
@@ -663,9 +659,12 @@ def _load_adam(opt, module, sd_nu):
                         "exp_avg_sq": sd_nu[name].clone()}
 
 
-def _jax_full_step(jc, gp, cp, jds, dr, n_disc, batch, c_opt, g_opt):
+def _jax_full_step(jc, gp, cp, jds, dr, n_disc, batch, c_opt, g_opt,
+                   grads=None):
     """The JAX package's step semantics composed from its public modules
-    and optax.adam, on given draws (dropout 0)."""
+    and optax.adam, on given draws (dropout 0).  With a list `grads`, the
+    gradients that reach each update (n_disc critic trees, then the
+    generator's) are appended to it."""
     jgen_apply, critic_update, gen_update, tx = _jax_step_fns(jc)
     patches = jds._gather_patches(jnp.asarray(dr["real_rows"]))
     frac, cond = jax_frac(patches, 127.4, 1e-12)
@@ -673,14 +672,18 @@ def _jax_full_step(jc, gp, cp, jds, dr, n_disc, batch, c_opt, g_opt):
     frac, cond, fake = (a.reshape(n_disc, batch, *a.shape[1:])
                         for a in (frac, cond, fake))
     for i in range(n_disc):
-        cp, c_opt, _, aux, _ = critic_update(
+        cp, c_opt, _, aux, c_grads = critic_update(
             cp, c_opt, frac[i], cond[i], fake[i], jnp.asarray(dr["eps"][i]))
+        if grads is not None:
+            grads.append(c_grads)
     dsum, nd = np.asarray(jds.dsum), jc.ndomain
     cond_g = np.stack([dsum[t, y:y + nd, x:x + nd]
                        for t, y, x in dr["gen_rows"]])[..., None] / 127.4
-    gp, g_opt, g_loss, _ = gen_update(gp, g_opt, cp,
-                                      jnp.asarray(dr["gen_latent"]),
-                                      jnp.asarray(cond_g.astype("f4")))
+    gp, g_opt, g_loss, g_grads = gen_update(
+        gp, g_opt, cp, jnp.asarray(dr["gen_latent"]),
+        jnp.asarray(cond_g.astype("f4")))
+    if grads is not None:
+        grads.append(g_grads)
     return gp, cp, aux, g_loss
 
 
