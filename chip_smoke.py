@@ -22,11 +22,16 @@ Run from the repository root.  Phases:
    fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32,
    at a gloo rank's 16, at the 64x64 f32 step's 4, at the spatial
    step's 2, and at the fused steps' 192 and 24 also its backward
-   kernels (dx and dkernel with
-   their split reductions), held against autograd through the plain
+   kernels (bf16: dx and dkernel on halo boxes, splits summed in a
+   cluster, the fold with the bias sums; f32: the FMA kernels with their
+   split reductions), held against autograd through the plain
    version and a second call bit for bit, timed beside the plain backward
    (the phase convolutions' cuDNN gradients), autograd through the cuDNN
-   convolution and the bound;
+   convolution and the bound, with the bias gradient's share of the
+   kernels' time and the autograd node's device time;
+   then K1's backward node split by kernel and stage at the 16x16, 64x64
+   and fused steps' shapes (profiled; [k1_split] lines; alone with
+   --k1-backward-split);
 4. dataset: a synthetic radar tensor of 448 days x 24 h x 256 x 256 (2.8 GB
    of float32, a multi-year store) made on the card from --seed with the
    synthetic-data recipe, and its valid patch indices;
@@ -49,8 +54,8 @@ Run from the repository root.  Phases:
    on the card-resident dataset, the step a CUDA graph: one epoch with the
    warm-up and capture, then 2 calls of 50 replays timed; checks finite
    metrics, changed parameters, the kernel counts (6 K1 launches, all fast,
-   3 K1 backward passes with their fast dx, dk and fold kernels and the
-   reduces of split dx, and 2 K2 launches per step, through the wrappers
+   3 K1 backward passes with their halo dx, dk and fold kernels, and 2 K2
+   launches per step, through the wrappers
    at warm-up and capture and per replay after), the checkpoint and
    exports; then EAGER_STEPS eager steps (draw_step_inputs +
    train_step_on) for the eager rate, the graphed step's peak memory (it
@@ -344,6 +349,15 @@ SPATIAL_LIMIT_S = 420
 # step up to 7.4e-4 on the card (the critic's conv1 bias in its second
 # update, alike on every rank and run)
 SPATIAL_GRAD_TOL = 1e-2
+# K1's backward split by kernel and stage (phase_k1_backward_split): the
+# generator update's three stages, bf16, in the 16x16 step (B 32), the 64x64
+# step (B 32) and the fused step (B (n_disc + 1) * 32); calls a stage, each
+# after a synchronise and a host pause that leaves a gap on the card
+SPLIT_STEPS = (("16x16", TRAIN_BATCH, [s[2:] for s in STAGES[:3]]),
+               ("64x64", TRAIN_BATCH, [s[1:] for s in LARGE_STAGES]),
+               ("fused", (N_DISC + 1) * TRAIN_BATCH,
+                [s[2:] for s in STAGES[:3]]))
+SPLIT_REPS, SPLIT_GAP_S = 5, 0.003
 K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("bfloat16",)) for s in TRAIN_STAGES]
             + [(s, ("float32", "bfloat16")) for s in DP_STAGES]
@@ -395,8 +409,8 @@ def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
                    stages=None) -> dict:
     """The wrappers' counts of one flagship train step whose generator
     update runs at `batch` in `dtype`: TRAIN_PER_STEP, and K1's backward
-    kernels at each stage as k1_backward_plan picks them (dx, dk and dk's
-    fold; dx's reduce where its reduction is split).  `stages` are the
+    kernels at each stage as k1_backward_plan picks them
+    (:func:`_backward_expected`).  `stages` are the
     generator's (name, D, H, W, Cin, Cout), the 16x16 ones by default."""
     import torch
 
@@ -410,10 +424,29 @@ def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
     for _, d, h, w, cin, cout in stages:
         plan = upsample_conv.k1_backward_plan(getattr(torch, dtype), batch, d,
                                               h, w, cin, cout)
-        ran = [f"dx_{plan.variant}", f"dk_{plan.variant}", "dk_fold"]
-        for k in ran + ["dx_reduce"] * (plan.dx.splits > 1):
+        for k in _backward_expected(plan):
             per[f"upsample2_conv3_backward_{k}"] += 1
     return per
+
+
+def _backward_expected(plan) -> dict:
+    """The kernels one K1 backward launches under `plan`: dx, dk and dk's
+    fold, and dx's reduce where an FMA dx reduction is split (the bf16
+    halo kernels sum their splits in a cluster)."""
+    want = {f"dx_{plan.variant}": 1, f"dk_{plan.variant}": 1, "dk_fold": 1,
+            "dx_reduce": int(plan.variant != "halo" and plan.dx.splits > 1)}
+    return {n: c for n, c in want.items() if c}
+
+
+def backward_workspace_bytes(plan, b, d, h, w, cin, cout) -> int:
+    """The f32 bytes one K1 backward under `plan` writes to device memory
+    beside its outputs: the halo kernels' summed phase-tap tiles and
+    phases' bias sums, or the FMA kernels' split partials (dx's when split,
+    dk's always)."""
+    if plan.variant == "halo":
+        return 4 * (64 * cin * cout + 8 * cout)
+    dx = plan.dx.splits * b * d * h * w * cin if plan.dx.splits > 1 else 0
+    return 4 * (dx + plan.dk.splits * 64 * cin * cout)
 
 
 def check(ok: bool, what) -> None:
@@ -620,9 +653,7 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
     want = torch.autograd.grad(upsample2_conv3_reference(*leaves), leaves, g)
     torch.cuda.synchronize()
     plan = k1_backward_plan(x.dtype, *x.shape, k.shape[-1])
-    expect = {f"dx_{plan.variant}": 1, f"dk_{plan.variant}": 1,
-              "dk_fold": 1, "dx_reduce": int(plan.dx.splits > 1)}
-    expect = {n: c for n, c in expect.items() if c}
+    expect = _backward_expected(plan)
     rtol, atol = tol
     within = all(bool(((a.float() - c.float()).abs()
                        <= atol * c.float().abs().max()
@@ -638,10 +669,18 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
     nbytes = (x.element_size() * (2 * x.numel() + g.numel())
               + 2 * 4 * k.numel())
     bytes_ms = 1e3 * nbytes / PEAK_BYTES
-    # as the main path calls them: on the forward's packed weights
+    # as the main path calls them: on the forward's packed weights, with
+    # the bias gradient; and without it, and the whole autograd node
     kp = pack_phase_kernels(k, x.dtype)
     kernels = lambda: upsample2_conv3_backward_cuda(  # noqa: E731
-        x, k, g, kp=kp)
+        x, k, g, kp=kp, need_db=True)
+    kernels_ms = queued_ms(kernels, 10)
+    no_db_ms = queued_ms(
+        lambda: upsample2_conv3_backward_cuda(x, k, g, kp=kp), 10)
+    node_leaves = [t.detach().requires_grad_(True) for t in (x, k, bias)]
+    node_out = upsample2_conv3(*node_leaves)
+    node_ms = queued_ms(lambda: torch.autograd.grad(
+        node_out, node_leaves, g, retain_graph=True), 10)
     return dict(
         backward_ok=within and ran == expect and all(
             torch.equal(a, b) for a, b in zip(got, again)),
@@ -656,14 +695,151 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
         backward_max_err_over_max=max(
             ((a.float() - c.float()).abs().max()
              / c.float().abs().max()).item() for a, c in zip(got, want)),
-        backward_ms=queued_ms(kernels, 10),
+        backward_ms=kernels_ms,
         backward_call_ms=cuda_ms(kernels, 10),
+        # what the bias gradient adds to the kernels, and the node's
+        # device time beside the kernels' (the autograd node's casts,
+        # copies and reductions)
+        backward_db_ms=kernels_ms - no_db_ms,
+        backward_node_ms=node_ms,
+        backward_nonkernel_ms=node_ms - kernels_ms,
         **_plain_backward_ms(lambda: upsample2_conv3_backward(x, k, g),
                              x.dtype),
         backward_bound_ms=max(ops_ms, bytes_ms),
         backward_bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         backward_library_ms=queued_ms(lambda: torch.autograd.grad(
             lib_out, lib_leaves, lib_g, retain_graph=True), 10))
+
+
+def _split_kind(name: str):
+    """Which of K1's backward kernels a profiled kernel is, by its name."""
+    for key, kind in (("k1_dx_reduce", "dx_reduce"), ("k1_dk_fold", "dk_fold"),
+                      ("k1_dx", "dx"), ("k1_dk", "dk")):
+        if key in name:
+            return kind
+    return None
+
+
+def _split_call(events: list) -> dict:
+    """One backward call's device ms by part: K1's kernels by kind, the
+    other kernels before the first of them (the weight permutation), the
+    reductions after the last (the bias gradient's sum) and the other
+    kernels after it (the bias gradient's f32 copy of g) or between them."""
+    kinds = [_split_kind(e.name) for e in events]
+    k1 = [i for i, k in enumerate(kinds) if k]
+    parts: dict = {}
+    for i, (e, kind) in enumerate(zip(events, kinds)):
+        if kind is None:
+            if not k1 or i < k1[0]:
+                kind = "before_kernels"
+            elif i > k1[-1]:
+                kind = "db_sum" if "reduce_kernel" in e.name else "after_kernels"
+            else:
+                kind = "between_kernels"
+        parts[kind] = parts.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    return parts
+
+
+def phase_k1_backward_split(seed: int) -> dict:
+    """K1's backward node split by kernel and by stage, in device ms, for
+    each of SPLIT_STEPS: one profiled trace a step, SPLIT_REPS calls of the
+    node (torch.autograd.grad through upsample2_conv3, the forward outside
+    the trace) at each stage, calls told apart by the gap a host pause
+    leaves on the card.  Prints one [k1_split] line a stage and a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from prdisagg_torch.ops.upsample_conv import (
+        k1_backward_plan,
+        upsample2_conv3,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    out = {}
+    for step, b, stages in SPLIT_STEPS:
+        calls = []
+        for d, h, w, cin, cout in stages:
+            x = torch.randn((b, d, h, w, cin), generator=gen,
+                            device=dev).to(torch.bfloat16).requires_grad_(True)
+            k = (0.02 * torch.randn((3, 3, 3, cin, cout), generator=gen,
+                                    device=dev)).requires_grad_(True)
+            bias = (0.02 * torch.randn((cout,), generator=gen,
+                                       device=dev)).requires_grad_(True)
+            y = upsample2_conv3(x, k, bias)
+            g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+            calls.append((x, k, bias, y, g))
+
+        def run():
+            for x, k, bias, y, g in calls:
+                for _ in range(SPLIT_REPS):
+                    torch.autograd.grad(y, (x, k, bias), g, retain_graph=True)
+                    torch.cuda.synchronize()
+                    time.sleep(SPLIT_GAP_S)
+
+        run()
+        rows = None
+        for _ in range(DEVICE_TRACE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+            dev_ev = sorted(_device_events(prof),
+                            key=lambda e: e.time_range.start)
+            groups, cur = [], []
+            for e in dev_ev:
+                if cur and (e.time_range.start - cur[-1].time_range.end
+                            > SPLIT_GAP_S * 1e6 / 3):  # us
+                    groups.append(cur)
+                    cur = []
+                cur.append(e)
+            if cur:
+                groups.append(cur)
+            if len(groups) == len(stages) * SPLIT_REPS:
+                rows = []
+                for s, (d, h, w, cin, cout) in enumerate(stages):
+                    mine = groups[s * SPLIT_REPS:(s + 1) * SPLIT_REPS]
+                    parts: dict = {}
+                    for grp in mine:
+                        for kind, ms in _split_call(grp).items():
+                            parts[kind] = parts.get(kind, 0.0) + ms / len(mine)
+                    names = collections.Counter(
+                        _split_kind(e.name) or e.name[:60] for e in mine[0])
+                    plan = k1_backward_plan(torch.bfloat16, b, d, h, w, cin,
+                                            cout)
+                    rows.append({"step": step, "stage": s,
+                                 "shape": [b, d, h, w, cin, cout],
+                                 "workspace_mb": backward_workspace_bytes(
+                                     plan, b, d, h, w, cin, cout) / 1e6,
+                                 "node_ms": sum(parts.values()),
+                                 "k1_kernels_ms": sum(
+                                     v for n, v in parts.items()
+                                     if n in ("dx", "dk", "dx_reduce",
+                                              "dk_fold")),
+                                 "parts_ms": parts,
+                                 "launches": dict(names)})
+                break
+            print(f"[k1_split] {step}: {len(groups)} call groups in the "
+                  f"trace, {len(stages) * SPLIT_REPS} expected; tracing again")
+        if rows is None:
+            print(f"[k1_split] {step}: not measured")
+            continue
+        for row in rows:
+            print("[k1_split] " + json.dumps(row))
+        total = {"step": step, "stages": len(rows),
+                 "node_ms": sum(r["node_ms"] for r in rows),
+                 "k1_kernels_ms": sum(r["k1_kernels_ms"] for r in rows),
+                 "workspace_mb": sum(r["workspace_mb"] for r in rows),
+                 "launches": sum(sum(r["launches"].values()) for r in rows),
+                 "k1_launches": sum(
+                     n for r in rows for k, n in r["launches"].items()
+                     if k in ("dx", "dk", "dx_reduce", "dk_fold"))}
+        for kind in sorted({k for r in rows for k in r["parts_ms"]}):
+            total[kind] = sum(r["parts_ms"].get(kind, 0.0) for r in rows)
+        print("[k1_split] " + json.dumps(total))
+        out[step] = {"stages": rows, "total": total}
+        del calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def _compare(got, ref, rtol: float, atol: float) -> tuple:
@@ -897,6 +1073,17 @@ def phase_gather_check(ds, seed: int) -> dict:
     return {"rows": rows}
 
 
+def _plain_backward(x, k, g, need_dx=True, need_dk=True, kp=None,
+                    need_db=False):
+    """upsample2_conv3_backward_cuda's counterpart by the plain version, as
+    a CPU tensor's backward takes it: the phase convolutions' gradients
+    (upsample2_conv3_backward) and the bias gradient as g's float32 sum."""
+    from prdisagg_torch.ops.upsample_conv import upsample2_conv3_backward
+
+    dx, dk = upsample2_conv3_backward(x, k, g, need_dx, need_dk)
+    return dx, dk, g.float().sum(dim=(0, 1, 2, 3)) if need_db else None
+
+
 @contextlib.contextmanager
 def _k1_plain_route():
     """K1 by its plain versions on the card, forward and backward, as a CPU
@@ -908,9 +1095,7 @@ def _k1_plain_route():
              uc.upsample2_conv3_backward_cuda)
     uc.pack_phase_kernels = lambda kernel, dtype: kernel
     uc.upsample2_conv3_cuda = uc.upsample2_conv3_reference
-    uc.upsample2_conv3_backward_cuda = (
-        lambda x, k, g, need_dx=True, need_dk=True, kp=None:
-        uc.upsample2_conv3_backward(x, k, g, need_dx, need_dk))
+    uc.upsample2_conv3_backward_cuda = _plain_backward
     try:
         yield
     finally:
@@ -1024,7 +1209,7 @@ def _k1_backward_ms(prof) -> float:
 
 # the hand-written kernels, by a part of their names in a profile
 BY_NAME = ("k1_bf16_wgmma", "k1_f32_fma", "k1_general", "k2_gather",
-           "k1_dx_bf16_wgmma", "k1_dk_bf16_wgmma", "k1_dx_fma", "k1_dk_fma",
+           "k1_dx_bf16_halo", "k1_dk_bf16_halo", "k1_dx_fma", "k1_dk_fma",
            "k1_dx_reduce", "k1_dk_fold")
 
 
@@ -1148,8 +1333,8 @@ def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
     import torch
 
     want = {"k1_bf16_wgmma": 6, "k2_gather": 2,
-            "k1_dx_bf16_wgmma": per_step["upsample2_conv3_backward_dx_fast"],
-            "k1_dk_bf16_wgmma": per_step["upsample2_conv3_backward_dk_fast"],
+            "k1_dx_bf16_halo": per_step["upsample2_conv3_backward_dx_halo"],
+            "k1_dk_bf16_halo": per_step["upsample2_conv3_backward_dk_halo"],
             "k1_dx_reduce": per_step["upsample2_conv3_backward_dx_reduce"],
             "k1_dk_fold": per_step["upsample2_conv3_backward_dk_fold"]}
     want = {n: want.get(n, 0) * replays for n in BY_NAME}
@@ -1383,9 +1568,7 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
     eager = {}
     for route in ("kernels", "plain"):
         if route == "plain":
-            upsample_conv.upsample2_conv3_backward_cuda = (
-                lambda *a, kp=None: upsample_conv.upsample2_conv3_backward(
-                    *a))
+            upsample_conv.upsample2_conv3_backward_cuda = _plain_backward
         try:
             prof = profile_breakdown(
                 eager_step, f"one eager step, bf16 batch {TRAIN_BATCH}, K1 "
@@ -4278,8 +4461,8 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "source": "prdisagg_torch/csrc/upsample_conv.cu",
         # K1's custom_vjp backward (XLA's autodiff of the phase form)
         "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:99",
-        # dx, dk, dk's fold and split dx's reduce on the training and
-        # data-parallel paths (the others run no backward)
+        # dx, dk and dk's fold (and an FMA dx's reduce where split) on the
+        # training and data-parallel paths (the others run no backward)
         "launches": (sum(bwd_train.values())
                      + sum(sum(b.values()) for b in bwd.values())),
         "launches_by_path": {"train": sum(bwd_train.values()),
@@ -4298,6 +4481,9 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
             r["backward_bound_by"] == "operations" for r in step_bwd)
         else "bytes",
         "library_ms": sum(r["backward_library_ms"] for r in step_bwd),
+        "db_ms": sum(r["backward_db_ms"] for r in step_bwd),
+        "node_ms": sum(r["backward_node_ms"] for r in step_bwd),
+        "nonkernel_ms": sum(r["backward_nonkernel_ms"] for r in step_bwd),
         "per_stage_ms": [r["backward_ms"] for r in step_bwd],
         "large_domain_shapes": _shape_rows(kc["rows"], "backward_"),
         "spatial_shapes": _shape_rows(kc["rows"], "backward_", "sp"),
@@ -4340,6 +4526,8 @@ def main() -> int:
     # the spatial phase's workers: this script, started by itself
     ap.add_argument("--spatial-worker", action="store_true",
                     help=argparse.SUPPRESS)
+    # only the device, build and K1-backward-split phases
+    ap.add_argument("--k1-backward-split", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -4368,6 +4556,9 @@ def main() -> int:
     except Exception:  # noqa: BLE001 — nothing can run after this
         traceback.print_exc()
         return 1
+    if args.k1_backward_split:
+        phase_k1_backward_split(args.seed)
+        return 0
 
     failed = []
     out: dict = {}
@@ -4394,6 +4585,7 @@ def main() -> int:
                   f"beside the other subprocess phases)", flush=True)
 
     run("kernel_check", lambda: phase_kernel_check(args.seed))
+    run("k1_backward_split", lambda: phase_k1_backward_split(args.seed))
     run("dataset", lambda: phase_dataset(args.seed))
     run("gather_check", lambda: phase_gather_check(out["dataset"], args.seed),
         needs=("dataset",))

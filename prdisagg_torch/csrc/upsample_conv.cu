@@ -70,11 +70,13 @@
 // shared-memory limit is raised once per device, at its first launch there,
 // so a launch inside a CUDA graph capture is the launch alone.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 namespace {
 
@@ -671,11 +673,18 @@ int launch(const void* x, const void* kp, const void* bias, void* out, int B,
 //
 // What bounds it on this card: dx and dk are each one forward's FLOPs,
 // 2 * 64*B*D*H*W*Cin*Cout, on x, g and the weights: in bf16 that is
-// operation-bound (about 0.085 ms for the three training stages at B 32,
-// against 0.022 ms of bytes).  At that batch the GEMMs are too small to
-// fill the card unsplit, and the reduction passes, the masked gathers
-// and the launches take the time; the design answers with the split
-// reductions below and with operands read in place, never transposed.
+// operation-bound (0.0847 ms for the three training stages at B 32,
+// against 0.022 ms of bytes; 1.355 ms at the 64x64 stages).
+//
+// What held the first hand-written version back, measured on an H100 (the
+// node of the 16x16 step's three stages at B 32, 0.722 ms; at 64x64 7.55;
+// chip_smoke.py --k1-backward-split): dk 0.264 and dx 0.198 ms, the bias
+// gradient's f32 copy of g and its sum 0.162, the weight permutation 0.057,
+// the folds 0.033 and the split reductions 0.007.  Both GEMMs gathered
+// their A rows with 16-byte copies, masked row by row, once per (offset,
+// N tile) in dx and per (phase, tap, N tile) in dk: each input row came
+// from L2 into shared memory 8 to 128 times, and L2, not the tensor cores,
+// set the pace (64x64 stage 2: dk 2.71 ms, dx 1.27, against 0.42 each).
 //
 // Per axis, the forward's out[2d'+a] reads x[d'+a+p-1] through K2[a, p], so
 // low-res index d feeds the full-res output 2d+u, u = 2-j, j = 2p+a in 0..3:
@@ -683,30 +692,50 @@ int launch(const void* x, const void* kp, const void* bias, void* out, int B,
 //
 // dx: one implicit GEMM, M = B*D*H*W low-res positions, N = Cin,
 // K = 64 offsets (u, v, t) x Cout.  Row m gathers the cotangent rows
-// g[n, 2d+u, 2h+v, 2w+t] (zero outside the full-res grid): relative to the
-// row of (2d, 2h, 2w) that is one shift per offset, so a row's mask is one
-// test per reduction slice.  The weights are packed K-major as
-// wb (Cin, 64*Cout), k = off*Cout + co, off = 16*j_d + 4*j_h + j_w, a
-// permutation of the forward's packing (pack_backward_kernels() in
-// ops/upsample_conv.py).
+// g[n, 2d+u, 2h+v, 2w+t] (zero outside the full-res grid).  Written per
+// phase (a, b, c) of the cotangent, the offset of tap (p, q, r) reads the
+// phase's sub-grid g_abc[s] = g[2s + (a, b, c)] at s + 1 - (a+p, b+q, c+r).
 //
 // dk: per phase (a, b, c) one GEMM, M = 8 taps x Cin, N = Cout,
 // K = B*D*H*W positions: A[(tap, ci), m] = x[m + shift(phase, tap), ci]
 // (zero outside the input) and B[m, co] = g[(2d+a, 2h+b, 2w+c) of m, co].
-// Along the reduction both operands are strided rows whose contiguous axis
-// is M (Cin) or N (Cout), so the bf16 kernel feeds wgmma MN-major tiles
-// (the instruction's transpose bits) instead of transposing anything.
 // The 8 x 8 phase-tap gradients are folded onto the 3^3 kernel by the
 // adjoint of phase_kernels() in k1_dk_fold.
 //
-// Split-K.  At the training batch the grids are small (dx at stage 0 is
-// 6 tiles of 128 x 128; dk at stage 2 is 64), so each GEMM's reduction
-// slices are cut into `splits` contiguous ranges, one CTA each, chosen by
-// k1_backward_plan() so that the grid fills the 132 SMs.  Every CTA writes
-// its f32 partial tile to a workspace the wrapper allocates; a second
-// kernel sums the partials in split order (k1_dx_reduce: and rounds once to
-// x's dtype; k1_dk_fold: and folds).  No atomics: the gradients are the
-// same bits on every run.  dx with one split stores x's dtype directly.
+// bf16 (k1_dx_bf16_halo, k1_dk_bf16_halo; the tc namespace below): halo
+// boxes.  A CTA owns a block of positions (tn, td, th, tw), 3-D so that its
+// neighbours are few, and copies every input row a phase of the block
+// reads, once, into shared memory: the phase's sub-box (tn, td+1, th+1,
+// tw+1) of cotangent rows (dx) or input rows (dk), zero outside the grid,
+// so no row is masked again.  Every offset or tap is then a shifted window
+// of the sub-box; a shift of one row breaks the 1024-byte atoms that a
+// wgmma descriptor names, so A is read from registers (the RS form of
+// wgmma), filled by ldmatrix from one row address per lane (.trans in dk,
+// whose A has Cin contiguous), and B from shared memory, MN-major.  dx's B
+// is the forward's packing kp read in place (Cin is contiguous in it): no
+// permuted copy of the weights.  dk's CTAs hold all 8 taps of a phase, so
+// a cotangent row is read 8 times less than per tap; those of the first
+// Cin tile also sum the cotangent rows' columns, the bias gradient.  Input
+// rows now come from L2 about (1 + 1/t)^3 times a phase and N tile.  Each
+// box is one TMA copy (tiled mode, a 5-D map of the NDHWC tensor with zero
+// fill outside it, which gives SAME padding and ragged blocks; for the
+// cotangent's phases the map strides 2 over the full-res axes), issued by
+// one thread and waited for on an mbarrier: with per-thread 16-byte
+// cp.async gathers of the same boxes the copies set dk's pace.
+//
+// Split-K.  At the training batch the grids are small (dx at 16x16 stage 0
+// is 8 blocks x N tiles), so each GEMM's reduction units are cut into
+// `splits` contiguous ranges, chosen by k1_backward_plan() so that the grid
+// fills the 132 SMs.  In bf16 the splits of one output tile are the CTAs
+// of one thread-block cluster (at most 8, the portable size): each stages
+// its f32 tile in its own shared memory and each sums a share of the rows
+// over the cluster's tiles through distributed shared memory, in rank
+// order; dx rounds once to bf16, dk writes the summed phase-tap tiles, and
+// one pass folds them (k1_dk_fold, which also sums the 8 phases' bias
+// sums).  In f32 and at other widths (the FMA kernels) every split writes
+// its f32 partial tile to a workspace and a second kernel sums the partials
+// in split order (k1_dx_reduce: and rounds once to x's dtype; k1_dk_fold:
+// and folds).  No atomics: the gradients are the same bits on every run.
 
 namespace bwd {
 
@@ -771,24 +800,6 @@ __device__ __forceinline__ int g_row(long long n, int d, int h, int w,
                 ((phase >> 1) & 1)) * 2 * W + 2 * w + (phase & 1));
 }
 
-// a dk reduction row (position p): the input row its tap reads (-1 outside
-// the input) and its cotangent row (-1 past M)
-__device__ __forceinline__ int2 dk_info(long long p, long long M, int D,
-                                        int H, int W, int phase,
-                                        const Slice& s) {
-  if (p >= M) return make_int2(-1, -1);
-  long long t = p;
-  const int w = (int)(t % W); t /= W;
-  const int h = (int)(t % H); t /= H;
-  const int d = (int)(t % D);
-  const long long n = t / D;
-  const bool in = (unsigned)(d + s.od) < (unsigned)D &&
-                  (unsigned)(h + s.oh) < (unsigned)H &&
-                  (unsigned)(w + s.ow) < (unsigned)W;
-  return make_int2(in ? (int)(p + s.shift) : -1,
-                   g_row(n, d, h, w, phase, D, H, W));
-}
-
 // the partials of `splits` splits summed in split order, rounded once
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -811,10 +822,12 @@ __device__ __forceinline__ int fold_tap(int i, int pair) {
 
 __global__ void __launch_bounds__(256)
 k1_dk_fold(const float* __restrict__ part, float* __restrict__ dk, int Cin,
-           int Cout, int splits) {
+           int Cout, int splits, const float* __restrict__ dbp,
+           float* __restrict__ db) {
   const long long cc = (long long)Cin * Cout;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < 27 * cc; i += (long long)gridDim.x * blockDim.x) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = first; i < 27 * cc; i += stride) {
     const long long e = i % cc;
     const int ijl = (int)(i / cc);
     const int ai = ijl / 9, bi = (ijl / 3) % 3, ci = ijl % 3;
@@ -829,123 +842,19 @@ k1_dk_fold(const float* __restrict__ part, float* __restrict__ dk, int Cin,
       }
     dk[i] = s;
   }
+  if (dbp != nullptr)
+    for (long long i = first; i < Cout; i += stride) {
+      float s = 0.0f;
+      for (int x = 0; x < 8; ++x) s += dbp[x * Cout + i];
+      db[i] = s;
+    }
 }
 
 }  // namespace bwd
 
-// -------------------------------------- backward, bf16: wgmma tensor cores
+// ------------------- backward, bf16: halo boxes, wgmma, in-cluster split-K
 
 namespace tc {
-
-// dx: k1_bf16_wgmma's machinery (4-stage 16-byte cp.async ring, 128-byte
-// swizzle, K-major operands, m64nBNk16) on the gathered cotangent rows,
-// over the split's range of the 64 * Cout/64 reduction slices
-template <int BM, int BN>
-__global__ void __launch_bounds__(BM * 2)
-k1_dx_bf16_wgmma(const __nv_bfloat16* __restrict__ g,
-                 const __nv_bfloat16* __restrict__ wb,
-                 __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
-                 int B, int D, int H, int W, int Cin, int Cout, int splits) {
-  constexpr int THREADS = BM * 2;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t a_ring = base;
-  const uint32_t b_ring = base + STAGES * BM * ROW;
-  int4* rows = reinterpret_cast<int4*>(smem_raw + (base - raw) +
-                                       STAGES * (BM + BN) * ROW);
-
-  const int split = blockIdx.x % splits;
-  const long long tile = blockIdx.x / splits;
-  const int n_tiles = Cin / BN;
-  const int n0 = (int)(tile % n_tiles) * BN;
-  const long long m0 = (tile / n_tiles) * BM;
-  const long long M = (long long)B * D * H * W;
-  bwd::dx_rows(rows, BM, m0, M, D, H, W);
-  __syncthreads();
-
-  const int slices = Cout / BK;
-  int kt0, kt1;
-  bwd::split_range(64 * slices, splits, split, kt0, kt1);
-  const int KT = kt1 - kt0;
-  const size_t K64 = (size_t)64 * Cout;
-  const __nv_bfloat16* kb = wb + (size_t)n0 * K64;
-
-  auto load = [&](int i, int slot) {
-    const int kt = kt0 + i;
-    const bwd::DxSlice s = bwd::dx_slice(kt, slices, BK, H, W);
-    const uint32_t a_dst = a_ring + slot * BM * ROW;
-#pragma unroll
-    for (int it = 0; it < BM * 8 / THREADS; ++it) {
-      const int j = threadIdx.x + it * THREADS, r = j >> 3, c = j & 7;
-      const int4 rc = rows[r];
-      const bool in = bwd::dx_inside(rc, s, D, H, W);
-      const __nv_bfloat16* src =
-          in ? g + (size_t)(rc.w + s.shift) * Cout + s.c0 + c * 8 : g;
-      cp_async16(a_dst + swz(r, c), src, in ? 16 : 0);
-    }
-    const uint32_t b_dst = b_ring + slot * BN * ROW;
-#pragma unroll
-    for (int it = 0; it < BN * 8 / THREADS; ++it) {
-      const int j = threadIdx.x + it * THREADS, n = j >> 3, c = j & 7;
-      cp_async16(b_dst + swz(n, c), kb + n * K64 + (size_t)kt * BK + c * 8,
-                 16);
-    }
-  };
-
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  const int wg = threadIdx.x >> 7;
-
-  // the forward's ring: STAGES - 2 slices ahead, one wgmma group in flight
-#pragma unroll
-  for (int s = 0; s < STAGES - 2; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < KT; ++i) {
-    cp_async_wait<STAGES - 3>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (i + STAGES - 2 < KT) load(i + STAGES - 2, (i + STAGES - 2) % STAGES);
-    cp_async_commit();
-    const int slot = i % STAGES;
-    const uint64_t da = desc(a_ring + slot * BM * ROW + wg * 64 * ROW);
-    const uint64_t db = desc(b_ring + slot * BN * ROW);
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int k = 0; k < BK / 16; ++k)
-      wgmma_k16<BN>(acc, da + 2 * k, db + 2 * k);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    fence_acc(acc);
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    fence_acc(acc);
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc);
-  cp_async_wait<0>();
-
-  // register 4j + 2h + e: row warp*16 + lane/4 + 8h, column 8j + 2*(lane%4) + e
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long m = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * (lane & 3);
-      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (splits == 1)
-        *reinterpret_cast<__nv_bfloat162*>(dx + m * Cin + col) =
-            __floats2bfloat162_rn(v0, v1);
-      else
-        *reinterpret_cast<float2*>(part + ((long long)split * M + m) * Cin +
-                                   col) = make_float2(v0, v1);
-    }
-  }
-}
 
 // the descriptor of an MN-major tile: both byte offsets 1024, so that the
 // 8-row step along K is right whichever field the hardware reads it from
@@ -955,35 +864,22 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// dk's tiles are MN-major: a slice is DK_BK = 64 positions (k rows); each
-// k row holds 64-element (128-byte) blocks of the contiguous axis, stored
-// block by block, every block a column of 8-row, 1024-byte swizzle atoms.
-// Each wgmma reads one 64-wide block (desc_mn()), so only the step from
-// one 8-row group of k to the next, 1024 bytes, is ever taken.
-constexpr int DK_BK = 64;
-
-template <int BM, int BN>
-constexpr int dk_smem_bytes() {
-  return STAGES * (BM + BN) * ROW + STAGES * DK_BK * 8 + 1024;  // + info
-}
-
-__device__ __forceinline__ uint32_t swz_mn(int r, int c) {
-  return (c >> 3) * (DK_BK * ROW) + swz(r, c & 7);
-}
-
-// m64n64k16 with both operands MN-major (transpose bits set)
-__device__ __forceinline__ void wgmma_m64n64k16_mn(float (&d)[32],
-                                                    uint64_t da, uint64_t db) {
+// m64n64k16 with A from registers (the m16n8k16 fragment of each warp's 16
+// rows, as ldmatrix.x4 leaves it) and B MN-major from shared memory
+// (transpose bit set): D += A*B in f32 registers
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
+      "setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -992,69 +888,268 @@ __device__ __forceinline__ void wgmma_m64n64k16_mn(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// per CTA: one phase, BM rows of (tap, ci) inside one tap (Cin % BM == 0),
-// BN output channels, one split of the positions; one warpgroup per 64 rows
-template <int BM, int BN>
-__global__ void __launch_bounds__(BM * 2)
-k1_dk_bf16_wgmma(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ g, float* __restrict__ part,
-                 int B, int D, int H, int W, int Cin, int Cout, int splits) {
-  constexpr int THREADS = BM * 2, NB = BN / 64;
+// four 8x8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8i..8i+7 give matrix i's rows); .trans delivers them transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// thread-block clusters: this CTA's rank, a barrier of the whole cluster
+// (release/acquire: shared-memory writes before it are seen after it), and
+// a 16-byte load from the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t saddr, uint32_t rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(saddr), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t saddr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(saddr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// TMA: one thread asks for a box of a tensor (described by a CUtensorMap
+// kernel parameter) to be copied into shared memory; the copy counts its
+// bytes on an mbarrier, whose phase completes when the expected bytes have
+// all landed.  A wait that outlasts about two seconds traps, so that a
+// fault shows as an error and not as a hang.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// Both kernels: two warpgroups of wgmma, one CTA a block of low-res
+// positions (tn, td, th, tw) at origin (n0, d0, h0, w0), blocks ordered
+// (n, d, h, w) with w fastest.  A phase's sub-box is (tn, td+1, th+1,
+// tw+1) rows: every row a block's positions read for that phase, in any
+// tap.  dx adds a producer warp whose lane 0 issues each reduction unit's
+// TMA boxes into a ring slot once the consumers have released it (an
+// mbarrier that all 256 consumer threads arrive on): with the issue inside
+// the consumers' loop the compiler serialised dx's wgmmas.  dk, which
+// needs every register of 256 threads for its 8 taps' accumulators, has
+// thread 0 issue after the loop's barrier.
+constexpr int HB_THREADS = 256;  // consumers
+constexpr int HB_CTA_THREADS = HB_THREADS + 32;
+constexpr int HB_BM = 128;       // dx: positions a CTA (64 per warpgroup)
+constexpr int HB_CO = 16;        // dx: output channels a reduction unit
+constexpr int DX_RMAX = 512;     // dx: sub-box rows (32 bytes each)
+constexpr int DX_STAGES = 4;
+constexpr int HB_BP = 128;       // dk: positions a block (its unit)
+constexpr int DK_RMAX = 256;     // dk: sub-box rows (128 bytes each)
+constexpr int DK_STAGES = 4;
+constexpr int HB_PITCH = 68;     // dk: floats a staged row of 64 channels
+constexpr int MAX_CLUSTER = 8;   // portable cluster size
+
+struct Blocks {
+  int tn, td, th, tw, nbd, nbh, nbw;
+  __device__ __forceinline__ void origin(int bi, int& n0, int& d0,
+                                         int& h0, int& w0) const {
+    w0 = (int)(bi % nbw) * tw;
+    bi /= nbw;
+    h0 = (int)(bi % nbh) * th;
+    bi /= nbh;
+    d0 = (int)(bi % nbd) * td;
+    n0 = (int)(bi / nbd) * tn;
+  }
+};
+
+__host__ __device__ constexpr int dx_smem_bytes(int nb) {
+  return DX_STAGES * (DX_RMAX * 32 + 8 * nb * 2048) + DX_STAGES * 16 + 1024;
+}
+
+__host__ __device__ constexpr int dk_smem_bytes() {
+  return DK_STAGES * (DK_RMAX * 128 + HB_BP * 128) + DK_STAGES * 8 +
+         HB_BP * 4 + 1024;
+}
+
+// dx on one block of HB_BM positions and 64*NB input channels.  The
+// reduction runs over units (16 output channels c0.., phase): per unit the
+// phase's cotangent sub-box of those channels (R rows of 32 bytes, zero
+// outside the full-res grid: one TMA box of the phase's sub-grid, map_g
+// striding 2 over the full-res axes, in the 32-byte swizzle) and the 8
+// taps' weights kp[phase, c0.., tap*Cin + ci] (16 x 64 boxes of map_k, read
+// in place: Cin is contiguous, so B is MN-major).  Tap (p, q, r) of position (in, id, ih, iw) reads sub-box row
+// (in, id+1-p, ih+1-q, iw+1-r): a warp's 16 rows come by ldmatrix from row
+// addresses, so no shifted window has to be a wgmma descriptor's tile.
+// The cluster's CTAs take contiguous ranges of the units and sum their f32
+// tiles through distributed shared memory in rank order.
+template <int NB>
+__global__ void __launch_bounds__(HB_CTA_THREADS, 1)
+k1_dx_bf16_halo(const __grid_constant__ CUtensorMap map_g,
+                const __grid_constant__ CUtensorMap map_k,
+                __nv_bfloat16* __restrict__ dx, int B, int D, int H, int W,
+                int Cin, int Cout, Blocks bl, int splits) {
+  constexpr int A_BYTES = DX_RMAX * 32;
+  constexpr int B_TAP = NB * 2048;  // 16 rows x 64*NB channels
+  constexpr int SLOT = A_BYTES + 8 * B_TAP;
+  constexpr int BN = 64 * NB, PITCH = BN + 4;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t a_ring = base;
-  const uint32_t b_ring = base + STAGES * BM * ROW;
-  int2* info = reinterpret_cast<int2*>(smem_raw + (base - raw) +
-                                       STAGES * (BM + BN) * ROW);
+  uint8_t* gbase = smem_raw + (base - raw);
+  // a slot's mbarriers: its copies landed (full), its consumers done (empty)
+  const uint32_t full = base + DX_STAGES * SLOT, empty = full + 8 * DX_STAGES;
 
-  const int phase = blockIdx.x & 7;
-  long long rest = blockIdx.x >> 3;
-  const int split = (int)(rest % splits);
-  rest /= splits;
-  const int n_tiles = Cout / BN;
-  const int n0 = (int)(rest % n_tiles) * BN;
-  const int mrow0 = (int)(rest / n_tiles) * BM;  // on the (tap, ci) axis
-  const int tap = mrow0 / Cin, ci0 = mrow0 - tap * Cin;
-  const Slice tp = slice_of(tap, 1, 0, phase, H, W);
-  const long long M = (long long)B * D * H * W;
-  int kt0, kt1;
-  bwd::split_range((int)((M + DK_BK - 1) / DK_BK), splits, split, kt0, kt1);
-  const int KT = kt1 - kt0;
+  const int split = (int)cluster_rank();
+  const int ci0 = blockIdx.y * BN;
+  int n0, d0, h0, w0;
+  bl.origin(blockIdx.z, n0, d0, h0, w0);
+  const int SD = bl.td + 1, SH = bl.th + 1, SW = bl.tw + 1;
+  const int R = bl.tn * SD * SH * SW;
+  const int P = bl.tn * bl.td * bl.th * bl.tw;
 
-  // the rows of local slice i, in the info ring's slot i % STAGES
-  auto fill_info = [&](int i) {
-    if (threadIdx.x < DK_BK)
-      info[(i % STAGES) * DK_BK + threadIdx.x] =
-          i < KT ? bwd::dk_info((long long)(kt0 + i) * DK_BK + threadIdx.x,
-                                M, D, H, W, phase, tp)
-                 : make_int2(-1, -1);
-  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DX_STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, HB_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // this lane's ldmatrix row: position m of the warp's 16, k chunk kc (the
+  // warp's index through a shuffle, which the compiler knows to be uniform)
+  const int warp_id = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int wg = warp_id >> 2, warp = warp_id & 3;
+  const int lane = threadIdx.x & 31;
+  const int kc = lane >> 4;
+  int rho0;
+  {
+    const int m = wg * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    int t = m < P ? m : 0;  // rows past the block read a real row, unstored
+    const int iw = t % bl.tw;
+    t /= bl.tw;
+    const int ih = t % bl.th;
+    t /= bl.th;
+    const int id = t % bl.td;
+    rho0 = (((t / bl.td) * SD + id + 1) * SH + ih + 1) * SW + iw + 1;
+  }
+  __syncthreads();
+
+  const int U = 8 * (Cout / HB_CO);
+  int u0, u1;
+  bwd::split_range(U, splits, split, u0, u1);
+  const int NU = u1 - u0;
+
+  // unit i's boxes into ring slot `slot`, by the producer
   auto load = [&](int i, int slot) {
-    const int2* inf = info + slot * DK_BK;
-    const uint32_t a_dst = a_ring + slot * BM * ROW;
+    const int u = u0 + i, phase = u & 7, c0 = (u >> 3) * HB_CO;
+    const int a = phase >> 2, b = (phase >> 1) & 1, c = phase & 1;
+    const uint32_t dst = base + slot * SLOT, bar = full + 8 * slot;
+    mbar_expect(bar, R * 32 + 8 * B_TAP);
+    // sub-grid rows (d0 - a + ld, ...) sit at full-res 2(d0 + ld) - a
+    tma_load_5d(dst, &map_g, bar, c0, 2 * w0 - c, 2 * h0 - b, 2 * d0 - a,
+                n0);
 #pragma unroll
-    for (int it = 0; it < DK_BK * (BM / 8) / THREADS; ++it) {
-      const int j = threadIdx.x + it * THREADS;
-      const int r = j / (BM / 8), c = j % (BM / 8);
-      const int a = inf[r].x;
-      const __nv_bfloat16* src =
-          a >= 0 ? x + (size_t)a * Cin + ci0 + c * 8 : x;
-      cp_async16(a_dst + swz_mn(r, c), src, a >= 0 ? 16 : 0);
-    }
-    const uint32_t b_dst = b_ring + slot * BN * ROW;
+    for (int tap = 0; tap < 8; ++tap)
 #pragma unroll
-    for (int it = 0; it < DK_BK * (BN / 8) / THREADS; ++it) {
-      const int j = threadIdx.x + it * THREADS;
-      const int r = j / (BN / 8), c = j % (BN / 8);
-      const int gr = inf[r].y;
-      const __nv_bfloat16* src =
-          gr >= 0 ? g + (size_t)gr * Cout + n0 + c * 8 : g;
-      cp_async16(b_dst + swz_mn(r, c), src, gr >= 0 ? 16 : 0);
-    }
+      for (int nb = 0; nb < NB; ++nb)
+        tma_load_3d(dst + A_BYTES + tap * B_TAP + nb * 2048, &map_k, bar,
+                    tap * Cin + ci0 + 64 * nb, c0, phase);
   };
 
   float acc[NB][32];
@@ -1062,66 +1157,314 @@ k1_dk_bf16_wgmma(const __nv_bfloat16* __restrict__ x,
   for (int j = 0; j < NB; ++j)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
-  const int wg = threadIdx.x >> 7;
+  uint32_t af[2][4][4];
 
-  // the info ring runs one slice ahead of the loads: slice i's rows are
-  // written in iteration i - 3 (or before the loop) and read by its load in
-  // iteration i - 2, after that iteration's barrier
+  if (warp_id == HB_THREADS / 32) {
+    // the producer: unit i into slot i % DX_STAGES once the consumers have
+    // released the unit DX_STAGES back
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < NU; ++i) {
+        const int slot = i % DX_STAGES;
+        if (i >= DX_STAGES)
+          mbar_wait(empty + 8 * slot, (i / DX_STAGES - 1) & 1);
+        load(i, slot);
+      }
+    __syncwarp();
+  } else {
+    // a unit's wgmmas are two groups (taps 0-3, 4-7), each on its own A
+    // registers; at most one group stays in flight, so the registers an
+    // ldmatrix refills were last read two groups back, and once the first
+    // group of unit i is waited for, unit i - 1 is done with its slot
+    for (int i = 0; i < NU; ++i) {
+      mbar_wait(full + 8 * (i % DX_STAGES), (i / DX_STAGES) & 1);
+      const uint32_t a_sub = base + (i % DX_STAGES) * SLOT;
+      const uint32_t b_sub = a_sub + A_BYTES;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) fill_info(s);
-  __syncthreads();
+      for (int half = 0; half < 2; ++half) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 2; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < KT; ++i) {
-    cp_async_wait<STAGES - 3>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (i + STAGES - 2 < KT) load(i + STAGES - 2, (i + STAGES - 2) % STAGES);
-    cp_async_commit();
-    fill_info(i + STAGES - 1);
-    const int slot = i % STAGES;
-    const uint32_t a_tile = a_ring + slot * BM * ROW + wg * DK_BK * ROW;
-    const uint32_t b_tile = b_ring + slot * BN * ROW;
+        for (int t = 0; t < 4; ++t) {
+          const int tap = half * 4 + t;
+          const int rho = rho0 - ((tap >> 2) * SH * SW +
+                                  ((tap >> 1) & 1) * SW + (tap & 1));
+          ldsm_x4(af[half][t],
+                  a_sub + rho * 32 + ((kc ^ ((rho >> 2) & 1)) << 4));
+        }
+        fence_regs(af[half]);
 #pragma unroll
-    for (int j = 0; j < NB; ++j) fence_acc(acc[j]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        for (int j = 0; j < NB; ++j) fence_acc(acc[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int k = 0; k < DK_BK / 16; ++k) {  // 16 k rows = two 1024-byte atoms
-      const uint64_t da = desc_mn(a_tile + k * 2048);
+        for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
-        wgmma_m64n64k16_mn(acc[j], da,
-                           desc_mn(b_tile + j * DK_BK * ROW + k * 2048));
+          for (int j = 0; j < NB; ++j)
+            wgmma_rs_m64n64k16(
+                acc[j], af[half][t],
+                desc_mn(b_sub + (half * 4 + t) * B_TAP + j * 2048));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < NB; ++j) fence_acc(acc[j]);
+        if (half == 0 && i > 0)
+          mbar_arrive(empty + 8 * ((i - 1) % DX_STAGES));
+      }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
     for (int j = 0; j < NB; ++j) fence_acc(acc[j]);
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  __syncthreads();  // every box has landed and been read
+
+  // the f32 tile into this CTA's shared memory (the idle ring): register
+  // 4j + 2h + e of (warp, lane) holds row warp*16 + lane/4 + 8h, column
+  // 8j + 2*(lane%4) + e of its 64-wide block
+  float* stage = reinterpret_cast<float*>(gbase);
 #pragma unroll
-    for (int j = 0; j < NB; ++j) fence_acc(acc[j]);
+  for (int h = 0; h < 2 * (warp_id < HB_THREADS / 32); ++h) {
+    const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(stage + r * PITCH + nb * 64 + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+  }
+  cluster_sync();
+
+  // rank `split` sums its rows of the tile over the cluster's CTAs in rank
+  // order and stores them in x's dtype
+  int r0, r1;
+  bwd::split_range(HB_BM, splits, split, r0, r1);
+  for (int idx = threadIdx.x; idx < (r1 - r0) * (BN / 4); idx += blockDim.x) {
+    const int row = r0 + idx / (BN / 4), c4 = idx % (BN / 4);
+    if (row >= P) continue;
+    int t = row;
+    const int w = w0 + t % bl.tw;
+    t /= bl.tw;
+    const int h = h0 + t % bl.th;
+    t /= bl.th;
+    const int d = d0 + t % bl.td;
+    const int n = n0 + t / bl.td;
+    if (n >= B || d >= D || h >= H || w >= W) continue;
+    const uint32_t off = base + (row * PITCH + 4 * c4) * 4;
+    float4 s = ld_cluster4(off, 0);
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = ld_cluster4(off, q);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+    uint2 packed;
+    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(
+        dx + ((((size_t)n * D + d) * H + h) * W + w) * Cin + ci0 + 4 * c4) =
+        packed;
+  }
+  cluster_sync();  // no CTA leaves while another reads its shared memory
+}
+
+// dk on one phase, 64 input channels ci0.. and 64 output channels co0..,
+// all 8 taps (warpgroup w: taps 4w..4w+3, p = w).  The reduction runs over
+// position blocks of at most HB_BP: per block the phase's input sub-box of
+// those channels (x at (d0 + a - 1 + ld, ...), R rows of 128 bytes, zero
+// outside the grid: one TMA box of map_x) and the phase's cotangent rows
+// of the block's positions (one box of map_g, striding 2 over the
+// full-res axes; rows past the block stay zero: the positions are the
+// reduction, so B is MN-major), both in the 128-byte swizzle.  Tap (p, q, r) of position (in,
+// id, ih, iw) reads sub-box row (in, id+p, ih+q, iw+r), by ldmatrix.trans:
+// A is (ci, position) with ci contiguous.  The CTAs of the first ci tile
+// also sum the cotangent rows' columns (the bias gradient's share of this
+// phase).  The cluster's CTAs take contiguous ranges of the blocks and sum
+// their 8 f32 tiles (and bias sums) through distributed shared memory in
+// rank order, into dk2[phase][tap][ci][co] and dbp[phase][co].
+__global__ void __launch_bounds__(HB_THREADS, 1)
+k1_dk_bf16_halo(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_g,
+                float* __restrict__ dk2, float* __restrict__ dbp, int B, int D,
+                int H, int W, int Cin, int Cout, Blocks bl, int splits) {
+  constexpr int A_BYTES = DK_RMAX * 128;
+  constexpr int SLOT = A_BYTES + HB_BP * 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t full = base + DK_STAGES * SLOT;  // a slot's copies landed
+  int* qrho = reinterpret_cast<int*>(gbase + DK_STAGES * SLOT +
+                                     DK_STAGES * 8);
+
+  const int split = (int)cluster_rank();
+  const int co_tiles = Cout / 64;
+  const int ci0 = (blockIdx.y / co_tiles) * 64;
+  const int co0 = (blockIdx.y % co_tiles) * 64;
+  const bool db_cta = ci0 == 0 && dbp != nullptr;
+  const int phase = blockIdx.z;
+  const int a = phase >> 2, b = (phase >> 1) & 1, c = phase & 1;
+  const int SD = bl.td + 1, SH = bl.th + 1, SW = bl.tw + 1;
+  const int R = bl.tn * SD * SH * SW;
+  const int P = bl.tn * bl.td * bl.th * bl.tw;
+  const int nblk =
+      ((B + bl.tn - 1) / bl.tn) * bl.nbd * bl.nbh * bl.nbw;
+
+  // each block position's sub-box row at tap (0, 0, 0); the cotangent
+  // rows past the block, which no box fills, zero in every slot
+  for (int q = threadIdx.x; q < HB_BP; q += blockDim.x) {
+    int t = q < P ? q : 0;
+    const int iw = t % bl.tw;
+    t /= bl.tw;
+    const int ih = t % bl.th;
+    t /= bl.th;
+    const int id = t % bl.td;
+    qrho[q] = (((t / bl.td) * SD + id) * SH + ih) * SW + iw;
+  }
+  for (int j = P * 8 + threadIdx.x; j < HB_BP * 8; j += blockDim.x)
+    for (int slot = 0; slot < DK_STAGES; ++slot)
+      reinterpret_cast<uint4*>(gbase + slot * SLOT + A_BYTES)[j] =
+          make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DK_STAGES; ++i) mbar_init(full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int b0, b1;
+  bwd::split_range(nblk, splits, split, b0, b1);
+  const int NU = b1 - b0;
+
+  // block i's boxes into ring slot `slot`, by thread 0
+  auto load = [&](int i, int slot) {
+    int n0, d0, h0, w0;
+    bl.origin(b0 + i, n0, d0, h0, w0);
+    const uint32_t dst = base + slot * SLOT, bar = full + 8 * slot;
+    mbar_expect(bar, (R + P) * 128);
+    tma_load_5d(dst, &map_x, bar, ci0, w0 + c - 1, h0 + b - 1, d0 + a - 1,
+                n0);
+    tma_load_5d(dst + A_BYTES, &map_g, bar, co0, 2 * w0 + c, 2 * h0 + b,
+                2 * d0 + a, n0);
+  };
+
+  float acc[4][32];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.0f;
+  uint32_t af[2][8][4];
+  float dbsum = 0.0f;  // column threadIdx % 64, rows 32 * (threadIdx / 64)..
+  const int warp_id = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int wg = warp_id >> 2, warp = warp_id & 3;
+  const int lane = threadIdx.x & 31;
+  const int tap_shift = wg * SH * SW;  // p = wg
+  const int chunk = 2 * warp + ((lane >> 3) & 1);  // 8 ci of the warp's 16
+
+  // the ring runs DK_STAGES - 2 blocks ahead: the slot thread 0 refills
+  // after the barrier was last read two blocks back, whose wgmmas every
+  // warpgroup has waited for (at most one group stays in flight)
+  if (threadIdx.x == 0)
+    for (int s = 0; s < DK_STAGES - 2 && s < NU; ++s) load(s, s);
+  for (int i = 0; i < NU; ++i) {
+    __syncthreads();
+    if (threadIdx.x == 0 && i + DK_STAGES - 2 < NU)
+      load(i + DK_STAGES - 2, (i + DK_STAGES - 2) % DK_STAGES);
+    mbar_wait(full + 8 * (i % DK_STAGES), (i / DK_STAGES) & 1);
+    const uint32_t a_sub = base + (i % DK_STAGES) * SLOT;
+    const uint32_t b_sub = a_sub + A_BYTES;
+    if (db_cta) {
+      const int co = threadIdx.x & 63, q0 = (threadIdx.x >> 6) * 32;
+      const uint8_t* bt = gbase + (b_sub - base);
+#pragma unroll 8
+      for (int q = q0; q < q0 + 32; ++q)
+        dbsum += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+            bt + q * 128 + (((co >> 3) ^ (q & 7)) << 4) + (co & 7) * 2));
+    }
+    // k16 steps 2gi and 2gi + 1 (positions 16j.., rows 8*(lane/16) +
+    // lane%8 of the transposed matrices) make one group of 8 wgmmas, on A
+    // registers af[gi % 2]: at most one group stays in flight, so the
+    // registers an ldmatrix refills were last read two groups back
+#pragma unroll
+    for (int gi = 0; gi < HB_BP / 32; ++gi) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int rq =
+            qrho[(2 * gi + jj) * 16 + (lane >> 4) * 8 + (lane & 7)] +
+            tap_shift;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int rho = rq + (t >> 1) * SW + (t & 1);
+          ldsm_x4_t(af[gi & 1][jj * 4 + t],
+                    a_sub + rho * 128 + ((chunk ^ (rho & 7)) << 4));
+        }
+      }
+      fence_regs(af[gi & 1]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) fence_acc(acc[t]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const uint64_t db = desc_mn(b_sub + (2 * gi + jj) * 2048);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          wgmma_rs_m64n64k16(acc[t], af[gi & 1][jj * 4 + t], db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+      for (int t = 0; t < 4; ++t) fence_acc(acc[t]);
+    }
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int j = 0; j < NB; ++j) fence_acc(acc[j]);
-  cp_async_wait<0>();
+  for (int t = 0; t < 4; ++t) fence_acc(acc[t]);
+  __syncthreads();
 
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  float* out = part + (((size_t)split * 8 + phase) * 8 * Cin + mrow0) * Cout;
+  // the 8 f32 tiles, row (tap, ci) of 64 columns, into the idle ring; then
+  // the 4 row groups' bias sums
+  float* stage = reinterpret_cast<float*>(gbase);
+  float* dbs = stage + 8 * 64 * HB_PITCH;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+  for (int t = 0; t < 4; ++t)
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wg * 4 + t) * 64 + warp * 16 + (lane >> 2) + 8 * h;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int col = n0 + j * 64 + 8 * q + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(out + (size_t)r * Cout + col) =
-            make_float2(acc[j][4 * q + 2 * h], acc[j][4 * q + 2 * h + 1]);
-      }
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(stage + r * HB_PITCH + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+    }
+  dbs[threadIdx.x] = dbsum;
+  cluster_sync();
+
+  int r0, r1;
+  bwd::split_range(8 * 64, splits, split, r0, r1);
+  for (int idx = threadIdx.x; idx < (r1 - r0) * 16; idx += blockDim.x) {
+    const int row = r0 + idx / 16, c4 = idx % 16;
+    const uint32_t off = base + (row * HB_PITCH + 4 * c4) * 4;
+    float4 s = ld_cluster4(off, 0);
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = ld_cluster4(off, q);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const int tap = row >> 6, ci = row & 63;
+    *reinterpret_cast<float4*>(
+        dk2 + (((size_t)phase * 8 + tap) * Cin + ci0 + ci) * Cout + co0 +
+        4 * c4) = s;
   }
+  if (db_cta && split == 0 && threadIdx.x < 64) {
+    const uint32_t off = base + (8 * 64 * HB_PITCH + threadIdx.x) * 4;
+    float s = 0.0f;
+    for (int q = 0; q < splits; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s += ld_cluster(off + k * 256, q);
+    dbp[phase * Cout + co0 + threadIdx.x] = s;
+  }
+  cluster_sync();
 }
 
 }  // namespace tc
@@ -1430,73 +1773,162 @@ bool bad_splits(int splits, long long slices) {
   return splits < 1 || splits > slices;
 }
 
-template <int BM, int BN>
-int launch_dx_bf16(const void* g, const void* wb, void* dx, void* part,
-                   int B, int D, int H, int W, int Cin, int Cout, int splits,
-                   cudaStream_t stream) {
-  constexpr int smem = tc::smem_bytes<BM, BN>();
-  static SmemLimit limit;
-  cudaError_t err = limit.ensure(tc::k1_dx_bf16_wgmma<BM, BN>, smem);
+// A launch with thread-block clusters of `cluster` CTAs along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid,
+                             int threads, int smem, int cluster,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The block grid of a halo kernel, or false if the block does not fit it:
+// extents >= 1 and inside the tensor, at most `positions` positions and
+// `rows` sub-box rows, tn < 256 (packed in 8 bits), blocks < 65536.
+bool halo_blocks(int B, int D, int H, int W, int tn, int td, int th, int tw,
+                 int positions, int rows, tc::Blocks& bl, long long& count) {
+  if (tn < 1 || td < 1 || th < 1 || tw < 1 || tn > 255 || tn > B ||
+      td > D || th > H || tw > W ||
+      (long long)tn * td * th * tw > positions ||
+      (long long)tn * (td + 1) * (th + 1) * (tw + 1) > rows)
+    return false;
+  bl = tc::Blocks{tn, td, th, tw, (D + td - 1) / td, (H + th - 1) / th,
+                  (W + tw - 1) / tw};
+  count = (long long)((B + tn - 1) / tn) * bl.nbd * bl.nbh * bl.nbw;
+  return count < 65536;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (the library links
+// no libcuda); null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
+}
+
+// The driver's encoder needs a current context, and the runtime binds a
+// device's primary context to a thread lazily: on a thread that has made
+// no such call yet (autograd's worker thread, at the first backward), the
+// encoder failed with CUDA_ERROR_INVALID_CONTEXT.  cudaSetDevice binds it.
+cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
+// The tensor map of a contiguous bf16 tensor of `rank` dims (innermost
+// first), its box, the box's element strides and swizzle; boxes read 0
+// outside the tensor.
+bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint32_t* box,
+              const cuuint32_t* steps, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t strides[4], bytes = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(ptr), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB>
+int launch_dx_halo(const void* g, const void* kp, void* dx, int B, int D,
+                   int H, int W, int Cin, int Cout, const tc::Blocks& bl,
+                   long long blocks, int splits, cudaStream_t stream) {
+  // the cotangent (Cout, 2W, 2H, 2D, B), a phase's sub-grid a box of 16
+  // channels; the weights kp (8*Cin, Cout, 8), boxes of 64 x 16
+  cudaError_t err = bind_context();
   if (err != cudaSuccess) return (int)err;
-  const long long M = (long long)B * D * H * W;
-  tc::k1_dx_bf16_wgmma<BM, BN>
-      <<<(unsigned)(((M + BM - 1) / BM) * (Cin / BN) * splits), BM * 2, smem,
-         stream>>>(static_cast<const __nv_bfloat16*>(g),
-                   static_cast<const __nv_bfloat16*>(wb),
-                   static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part),
-                   B, D, H, W, Cin, Cout, splits);
+  CUtensorMap map_g, map_k;
+  const cuuint64_t gdims[5] = {(cuuint64_t)Cout, 2ull * W, 2ull * H,
+                               2ull * D, (cuuint64_t)B};
+  const cuuint32_t gbox[5] = {tc::HB_CO, 2u * (bl.tw + 1), 2u * (bl.th + 1),
+                              2u * (bl.td + 1), (cuuint32_t)bl.tn};
+  const cuuint32_t gsteps[5] = {1, 2, 2, 2, 1};
+  const cuuint64_t kdims[3] = {8ull * Cin, (cuuint64_t)Cout, 8};
+  const cuuint32_t kbox[3] = {64, tc::HB_CO, 1}, ksteps[3] = {1, 1, 1};
+  if (!bf16_map(&map_g, g, 5, gdims, gbox, gsteps,
+                CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !bf16_map(&map_k, kp, 3, kdims, kbox, ksteps,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = tc::dx_smem_bytes(NB);
+  static SmemLimit limit;
+  err = limit.ensure(tc::k1_dx_bf16_halo<NB>, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_clustered(
+      tc::k1_dx_bf16_halo<NB>,
+      dim3((unsigned)splits, (unsigned)(Cin / (64 * NB)), (unsigned)blocks),
+      tc::HB_CTA_THREADS, smem, splits, stream, map_g, map_k, static_cast<__nv_bfloat16*>(dx), B,
+      D, H, W, Cin, Cout, bl, splits);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int BM, int BN>
-int launch_dk_bf16(const void* x, const void* g, void* part, int B, int D,
-                   int H, int W, int Cin, int Cout, int splits,
-                   cudaStream_t stream) {
-  constexpr int smem = tc::dk_smem_bytes<BM, BN>();
-  static SmemLimit limit;
-  cudaError_t err = limit.ensure(tc::k1_dk_bf16_wgmma<BM, BN>, smem);
+int launch_dk_halo(const void* x, const void* g, void* dk2, void* dbp, int B,
+                   int D, int H, int W, int Cin, int Cout,
+                   const tc::Blocks& bl, int splits, cudaStream_t stream) {
+  // the input (Cin, W, H, D, B), a phase's sub-box a box of 64 channels;
+  // the cotangent (Cout, 2W, 2H, 2D, B), a block's rows of one phase a box
+  // of 64 channels striding 2
+  cudaError_t err = bind_context();
   if (err != cudaSuccess) return (int)err;
-  tc::k1_dk_bf16_wgmma<BM, BN>
-      <<<(unsigned)(8 * (8 * Cin / BM) * (Cout / BN) * splits), BM * 2, smem,
-         stream>>>(static_cast<const __nv_bfloat16*>(x),
-                   static_cast<const __nv_bfloat16*>(g),
-                   static_cast<float*>(part), B, D, H, W, Cin, Cout, splits);
+  CUtensorMap map_x, map_g;
+  const cuuint64_t xdims[5] = {(cuuint64_t)Cin, (cuuint64_t)W,
+                               (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint32_t xbox[5] = {64, (cuuint32_t)bl.tw + 1,
+                              (cuuint32_t)bl.th + 1, (cuuint32_t)bl.td + 1,
+                              (cuuint32_t)bl.tn};
+  const cuuint32_t xsteps[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t gdims[5] = {(cuuint64_t)Cout, 2ull * W, 2ull * H,
+                               2ull * D, (cuuint64_t)B};
+  const cuuint32_t gbox[5] = {64, 2u * bl.tw, 2u * bl.th, 2u * bl.td,
+                              (cuuint32_t)bl.tn};
+  const cuuint32_t gsteps[5] = {1, 2, 2, 2, 1};
+  if (!bf16_map(&map_x, x, 5, xdims, xbox, xsteps,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !bf16_map(&map_g, g, 5, gdims, gbox, gsteps,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = tc::dk_smem_bytes();
+  static SmemLimit limit;
+  err = limit.ensure(tc::k1_dk_bf16_halo, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_clustered(
+      tc::k1_dk_bf16_halo,
+      dim3((unsigned)splits, (unsigned)((Cin / 64) * (Cout / 64)), 8),
+      tc::HB_THREADS, smem, splits, stream, map_x, map_g, static_cast<float*>(dk2),
+      static_cast<float*>(dbp), B, D, H, W, Cin, Cout, bl, splits);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-int launch_dx_fast_bf16(const void* g, const void* wb, void* dx, void* part,
-                        int B, int D, int H, int W, int Cin, int Cout, int bm,
-                        int bn, int splits, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (Cout % tc::BK != 0 || bm != 128 || (bn != 128 && bn != 64) ||
-      Cin % bn != 0 || bad_splits(splits, 64LL * (Cout / tc::BK)))
-    return (int)cudaErrorInvalidValue;
-  return bn == 128 ? launch_dx_bf16<128, 128>(g, wb, dx, part, B, D, H, W,
-                                              Cin, Cout, splits, st)
-                   : launch_dx_bf16<128, 64>(g, wb, dx, part, B, D, H, W,
-                                             Cin, Cout, splits, st);
-}
-
-int launch_dk_fast_bf16(const void* x, const void* g, void* part, int B,
-                        int D, int H, int W, int Cin, int Cout, int bm,
-                        int bn, int splits, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long M = (long long)B * D * H * W;
-  if ((bm != 128 && bm != 64) || (bn != 128 && bn != 64) || Cin % bm != 0 ||
-      Cout % bn != 0 ||
-      bad_splits(splits, (M + tc::DK_BK - 1) / tc::DK_BK))
-    return (int)cudaErrorInvalidValue;
-  if (bm == 128 && bn == 128)
-    return launch_dk_bf16<128, 128>(x, g, part, B, D, H, W, Cin, Cout, splits,
-                                    st);
-  if (bm == 128)
-    return launch_dk_bf16<128, 64>(x, g, part, B, D, H, W, Cin, Cout, splits,
-                                   st);
-  if (bn == 128)
-    return launch_dk_bf16<64, 128>(x, g, part, B, D, H, W, Cin, Cout, splits,
-                                   st);
-  return launch_dk_bf16<64, 64>(x, g, part, B, D, H, W, Cin, Cout, splits,
-                                st);
 }
 
 template <typename T, bool VEC>
@@ -1593,23 +2025,57 @@ int prdisagg_upsample2_conv3_general_bf16(const void* x, const void* kp,
                                         Cout, (cudaStream_t)stream);
 }
 
-// K1's backward.  g (B, 2D, 2H, 2W, Cout) and x (B, D, H, W, Cin) in one
-// dtype; wb (Cin, 64*Cout) of that dtype, packed by pack_backward_kernels();
-// dx (B, D, H, W, Cin) of that dtype, written when splits == 1, else
-// part (splits, B*D*H*W, Cin) f32 for prdisagg_k1_dx_reduce_*; dk's part
-// (splits, 8 phases, 8*Cin, Cout) f32 for prdisagg_k1_dk_fold.  All
-// contiguous on the current device; the fast entries also need 16-byte
-// aligned operands.  Tiles and splits come from k1_backward_plan(): fast
-// bf16 dx (128, 128 | 64) with Cout % 64 == 0; fast bf16 dk (128 | 64,
-// 128 | 64) dividing Cin and Cout; the f32 fast and general entries (64, 64).
-int prdisagg_k1_dx_fast_bf16(const void* g, const void* wb, void* dx,
-                             void* part, int B, int D, int H, int W, int Cin,
-                             int Cout, int bm, int bn, int splits,
+// K1's backward, bf16 on the halo kernels.  g (B, 2D, 2H, 2W, Cout) and
+// x (B, D, H, W, Cin) bf16; kp (8 phases, Cout, 8*Cin) bf16, the forward's
+// packing by pack_phase_kernels(), read in place; dx (B, D, H, W, Cin) bf16;
+// dk2 (8 phases, 8 taps, Cin, Cout) f32 and dbp (8 phases, Cout) f32 (may
+// be null: no bias sums) for prdisagg_k1_dk_fold.  All contiguous on the
+// current device and 16-byte aligned, Cin and Cout multiples of 64.  The
+// block (tn, td, th, tw) and the cluster size `splits` (1..8, at most the
+// reduction's units) come from k1_backward_plan().
+int prdisagg_k1_dx_halo_bf16(const void* g, const void* kp, void* dx, int B,
+                             int D, int H, int W, int Cin, int Cout, int tn,
+                             int td, int th, int tw, int splits,
                              void* stream) {
-  return launch_dx_fast_bf16(g, wb, dx, part, B, D, H, W, Cin, Cout, bm, bn,
-                             splits, stream);
+  tc::Blocks bl;
+  long long blocks;
+  if (Cin % 64 != 0 || Cout % 64 != 0 || splits < 1 ||
+      splits > tc::MAX_CLUSTER || splits > 8 * (Cout / tc::HB_CO) ||
+      !halo_blocks(B, D, H, W, tn, td, th, tw, tc::HB_BM, tc::DX_RMAX, bl,
+                   blocks))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return Cin % 128 == 0
+             ? launch_dx_halo<2>(g, kp, dx, B, D, H, W, Cin, Cout, bl, blocks,
+                                 splits, st)
+             : launch_dx_halo<1>(g, kp, dx, B, D, H, W, Cin, Cout, bl, blocks,
+                                 splits, st);
 }
 
+int prdisagg_k1_dk_halo_bf16(const void* x, const void* g, void* dk2,
+                             void* dbp, int B, int D, int H, int W, int Cin,
+                             int Cout, int tn, int td, int th, int tw,
+                             int splits, void* stream) {
+  tc::Blocks bl;
+  long long blocks;
+  if (Cin % 64 != 0 || Cout % 64 != 0 || splits < 1 ||
+      splits > tc::MAX_CLUSTER ||
+      !halo_blocks(B, D, H, W, tn, td, th, tw, tc::HB_BP, tc::DK_RMAX, bl,
+                   blocks) ||
+      splits > blocks)
+    return (int)cudaErrorInvalidValue;
+  return launch_dk_halo(x, g, dk2, dbp, B, D, H, W, Cin, Cout, bl, splits,
+                        (cudaStream_t)stream);
+}
+
+// K1's backward, f32 and any widths, on the FMA kernels.  g and x as above
+// in one dtype; wb (Cin, 64*Cout) of that dtype, packed by
+// pack_backward_kernels(); dx of that dtype, written when splits == 1,
+// else part (splits, B*D*H*W, Cin) f32 for prdisagg_k1_dx_reduce_*; dk's
+// part (splits, 8 phases, 8*Cin, Cout) f32 for prdisagg_k1_dk_fold.  All
+// contiguous on the current device; the fast (f32) entries also need
+// 16-byte aligned operands.  Tiles (64, 64) and splits come from
+// k1_backward_plan().
 int prdisagg_k1_dx_fast_f32(const void* g, const void* wb, void* dx,
                             void* part, int B, int D, int H, int W, int Cin,
                             int Cout, int bm, int bn, int splits,
@@ -1633,13 +2099,6 @@ int prdisagg_k1_dx_general_bf16(const void* g, const void* wb, void* dx,
   return launch_dx_fma<__nv_bfloat16, false>(g, wb, dx, part, B, D, H, W,
                                              Cin, Cout, bm, bn, splits,
                                              stream);
-}
-
-int prdisagg_k1_dk_fast_bf16(const void* x, const void* g, void* part, int B,
-                             int D, int H, int W, int Cin, int Cout, int bm,
-                             int bn, int splits, void* stream) {
-  return launch_dk_fast_bf16(x, g, part, B, D, H, W, Cin, Cout, bm, bn,
-                             splits, stream);
 }
 
 int prdisagg_k1_dk_fast_f32(const void* x, const void* g, void* part, int B,
@@ -1673,14 +2132,16 @@ int prdisagg_k1_dx_reduce_bf16(const void* part, void* dx, long long n,
   return launch_dx_reduce<__nv_bfloat16>(part, dx, n, splits, stream);
 }
 
-// dk (3, 3, 3, Cin, Cout) f32 from dk's part
+// dk (3, 3, 3, Cin, Cout) f32 from dk's part; with dbp (8 phases, Cout)
+// f32, also db (Cout,) f32, its sum over the phases in order
 int prdisagg_k1_dk_fold(const void* part, void* dk, int Cin, int Cout,
-                        int splits, void* stream) {
-  if (splits < 1) return (int)cudaErrorInvalidValue;
+                        int splits, const void* dbp, void* db, void* stream) {
+  if (splits < 1 || (dbp != nullptr) != (db != nullptr))
+    return (int)cudaErrorInvalidValue;
   bwd::k1_dk_fold<<<pass_grid(27LL * Cin * Cout), 256, 0,
-                    (cudaStream_t)stream>>>(static_cast<const float*>(part),
-                                            static_cast<float*>(dk), Cin, Cout,
-                                            splits);
+                    (cudaStream_t)stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(dk), Cin, Cout,
+      splits, static_cast<const float*>(dbp), static_cast<float*>(db));
   return (int)cudaGetLastError();
 }
 

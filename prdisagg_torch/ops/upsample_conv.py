@@ -30,12 +30,16 @@ Three implementations of one function:
   input and weight gradients) on the CPU, and on the card
   :func:`upsample2_conv3_backward_cuda`, the hand-written kernels of
   ``csrc/upsample_conv.cu``: dx as one implicit GEMM over the cotangent's
-  4^3 windows at stride 2 (weights permuted by :func:`pack_backward_kernels`
-  from the forward's packing),
-  dkernel as one GEMM per phase over the positions, each with a
-  deterministic split of its reduction (:func:`k1_backward_plan`), partials
-  summed in a fixed order by a second kernel that also rounds (dx) or folds
-  onto the 3^3 kernel (dkernel).
+  4^3 windows at stride 2, dkernel as one GEMM per phase over the
+  positions, each with a deterministic split of its reduction
+  (:func:`k1_backward_plan`).  In bf16 (the halo kernels) each CTA copies
+  the rows a block of positions reads into shared memory once, reads the
+  forward's packed weights in place, sums its split's tile with the other
+  CTAs of its cluster in a fixed order, and dkernel's kernel also sums the
+  bias gradient; one pass folds the phase-tap gradients onto the 3^3
+  kernel.  In f32 and at other widths (the FMA kernels) the weights are
+  permuted by :func:`pack_backward_kernels` and the partials summed in a
+  fixed order by a second kernel that also rounds (dx) or folds (dkernel).
 """
 
 from __future__ import annotations
@@ -237,25 +241,35 @@ def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
 
 # K1's backward on the card
 
-#: the fast backward kernels' reduction slices: dx's along Cout (bf16), dk's
-#: along positions (bf16); the f32 fast and general kernels' tiles and slices
-BWD_FAST_BK = 64
+#: the FMA backward kernels' (f32 and other widths) tiles and reduction
+#: slices
 BWD_FMA_TILE, BWD_FMA_BK = 64, 16
-#: a split keeps at least this many reduction slices
+#: a split keeps at least this many reduction slices (units)
 MIN_SPLIT_SLICES = 2
-BACKWARD_KERNELS = ("dx_fast", "dx_general", "dk_fast", "dk_general",
-                    "dx_reduce", "dk_fold")
+#: the bf16 halo kernels (csrc/upsample_conv.cu, tc namespace): dx's
+#: positions a CTA, its output channels a reduction unit and its sub-box
+#: rows; dk's positions a block and sub-box rows; the largest cluster
+HALO_BM, HALO_CO, HALO_DX_RMAX = 128, 16, 512
+HALO_BP, HALO_DK_RMAX = 128, 256
+MAX_CLUSTER = 8
+#: what a halo block costs beside its sub-box rows, in rows: dx streams
+#: 8 taps x 16 x 128 weights (about 1024 sub-box rows of 32 bytes) a unit,
+#: dk copies HALO_BP cotangent rows (as many rows of 128 bytes) a block
+HALO_BLOCK_WEIGHT = {"dx": 1024, "dk": HALO_BP}
+BACKWARD_KERNELS = ("dx_halo", "dx_fast", "dx_general", "dk_halo", "dk_fast",
+                    "dk_general", "dx_reduce", "dk_fold")
 #: launches of :func:`upsample2_conv3_backward_cuda`'s kernels, by kernel
 backward_launches_by_variant = dict.fromkeys(BACKWARD_KERNELS, 0)
 
 
 def pack_backward_kernels(kp: torch.Tensor) -> torch.Tensor:
-    """The dx kernels' weights, (Cin, 64*Cout), K-major with
+    """The FMA dx kernels' weights, (Cin, 64*Cout), K-major with
     k = off*Cout + co, contiguous, from the forward's packing kp (8 phases,
     Cout, 8*Cin) of :func:`pack_phase_kernels` (folded in float32, cast
     once).  Per axis, low-res index d feeds the full-res output 2d + 2 - j,
     j = 2p + a, through K2[phase a, tap p], so offset j holds K2[a, p] and
-    off = 16*j_d + 4*j_h + j_w: a permutation of kp, one copy."""
+    off = 16*j_d + 4*j_h + j_w: a permutation of kp, one copy.  The bf16
+    halo kernel reads kp itself."""
     cout, cin = kp.shape[1], kp.shape[2] // 8
     k8 = kp.view(2, 2, 2, cout, 2, 2, 2, cin)  # (a, b, c, co, p, q, r, ci)
     return k8.permute(7, 4, 0, 5, 1, 6, 2, 3).reshape(cin, 64 * cout)
@@ -268,8 +282,8 @@ def split_range(kt: int, splits: int, s: int) -> tuple:
 
 
 class GemmPlan(NamedTuple):
-    """One backward GEMM's tile (bm x bn), reduction slice bk, slices of
-    the whole reduction kt, splits and CTA count."""
+    """One FMA backward GEMM's tile (bm x bn), reduction slice bk, slices
+    of the whole reduction kt, splits and CTA count."""
     bm: int
     bn: int
     bk: int
@@ -278,67 +292,136 @@ class GemmPlan(NamedTuple):
     ctas: int
 
 
+class HaloPlan(NamedTuple):
+    """One halo kernel's launch: the block of positions (tn, td, th, tw),
+    the blocks along (n, d, h, w), a phase's sub-box rows, the output tiles
+    (CTAs of one split), the reduction units, the splits (the cluster's
+    CTAs) and the CTA count."""
+    block: tuple
+    grid: tuple
+    rows: int
+    tiles: int
+    units: int
+    splits: int
+    ctas: int
+
+
 class K1BackwardPlan(NamedTuple):
-    """Which kernels a backward takes ("fast" or "general"), and dx's and
-    dk's GEMMs."""
+    """Which kernels a backward takes ("halo": bf16; "fast": f32; or
+    "general"), and dx's and dk's launches."""
     variant: str
-    dx: GemmPlan
-    dk: GemmPlan
+    dx: tuple
+    dk: tuple
+
+
+def _splits(tiles: int, units: int, most: int) -> int:
+    """Splits of the reduction so that the grid fills the card's SMS SMs,
+    each split keeping at least MIN_SPLIT_SLICES units, at most `most`."""
+    if tiles >= SMS:
+        return 1
+    return max(1, min(most, _ceil(SMS, tiles), units // MIN_SPLIT_SLICES))
 
 
 def _gemm_plan(bm: int, bn: int, bk: int, tiles: int, kt: int) -> GemmPlan:
-    """Splits of the reduction so that the grid fills the card's SMS SMs,
-    each split keeping at least MIN_SPLIT_SLICES slices."""
-    splits = 1
-    if tiles < SMS:
-        splits = max(1, min(_ceil(SMS, tiles), kt // MIN_SPLIT_SLICES))
+    splits = _splits(tiles, kt, kt)
     return GemmPlan(bm, bn, bk, kt, splits, tiles * splits)
+
+
+@functools.lru_cache(maxsize=None)
+def halo_block(b: int, d: int, h: int, w: int, positions: int, rows: int,
+               weight: int) -> tuple:
+    """The block (tn, td, th, tw) of at most `positions` positions and
+    `rows` sub-box rows tn*(td+1)*(th+1)*(tw+1) with the least cost,
+    blocks * (weight + rows): the rows a phase copies, beside what every
+    block costs alike.  tn > 1 only for whole samples.  Returns (block,
+    blocks along (n, d, h, w), sub-box rows)."""
+    best = None
+    for td in range(1, d + 1):
+        for th in range(1, h + 1):
+            for tw in range(1, w + 1):
+                p = td * th * tw
+                if p > positions:
+                    break
+                whole = (td, th, tw) == (d, h, w)
+                for tn in range(1, min(b, positions // p, 255) + 1
+                                if whole else 2):
+                    r = tn * (td + 1) * (th + 1) * (tw + 1)
+                    if r > rows:
+                        break
+                    grid = (_ceil(b, tn), _ceil(d, td), _ceil(h, th),
+                            _ceil(w, tw))
+                    blocks = grid[0] * grid[1] * grid[2] * grid[3]
+                    key = (blocks * (weight + r), r)
+                    if best is None or key < best[0]:
+                        best = (key, ((tn, td, th, tw), grid, r))
+    return best[1]
+
+
+def _halo_plan(kind: str, b: int, d: int, h: int, w: int, cin: int,
+               cout: int) -> HaloPlan:
+    if kind == "dx":
+        block, grid, rows = halo_block(b, d, h, w, HALO_BM, HALO_DX_RMAX,
+                                       HALO_BLOCK_WEIGHT["dx"])
+        blocks = grid[0] * grid[1] * grid[2] * grid[3]
+        tiles = blocks * (cin // (128 if cin % 128 == 0 else 64))
+        units = 8 * cout // HALO_CO
+    else:
+        block, grid, rows = halo_block(b, d, h, w, HALO_BP, HALO_DK_RMAX,
+                                       HALO_BLOCK_WEIGHT["dk"])
+        tiles = 8 * (cin // 64) * (cout // 64)
+        units = grid[0] * grid[1] * grid[2] * grid[3]
+    splits = _splits(tiles, units, MAX_CLUSTER)
+    return HaloPlan(block, grid, rows, tiles, units, splits, tiles * splits)
 
 
 def k1_backward_plan(dtype: torch.dtype, b: int, d: int, h: int, w: int,
                      cin: int, cout: int, general: bool = False
                      ) -> K1BackwardPlan:
-    """The backward kernels, tiles and splits for x (b, d, h, w, cin) ->
+    """The backward kernels and their launches for x (b, d, h, w, cin) ->
     cout channels.
 
-    The fast kernels need Cin and Cout to be multiples of 64: bf16 on wgmma
-    (dx 128 positions x 128 or 64 channels of Cin, slices of 64 along Cout;
-    dk 128 or 64 (tap, ci) rows x 128 or 64 channels of Cout, slices of 64
-    positions), f32 on FMA with 16-byte loads (64 x 64 tiles, slices of
-    16).  Other widths, or `general`, take the general FMA kernels (64 x
-    64, slices of 16).  Each GEMM's reduction is split until its grid fills
-    the card."""
-    m = b * d * h * w
+    Cin and Cout multiples of 64 take the fast kernels: bf16 the halo
+    kernels (:class:`HaloPlan`: dx on blocks of at most HALO_BM positions
+    and 64 or 128 channels of Cin, reduction units of 16 channels of Cout
+    and one phase; dk on blocks of at most HALO_BP positions, one phase,
+    64 x 64 channels a CTA), f32 the FMA kernels with 16-byte loads
+    (:class:`GemmPlan`, 64 x 64 tiles, slices of 16).  Other widths, or
+    `general`, take the general FMA kernels (64 x 64, slices of 16).  Each
+    reduction is split until the grid fills the card (a bf16 split at most
+    MAX_CLUSTER ways, the CTAs of one cluster)."""
     fast = cin % 64 == 0 and cout % 64 == 0 and not general
     if fast and dtype == torch.bfloat16:
-        dxt = (128, 128 if cin % 128 == 0 else 64, BWD_FAST_BK)
-        dkt = (128 if cin % 128 == 0 else 64, 128 if cout % 128 == 0 else 64,
-               BWD_FAST_BK)
-    else:
-        dxt = dkt = (BWD_FMA_TILE, BWD_FMA_TILE, BWD_FMA_BK)
-    dx = _gemm_plan(*dxt, _ceil(m, dxt[0]) * _ceil(cin, dxt[1]),
-                    64 * _ceil(cout, dxt[2]))
-    dk = _gemm_plan(*dkt, 8 * _ceil(8 * cin, dkt[0]) * _ceil(cout, dkt[1]),
-                    _ceil(m, dkt[2]))
+        return K1BackwardPlan("halo", _halo_plan("dx", b, d, h, w, cin, cout),
+                              _halo_plan("dk", b, d, h, w, cin, cout))
+    m = b * d * h * w
+    t, bk = BWD_FMA_TILE, BWD_FMA_BK
+    dx = _gemm_plan(t, t, bk, _ceil(m, t) * _ceil(cin, t),
+                    64 * _ceil(cout, bk))
+    dk = _gemm_plan(t, t, bk, 8 * _ceil(8 * cin, t) * _ceil(cout, t),
+                    _ceil(m, bk))
     return K1BackwardPlan("fast" if fast else "general", dx, dk)
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_fns(variant: str, dtype: torch.dtype):
-    """The dx, dk, dx-reduce and dk-fold entries of one variant and dtype."""
+    """The dx, dk, dx-reduce and dk-fold entries of one variant and dtype
+    (the halo variant's dx and dk take a block where the others take a
+    tile and a reduce)."""
     lib = _build.load("upsample_conv")
     tag = _ENTRY_DTYPES[dtype]
-    gemm = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    ptr, i = ctypes.c_void_p, ctypes.c_int
     dx = getattr(lib, f"prdisagg_k1_dx_{variant}_{tag}")
-    dx.argtypes = [ctypes.c_void_p] * 4 + gemm
     dk = getattr(lib, f"prdisagg_k1_dk_{variant}_{tag}")
-    dk.argtypes = [ctypes.c_void_p] * 3 + gemm
+    if variant == "halo":
+        dx.argtypes = [ptr] * 3 + [i] * 11 + [ptr]
+        dk.argtypes = [ptr] * 4 + [i] * 11 + [ptr]
+    else:
+        dx.argtypes = [ptr] * 4 + [i] * 9 + [ptr]
+        dk.argtypes = [ptr] * 3 + [i] * 9 + [ptr]
     reduce = getattr(lib, f"prdisagg_k1_dx_reduce_{tag}")
-    reduce.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
+    reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i, ptr]
     fold = lib.prdisagg_k1_dk_fold
-    fold.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fold.argtypes = [ptr] * 2 + [i] * 3 + [ptr] * 3
     for fn in (dx, dk, reduce, fold):
         fn.restype = ctypes.c_int
     return dx, dk, reduce, fold
@@ -356,18 +439,24 @@ def _launched(name: str, err: int) -> None:
 
 def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
                                   g: torch.Tensor, need_dx: bool = True,
-                                  need_dk: bool = True, kp=None):
-    """:func:`upsample2_conv3_backward` on the card's hand-written kernels.
+                                  need_dk: bool = True, kp=None,
+                                  need_db: bool = False):
+    """:func:`upsample2_conv3_backward` on the card's hand-written kernels,
+    and the bias gradient.
 
     x: (B, D, H, W, Cin) f32 or bf16; kernel: (3, 3, 3, Cin, Cout), any
     float dtype; g: (B, 2D, 2H, 2W, Cout), cast to x's dtype.  All on one
     CUDA device.  dx accumulates in float32 and rounds once to x's dtype;
     dkernel accumulates and folds in float32 and comes back in kernel's
-    dtype.  kp, the forward's :func:`pack_phase_kernels` of kernel in x's
-    dtype, spares packing the weights again.  The partial sums live in
-    workspaces allocated here (a graph capture takes them from its pool)
-    and are summed in a fixed order, so two calls give the same bits.  Runs
-    on the current stream."""
+    dtype; db, the float32 sum of g over all but its channels, comes from
+    the dk kernel on the halo path (with need_dk), else from one reduction
+    that accumulates in float32 (no float32 copy of g).  kp, the forward's
+    :func:`pack_phase_kernels` of kernel in x's dtype, spares packing the
+    weights again; the bf16 halo kernels read it as it is.  Split sums are
+    taken in a fixed order (in a cluster's shared memory in bf16, through
+    workspaces allocated here otherwise, which a graph capture takes from
+    its pool), so two calls give the same bits.  Runs on the current
+    stream.  Returns (dx or None, dkernel or None, db or None)."""
     for name, t in (("x", x), ("kernel", kernel), ("g", g)):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; every operand must "
@@ -402,17 +491,58 @@ def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
             dx.zero_()
         if need_dk:
             dk.zero_()
-        return dx, None if dk is None else dk.to(kernel.dtype)
+        db = torch.zeros((cout,), dtype=torch.float32, device=x.device) \
+            if need_db else None
+        return dx, None if dk is None else dk.to(kernel.dtype), db
     plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout)
-    wb = None
-    if need_dx:
-        if kp is None:
-            kp = pack_phase_kernels(kernel, x.dtype)
-        wb = pack_backward_kernels(kp)
+    if need_dx and kp is None:
+        kp = pack_phase_kernels(kernel, x.dtype)
+    if plan.variant != "halo" or any(t is not None and t.data_ptr() % 16
+                                     for t in (x, g, kp)):
+        return _backward_fma(x, kernel, g, need_dx, need_dk, kp, need_db,
+                             dx, dk)
+    fdx, fdk, _, ffold = _backward_fns("halo", x.dtype)
+    db = None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if need_dx:
+            p = plan.dx
+            _launched("dx_halo", fdx(
+                g.data_ptr(), kp.data_ptr(), dx.data_ptr(), b, d, h, w, cin,
+                cout, *p.block, p.splits, stream))
+        if need_dk:
+            p = plan.dk
+            # the summed phase-tap tiles, then the 8 phases' bias sums
+            part = torch.empty(64 * cin * cout + 8 * cout,
+                               dtype=torch.float32, device=x.device)
+            dbp = part[64 * cin * cout:] if need_db else None
+            db = torch.empty((cout,), dtype=torch.float32, device=x.device) \
+                if need_db else None
+            _launched("dk_halo", fdk(
+                x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                None if dbp is None else dbp.data_ptr(), b, d, h, w, cin,
+                cout, *p.block, p.splits, stream))
+            _launched("dk_fold", ffold(
+                part.data_ptr(), dk.data_ptr(), cin, cout, 1,
+                None if dbp is None else dbp.data_ptr(),
+                None if db is None else db.data_ptr(), stream))
+    if need_db and db is None:
+        db = g.sum(dim=(0, 1, 2, 3), dtype=torch.float32)
+    return dx, None if dk is None else dk.to(kernel.dtype), db
+
+
+def _backward_fma(x, kernel, g, need_dx, need_dk, kp, need_db, dx, dk):
+    """upsample2_conv3_backward_cuda on the FMA kernels: f32 ("fast", with
+    16-byte loads), other widths or misaligned operands ("general")."""
+    b, d, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout)
+    wb = pack_backward_kernels(kp) if need_dx else None
     variant = plan.variant
-    if variant == "fast" and any(t is not None and t.data_ptr() % 16
-                                 for t in (x, g, wb)):
-        variant = "general"  # 16-byte loads need it
+    if variant == "halo" or (variant == "fast" and any(
+            t is not None and t.data_ptr() % 16 for t in (x, g, wb))):
+        variant = "general"  # TMA and 16-byte loads need aligned operands
+    if variant != plan.variant:
         plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout, general=True)
     fdx, fdk, freduce, ffold = _backward_fns(variant, x.dtype)
     m = b * d * h * w
@@ -436,8 +566,9 @@ def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
                 x.data_ptr(), g.data_ptr(), part.data_ptr(), b, d, h, w, cin,
                 cout, p.bm, p.bn, p.splits, stream))
             _launched("dk_fold", ffold(part.data_ptr(), dk.data_ptr(), cin,
-                                       cout, p.splits, stream))
-    return dx, None if dk is None else dk.to(kernel.dtype)
+                                       cout, p.splits, None, None, stream))
+    db = g.sum(dim=(0, 1, 2, 3), dtype=torch.float32) if need_db else None
+    return dx, None if dk is None else dk.to(kernel.dtype), db
 
 
 def _fold_transpose(dk2: torch.Tensor) -> torch.Tensor:
@@ -513,13 +644,12 @@ class _UpsampleConv3(torch.autograd.Function):
         need_dx, need_dk, need_db = ctx.needs_input_grad
         if x.device.type == "cpu":
             dx, dk = upsample2_conv3_backward(x, kernel, g, need_dx, need_dk)
+            db = g.float().sum(dim=(0, 1, 2, 3)) if need_db else None
         else:
-            dx, dk = upsample2_conv3_backward_cuda(x, kernel, g, need_dx,
-                                                   need_dk, kp=kp)
-        db = g.float().sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype) \
-            if need_db else None
+            dx, dk, db = upsample2_conv3_backward_cuda(
+                x, kernel, g, need_dx, need_dk, kp=kp, need_db=need_db)
         backward_calls += 1
-        return dx, dk, db
+        return dx, dk, None if db is None else db.to(ctx.bias_dtype)
 
 
 def upsample2_conv3(x: torch.Tensor, kernel: torch.Tensor,

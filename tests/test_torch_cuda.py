@@ -133,15 +133,19 @@ def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
                                    # the flagship stages at the train batch
                                    (32, 3, 2, 2, 256, 256),
                                    (32, 6, 4, 4, 256, 128),
-                                   (32, 12, 8, 8, 128, 64)]
+                                   (32, 12, 8, 8, 128, 64),
+                                   # halo blocks overhanging W, B; odd y
+                                   (3, 5, 7, 11, 64, 64),
+                                   (11, 3, 2, 2, 64, 64),
+                                   (1, 3, 5, 8, 64, 128)]
                          + LARGE_DOMAIN + SPATIAL_SLABS + FUSED)
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-4),
                                              ("bfloat16", 2e-2, 2e-2)])
 def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
     """The kernel's autograd.Function against autograd through the plain
     version, on the card: dx, dkernel and dbias; the backward launches the
-    kernels k1_backward_plan names (dx, its reduce when split, dk and its
-    fold) and gives the same bits on a second call."""
+    kernels k1_backward_plan names (dx, an FMA dx's reduce when split, dk
+    and its fold) and gives the same bits on a second call."""
     from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32
 
@@ -170,7 +174,7 @@ def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
     plan = upsample_conv.k1_backward_plan(dt, *shape)
     v = plan.variant
     want = {f"dx_{v}": 2, f"dk_{v}": 2, "dk_fold": 2,
-            "dx_reduce": 2 * (plan.dx.splits > 1)}
+            "dx_reduce": 2 * (v != "halo" and plan.dx.splits > 1)}
     ran = {n: c - kernels[n] for n, c in
            upsample_conv.backward_launches_by_variant.items()}
     assert ran == {n: want.get(n, 0) for n in ran}
@@ -209,6 +213,69 @@ def test_pad_only_taps_have_exactly_zero_gradient_on_the_card(cuda, dtype):
     assert int(mask.sum()) == 15
     assert grad[mask.to(cuda)].abs().max().item() == 0.0
     assert grad[~mask.to(cuda)].abs().max().item() > 0.0
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False),
+                                  (False, True), (False, False)])
+def test_upsample2_conv3_backward_cuda_partial_gradients(cuda, need):
+    """Any subset of dx and dkernel equals the full call's bit for bit, and
+    the bias gradient beside it (from the halo dk kernel, or by one float32
+    reduction without dk) g's float32 sum."""
+    from prdisagg_torch.ops import upsample_conv
+
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randn(4, 3, 2, 2, 64).astype("f4"),
+                     device=cuda).to(torch.bfloat16)
+    k = torch.tensor(0.1 * rng.randn(3, 3, 3, 64, 64).astype("f4"),
+                     device=cuda)
+    g = torch.tensor(rng.randn(4, 6, 4, 4, 64).astype("f4"),
+                     device=cuda).to(torch.bfloat16)
+    assert upsample_conv.k1_backward_plan(torch.bfloat16, *x.shape,
+                                          64).variant == "halo"
+    full = upsample_conv.upsample2_conv3_backward_cuda(x, k, g, need_db=True)
+    got = upsample_conv.upsample2_conv3_backward_cuda(
+        x, k, g, need[0], need[1], need_db=True)
+    for want, have, on in zip(full, got, need):
+        assert (have is not None) == on
+        if on:
+            torch.testing.assert_close(have, want, rtol=0, atol=0)
+    if need[1]:  # the same kernel's bias sums
+        torch.testing.assert_close(got[2], full[2], rtol=0, atol=0)
+    torch.testing.assert_close(
+        got[2], g.float().sum(dim=(0, 1, 2, 3)), rtol=1e-5, atol=1e-4)
+
+
+def test_upsample2_conv3_backward_misaligned_operands_take_general(cuda):
+    """A bf16 x off the 16-byte alignment that TMA and the 16-byte loads
+    need takes the general FMA kernels, and agrees with the plain
+    backward."""
+    from prdisagg_torch.ops import upsample_conv
+    from prdisagg_torch.ops.core import full_f32
+
+    b, d, h, w, cin, cout = 2, 3, 2, 2, 64, 64
+    rng = np.random.RandomState(6)
+    buf = torch.tensor(rng.randn(b * d * h * w * cin + 1).astype("f4"),
+                       device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(b, d, h, w, cin)
+    k = torch.tensor(0.1 * rng.randn(3, 3, 3, cin, cout).astype("f4"),
+                     device=cuda)
+    g = torch.tensor(rng.randn(b, 2 * d, 2 * h, 2 * w, cout).astype("f4"),
+                     device=cuda).to(torch.bfloat16)
+    assert x.data_ptr() % 16
+    before = dict(upsample_conv.backward_launches_by_variant)
+    got = upsample_conv.upsample2_conv3_backward_cuda(x, k, g, need_db=True)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in
+           upsample_conv.backward_launches_by_variant.items() if c != before[n]}
+    assert ran["dx_general"] == ran["dk_general"] == 1
+    assert "dx_halo" not in ran and "dk_halo" not in ran
+    with full_f32():
+        want = upsample_conv.upsample2_conv3_backward(x, k, g)
+    for have, ref in zip(got, want):
+        scale = ref.float().abs().max().item()
+        np.testing.assert_allclose(have.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=2e-2,
+                                   atol=2e-2 * scale)
 
 
 def test_upsample2_conv3_backward_refuses_what_it_cannot_take(cuda):

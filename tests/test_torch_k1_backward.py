@@ -1,14 +1,22 @@
-"""K1's backward kernels (``csrc/upsample_conv.cu``: dx and dkernel with a
-split reduction) emulated on the CPU, against the plain backward and JAX.
+"""K1's backward kernels (``csrc/upsample_conv.cu``) emulated on the CPU,
+against the plain backward and JAX.
 
 The card's kernels cannot run here, so this file repeats their index math
-in PyTorch: dx as one implicit GEMM whose rows gather the cotangent at the
-64 full-res offsets (2d+u, 2h+v, 2w+t), u, v, t in -1..2, against the
-weights ``pack_backward_kernels`` permutes from the forward's packing; dkernel as one GEMM per phase
-over the positions, each reduction cut into ``k1_backward_plan``'s splits
-by ``split_range``, the partials summed in split order and folded onto the
-3^3 kernel by the fold kernel's (phase, tap) pairs.  The emulation must
-equal ``upsample2_conv3_backward`` and JAX's ``jax.vjp`` of the Pallas op
+in PyTorch.  The bf16 halo kernels: dx on blocks of low-res positions, each
+phase's cotangent sub-box (zero-filled outside the full-res grid) read at
+the 8 taps' windows against the forward's packing ``kp`` as it is, the
+reduction units of each split summed, the splits in cluster rank order;
+dk per phase on position blocks, the input sub-box read at the taps'
+windows against the block's cotangent rows, the blocks of each split
+summed, the splits in rank order, the first Cin tile's column sums of the
+cotangent rows giving the bias gradient, then the fold kernel's (phase,
+tap) pairs onto the 3^3 kernel and its sum of the phases' bias sums.  The
+FMA kernels (f32 and other widths): dx as one implicit GEMM whose rows
+gather the cotangent at the 64 full-res offsets against the weights
+``pack_backward_kernels`` permutes, dk as one GEMM per phase, each
+reduction cut into ``k1_backward_plan``'s splits by ``split_range``, the
+partials summed in split order and folded.  The emulation must equal
+``upsample2_conv3_backward`` and JAX's ``jax.vjp`` of the Pallas op
 (interpret mode) within float32 rtol 1e-4, atol 1e-5 of the maximum.
 """
 
@@ -48,8 +56,169 @@ def _positions(b, d, h, w):
     return m // (d * h * w), m // (h * w) % d, m // w % h, m % w
 
 
-def _emulate_dx(g, wb, cin, plan):
-    """The dx kernels: row m gathers the cotangent row of (2d+u, 2h+v,
+def _fold_tap(i, pair):
+    """k1_dk_fold's table: the tap of phase bit `pair` folding onto 3^3
+    index i."""
+    return 0 if i == 0 else (1 if i == 2 else 1 - pair)
+
+
+def _fold(part):
+    """k1_dk_fold: part (splits, 8 phases, 8 taps, Cin, Cout) summed over
+    the splits in order, then over the 8 (phase, tap) pairs that fold onto
+    each 3^3 index."""
+    cin, cout = part.shape[-2:]
+    dk = torch.zeros(3, 3, 3, cin, cout)
+    for i, j, k in np.ndindex(3, 3, 3):
+        for s in range(part.shape[0]):
+            for pair in range(8):
+                a, bb, c = pair >> 2, (pair >> 1) & 1, pair & 1
+                tap = (_fold_tap(i, a) * 4 + _fold_tap(j, bb) * 2
+                       + _fold_tap(k, c))
+                dk[i, j, k] += part[s, pair, tap]
+    return dk
+
+
+def _blocks(plan):
+    """The origins (n0, d0, h0, w0) of a halo plan's blocks, in the
+    kernels' order (w fastest)."""
+    tn, td, th, tw = plan.block
+    return [(bn * tn, bd * td, bh * th, bw * tw)
+            for bn, bd, bh, bw in np.ndindex(*plan.grid)]
+
+
+def _local(extents, count):
+    """(in, id, ih, iw) of local index 0..count-1 in a box of `extents`,
+    w fastest, as the kernels decompose it."""
+    q = torch.arange(count)
+    tn, td, th, tw = extents
+    return q // (td * th * tw), q // (th * tw) % td, q // tw % th, q % tw
+
+
+def _subbox_rows(extents, origin, a, b, c, shape, full_res):
+    """The flat source row of every sub-box row (in, ld, lh, lw) of phase
+    (a, b, c) of the block at `origin`, or -1 where it lies outside the
+    tensor (the kernels' zero fill).  Cotangent (full_res): the phase's
+    sub-grid rows (d0 - a + ld, ...) at full-res 2(d0 + ld) - a; input: x
+    at (d0 + a - 1 + ld, ...)."""
+    tn, td, th, tw = extents
+    nb, d, h, w = shape
+    i_n, ld, lh, lw = _local((tn, td + 1, th + 1, tw + 1),
+                             tn * (td + 1) * (th + 1) * (tw + 1))
+    n0, d0, h0, w0 = origin
+    n = n0 + i_n
+    if full_res:
+        dd, hh, ww = 2 * (d0 + ld) - a, 2 * (h0 + lh) - b, 2 * (w0 + lw) - c
+        d, h, w = 2 * d, 2 * h, 2 * w
+    else:
+        dd, hh, ww = d0 + a - 1 + ld, h0 + b - 1 + lh, w0 + c - 1 + lw
+    inside = ((n < nb) & (dd >= 0) & (dd < d) & (hh >= 0) & (hh < h)
+              & (ww >= 0) & (ww < w))
+    return torch.where(inside, ((n * d + dd) * h + hh) * w + ww, -1)
+
+
+def _rows_of(flat, rows):
+    """flat[rows] with -1 reading a zero row."""
+    z = torch.cat([flat, torch.zeros(1, flat.shape[1])])
+    return z[torch.where(rows >= 0, rows, len(flat))]
+
+
+def _emulate_dx(g, kp, cin, plan):
+    """k1_dx_bf16_halo: per block of positions and per split, the split's
+    reduction units (phase, 16 output channels), each the phase's
+    cotangent sub-box read at the 8 taps' windows (position (in, id, ih,
+    iw), tap (p, q, r) -> sub-box row (in, id+1-p, ih+1-q, iw+1-r); rows
+    past the block read position 0's and are not stored) times kp[phase,
+    channels, tap*Cin + ci] read in place; the splits' tiles summed in
+    rank order; stored where the position lies in the tensor."""
+    b, d2, h2, w2, cout = g.shape
+    d, h, w = d2 // 2, h2 // 2, w2 // 2
+    p = plan.dx
+    tn, td, th, tw = p.block
+    sd, sh, sw = td + 1, th + 1, tw + 1
+    npos = tn * td * th * tw
+    assert npos <= tuc.HALO_BM and p.rows == tn * sd * sh * sw
+    assert p.rows <= tuc.HALO_DX_RMAX and p.units == 8 * cout // tuc.HALO_CO
+    gflat = g.reshape(-1, cout)
+    m = torch.arange(tuc.HALO_BM)
+    i_n, i_d, i_h, i_w = _local(p.block, npos)
+    i_n, i_d, i_h, i_w = (t[torch.where(m < npos, m, 0)]
+                          for t in (i_n, i_d, i_h, i_w))
+    rho0 = ((i_n * sd + i_d + 1) * sh + i_h + 1) * sw + i_w + 1
+    dx = torch.zeros(b, d, h, w, cin)
+    for origin in _blocks(p):
+        boxes = [_subbox_rows(p.block, origin, ph >> 2, (ph >> 1) & 1, ph & 1,
+                              (b, d, h, w), True) for ph in range(8)]
+        tile = None
+        for s in range(p.splits):
+            acc = torch.zeros(tuc.HALO_BM, cin)
+            for u in range(*tuc.split_range(p.units, p.splits, s)):
+                ph, c0 = u & 7, (u >> 3) * tuc.HALO_CO
+                box = _rows_of(gflat[:, c0:c0 + tuc.HALO_CO], boxes[ph])
+                for tap in range(8):
+                    rho = rho0 - ((tap >> 2) * sh * sw
+                                  + ((tap >> 1) & 1) * sw + (tap & 1))
+                    acc += box[rho] @ kp[ph, c0:c0 + tuc.HALO_CO,
+                                         tap * cin:(tap + 1) * cin]
+            tile = acc if tile is None else tile + acc
+        n0, d0, h0, w0 = origin
+        n, dd, hh, ww = (o + t[:npos] for o, t in zip(
+            origin, _local(p.block, npos)))
+        keep = (n < b) & (dd < d) & (hh < h) & (ww < w)
+        dx[n[keep], dd[keep], hh[keep], ww[keep]] = tile[:npos][keep]
+    return dx
+
+
+def _emulate_dk(x, g, plan):
+    """k1_dk_bf16_halo, then k1_dk_fold: per phase and per split, the
+    split's position blocks, each the phase's input sub-box read at the 8
+    taps' windows (position (in, id, ih, iw), tap (p, q, r) -> sub-box row
+    (in, id+p, ih+q, iw+r)) against the block's cotangent rows of the
+    phase (zero past the block or the tensor), and the rows' column sums
+    (the bias gradient's share); the splits summed in rank order; then the
+    fold, and the bias sums summed over the phases in order.  Returns
+    (dkernel, db)."""
+    b, d, h, w, cin = x.shape
+    cout = g.shape[-1]
+    p = plan.dk
+    tn, td, th, tw = p.block
+    sd, sh, sw = td + 1, th + 1, tw + 1
+    npos = tn * td * th * tw
+    assert npos <= tuc.HALO_BP and p.rows == tn * sd * sh * sw
+    assert p.rows <= tuc.HALO_DK_RMAX and p.tiles == 8 * (cin // 64) * (
+        cout // 64)
+    blocks = _blocks(p)
+    assert p.units == len(blocks)
+    xflat, gflat = x.reshape(-1, cin), g.reshape(-1, cout)
+    i_n, i_d, i_h, i_w = _local(p.block, npos)
+    rho0 = ((i_n * sd + i_d) * sh + i_h) * sw + i_w
+    part = torch.zeros(1, 8, 8, cin, cout)
+    dbp = torch.zeros(8, cout)
+    for ph in range(8):
+        a, bb, c = ph >> 2, (ph >> 1) & 1, ph & 1
+        for s in range(p.splits):
+            acc = torch.zeros(8, cin, cout)
+            dbs = torch.zeros(cout)
+            for bi in range(*tuc.split_range(p.units, p.splits, s)):
+                n0, d0, h0, w0 = blocks[bi]
+                box = _rows_of(xflat, _subbox_rows(
+                    p.block, blocks[bi], a, bb, c, (b, d, h, w), False))
+                n, dd, hh, ww = n0 + i_n, d0 + i_d, h0 + i_h, w0 + i_w
+                inside = (n < b) & (dd < d) & (hh < h) & (ww < w)
+                grow = (((n * 2 * d + 2 * dd + a) * 2 * h + 2 * hh + bb)
+                        * 2 * w + 2 * ww + c)
+                rows = _rows_of(gflat, torch.where(inside, grow, -1))
+                dbs += rows.sum(0)
+                for tap in range(8):
+                    rho = rho0 + ((tap >> 2) * sh * sw
+                                  + ((tap >> 1) & 1) * sw + (tap & 1))
+                    acc[tap] += box[rho].T @ rows
+            part[0, ph] += acc
+            dbp[ph] += dbs
+    return _fold(part), dbp.sum(0)
+
+
+def _emulate_dx_fma(g, wb, cin, plan):
+    """The FMA dx kernels: row m gathers the cotangent row of (2d+u, 2h+v,
     2w+t), one shift from the row of (2d, 2h, 2w), masked by one test per
     slice; slice kt of split s covers offset kt // slices, channels
     (kt % slices)*bk..; the splits' partials are summed in split order."""
@@ -79,14 +248,8 @@ def _emulate_dx(g, wb, cin, plan):
     return out.reshape(b, d, h, w, cin)
 
 
-def _fold_tap(i, pair):
-    """k1_dk_fold's table: the tap of phase bit `pair` folding onto 3^3
-    index i."""
-    return 0 if i == 0 else (1 if i == 2 else 1 - pair)
-
-
-def _emulate_dk(x, g, plan):
-    """The dk kernels: per phase, A[(tap, ci), m] = x[m + shift(phase,
+def _emulate_dk_fma(x, g, plan):
+    """The FMA dk kernels: per phase, A[(tap, ci), m] = x[m + shift(phase,
     tap), ci] (zero outside the input), B[m, co] = g[(2d+a, 2h+b, 2w+c) of
     m, co]; slices of bk positions, split by split_range; then the fold
     kernel: splits in order, then the 8 (phase, tap) pairs."""
@@ -117,15 +280,7 @@ def _emulate_dk(x, g, plan):
             for kt in range(*tuc.split_range(p.kt, p.splits, s)):
                 sl = slice(kt * p.bk, (kt + 1) * p.bk)
                 part[s, phase] += a_rows[sl].T @ b_rows[sl]
-    dk = torch.zeros(3, 3, 3, cin, cout)
-    for i, j, k in np.ndindex(3, 3, 3):
-        for s in range(p.splits):
-            for pair in range(8):
-                a, bb, c = pair >> 2, (pair >> 1) & 1, pair & 1
-                tap = (_fold_tap(i, a) * 4 + _fold_tap(j, bb) * 2
-                       + _fold_tap(k, c))
-                dk[i, j, k] += part[s, pair, tap * cin:(tap + 1) * cin]
-    return dk
+    return _fold(part.reshape(p.splits, 8, 8, cin, cout))
 
 
 def _jax_grads(x, k, bias, g):
@@ -149,14 +304,34 @@ CASES = [
     (2, 3, 2, 2, 8, 6),
     (3, 2, 3, 2, 4, 5),
     (1, 3, 5, 3, 7, 9),
+    # halo blocks that do not divide W or B; an odd y-slab of the
+    # spatial path's 64x64 stage 0 (its P 4 slab is y 4); a 64x64 stage
+    (3, 5, 7, 11, 64, 64),
+    (11, 3, 2, 2, 64, 64),
+    (2, 3, 5, 8, 64, 128),
+    (1, 3, 8, 8, 256, 256),
 ]
+
+
+def _emulate(x, k, g, plan):
+    """(dx, dkernel, db) by the kernels a plan names: the halo kernels
+    with their bias sums, or the FMA kernels (db by one reduction)."""
+    cin = x.shape[-1]
+    kp = tuc.pack_phase_kernels(k, torch.float32)
+    if plan.variant == "halo":
+        dk, db = _emulate_dk(x, g, plan)
+        return _emulate_dx(g, kp, cin, plan), dk, db
+    wb = tuc.pack_backward_kernels(kp)
+    return (_emulate_dx_fma(g, wb, cin, plan), _emulate_dk_fma(x, g, plan),
+            g.sum(dim=(0, 1, 2, 3)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32_plan", "bf16_plan"])
 @pytest.mark.parametrize("shape", CASES)
 def test_emulated_kernels_match_plain_backward_and_jax(shape, dtype):
-    """dx and dk by the kernels' index math and split reduction, at the
-    plan the card would take for this dtype (computed here in float32)."""
+    """dx, dk and db by the kernels' index math and split reduction, at
+    the plan the card would take for this dtype (computed here in
+    float32)."""
     b, d, h, w, cin, cout = shape
     x = _x((b, d, h, w, cin), seed=sum(shape))
     k = _x((3, 3, 3, cin, cout), seed=sum(shape) + 1, scale=0.1)
@@ -164,15 +339,49 @@ def test_emulated_kernels_match_plain_backward_and_jax(shape, dtype):
     g = _x((b, 2 * d, 2 * h, 2 * w, cout), seed=sum(shape) + 3)
     plan = tuc.k1_backward_plan(dtype, *shape)
     tx, tk, tg = (torch.tensor(a) for a in (x, k, g))
-    wb = tuc.pack_backward_kernels(tuc.pack_phase_kernels(tk, torch.float32))
-    dx = _emulate_dx(tg, wb, cin, plan)
-    dk = _emulate_dk(tx, tg, plan)
+    dx, dk, db = _emulate(tx, tk, tg, plan)
     want_dx, want_dk = tuc.upsample2_conv3_backward(tx, tk, tg)
     _close(dx.numpy(), want_dx.numpy())
     _close(dk.numpy(), want_dk.numpy())
-    jdx, jdk, _ = _jax_grads(x, k, bias, g)
+    jdx, jdk, jdb = _jax_grads(x, k, bias, g)
     _close(dx.numpy(), jdx)
     _close(dk.numpy(), jdk)
+    _close(db.numpy(), jdb)
+
+
+def test_cases_hold_ragged_halo_blocks_and_splits():
+    """The bf16 cases above reach blocks that overhang the tensor in W and
+    in B, blocks of several samples, and both kernels' cluster sums."""
+    plans = [tuc.k1_backward_plan(torch.bfloat16, *s) for s in CASES]
+    halo = [(s, p) for s, p in zip(CASES, plans) if p.variant == "halo"]
+    ragged = {i for s, p in halo for q in (p.dx, p.dk)
+              for i, (n, t, e) in enumerate(zip(q.grid, q.block, s[:4]))
+              if n * t > e}
+    assert {0, 3} <= ragged
+    assert any(p.dx.block[0] > 1 for _, p in halo)
+    assert any(p.dx.splits > 1 for _, p in halo)
+    assert any(p.dk.splits > 1 for _, p in halo)
+
+
+def test_halo_kernels_read_the_forward_packing_in_place(monkeypatch):
+    """The bf16 path never permutes the weights: the emulated dx reads kp,
+    and the wrapper's halo branch does not call pack_backward_kernels."""
+    import inspect
+
+    called = []
+    monkeypatch.setattr(tuc, "pack_backward_kernels",
+                        lambda kp: called.append(kp))
+    shape = (1, 3, 2, 2, 64, 64)
+    b, d, h, w, cin, cout = shape
+    tx = torch.tensor(_x((b, d, h, w, cin)))
+    tk = torch.tensor(_x((3, 3, 3, cin, cout), seed=1, scale=0.1))
+    tg = torch.tensor(_x((b, 2 * d, 2 * h, 2 * w, cout), seed=2))
+    plan = tuc.k1_backward_plan(torch.bfloat16, *shape)
+    dx = _emulate_dx(tg, tuc.pack_phase_kernels(tk, torch.float32), cin, plan)
+    _close(dx.numpy(), tuc.upsample2_conv3_backward(tx, tk, tg)[0].numpy())
+    assert not called
+    src = inspect.getsource(tuc.upsample2_conv3_backward_cuda)
+    assert "pack_backward_kernels" not in src and "float()" not in src
 
 
 @pytest.mark.parametrize("cin,cout,seed", [(4, 5, 0), (8, 8, 1), (16, 3, 2)])
@@ -206,12 +415,41 @@ def test_packed_backward_weights_round_once():
         packed[torch.float32].to(torch.bfloat16).float().numpy())
 
 
+def _check_halo(p, shape, positions, rmax):
+    """A halo launch's block fits its kernel and tiles the tensor once; its
+    cluster is portable and its split order covers the reduction once."""
+    b, d, h, w = shape[:4]
+    tn, td, th, tw = p.block
+    assert tn * td * th * tw <= positions and tn <= 255
+    assert p.rows == tn * (td + 1) * (th + 1) * (tw + 1) <= rmax
+    for n, t, e in zip(p.grid, p.block, (b, d, h, w)):
+        assert (n - 1) * t < e <= n * t  # every position in one block
+    assert 1 <= p.splits <= tuc.MAX_CLUSTER
+    assert p.splits <= p.units // tuc.MIN_SPLIT_SLICES or p.splits == 1
+    assert p.ctas == p.tiles * p.splits
+    # the grid fills the card, or the cluster is as large as it may be
+    assert p.ctas >= tuc.SMS or p.splits == max(1, min(
+        tuc.MAX_CLUSTER, p.units // tuc.MIN_SPLIT_SLICES))
+    ranges = [tuc.split_range(p.units, p.splits, s) for s in range(p.splits)]
+    covered = np.zeros(p.units, dtype=int)
+    for a0, a1 in ranges:
+        assert a1 > a0
+        covered[a0:a1] += 1
+    assert (covered == 1).all()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("batch", [32, 16])
+@pytest.mark.parametrize("batch", [32, 16, 192])
 @pytest.mark.parametrize("stage", range(3))
 def test_backward_plan_puts_main_path_on_fast_kernels(dtype, batch, stage):
     d, h, w, cin, cout = FLAGSHIP_STAGES[stage]
-    plan = tuc.k1_backward_plan(dtype, batch, d, h, w, cin, cout)
+    shape = (batch, d, h, w, cin, cout)
+    plan = tuc.k1_backward_plan(dtype, *shape)
+    if dtype == torch.bfloat16:
+        assert plan.variant == "halo"
+        _check_halo(plan.dx, shape, tuc.HALO_BM, tuc.HALO_DX_RMAX)
+        _check_halo(plan.dk, shape, tuc.HALO_BP, tuc.HALO_DK_RMAX)
+        return
     assert plan.variant == "fast"
     m = batch * d * h * w
     for p, tiles in ((plan.dx, -(-m // plan.dx.bm) * (cin // plan.dx.bn)),
@@ -219,9 +457,27 @@ def test_backward_plan_puts_main_path_on_fast_kernels(dtype, batch, stage):
                       * (cout // plan.dk.bn))):
         assert p.ctas == tiles * p.splits >= tuc.SMS  # the grid fills the card
         assert 1 <= p.splits <= p.kt // tuc.MIN_SPLIT_SLICES or p.splits == 1
-    if dtype == torch.bfloat16:  # the wgmma tiles divide the widths
-        assert cin % plan.dx.bn == 0 and cout % plan.dx.bk == 0
-        assert cin % plan.dk.bm == 0 and cout % plan.dk.bn == 0
+
+
+# the 64x64 generator's stages (D, H, W, Cin, Cout), and each stage's y-slab
+# on a rank of the spatial path (y H/P + 2 at P 4 and 2)
+LARGE_STAGES = [(3, 8, 8, 256, 256), (6, 16, 16, 256, 128),
+                (12, 32, 32, 128, 64)]
+SLABS = [(d, h // p + 2, w, cin, cout) for p in (4, 2)
+         for d, h, w, cin, cout in LARGE_STAGES]
+
+
+@pytest.mark.parametrize("batch", [32, 4, 1])
+@pytest.mark.parametrize("stage", LARGE_STAGES + SLABS + [(3, 5, 8, 256, 256),
+                                                          (6, 9, 16, 256, 128)])
+def test_backward_plan_puts_64x64_stages_and_slabs_on_halo_kernels(batch,
+                                                                     stage):
+    shape = (batch, *stage)
+    plan = tuc.k1_backward_plan(torch.bfloat16, *shape)
+    assert plan.variant == "halo"
+    _check_halo(plan.dx, shape, tuc.HALO_BM, tuc.HALO_DX_RMAX)
+    _check_halo(plan.dk, shape, tuc.HALO_BP, tuc.HALO_DK_RMAX)
+    assert np.prod(plan.dx.grid) < 65536 and np.prod(plan.dk.grid) < 65536
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -267,12 +523,18 @@ def test_split_ranges_cover_the_reduction_once(kt):
 
 
 def test_constants_match_the_kernel_source():
-    """The slice and tile sizes emulated here are the ones compiled."""
+    """The slice, block and tile sizes emulated here are the ones
+    compiled."""
     src = SOURCE.read_text()
-    assert re.search(r"constexpr int DK_BK = (\d+);", src).group(1) == \
-        str(tuc.BWD_FAST_BK)
-    assert re.search(r"constexpr int BK = (\d+);\s+// bf16 per row",
-                     src).group(1) == str(tuc.BWD_FAST_BK)
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("HB_BM") == tuc.HALO_BM and const("HB_BP") == tuc.HALO_BP
+    assert const("HB_CO") == tuc.HALO_CO
+    assert const("DX_RMAX") == tuc.HALO_DX_RMAX
+    assert const("DK_RMAX") == tuc.HALO_DK_RMAX
+    assert const("MAX_CLUSTER") == tuc.MAX_CLUSTER
     fma = re.search(r"constexpr int BM = (\d+), BN = (\d+), BK = (\d+), "
                     r"THREADS = 256;", src)
     assert fma.groups() == (str(tuc.BWD_FMA_TILE), str(tuc.BWD_FMA_TILE),
