@@ -14,7 +14,7 @@ Run from the repository root.  Phases:
 3. kernel check (K1): the upsample-conv kernel against its plain PyTorch
    version at the flagship generator's three stage shapes (batch 1000) and
    at the 64x64 domain's last stage (batch 8), in float32 and bfloat16, at
-   the training shapes (bf16, batch 160 and 32), and at the 64x64
+   the training shapes (batch 160 and 32, both dtypes), and at the 64x64
    generator's three stages (large_k1_cases) and at the spatial and fused
    paths' shapes (spatial_k1_cases), with its time beside the
    plain version's, one cuDNN convolution of the upsampled input (timed
@@ -23,14 +23,17 @@ Run from the repository root.  Phases:
    at a gloo rank's 16, at the 64x64 f32 step's 4, at the spatial
    step's 2, and at the fused steps' 192 and 24 also its backward
    kernels (bf16: dx and dkernel on halo boxes, splits summed in a
-   cluster, the fold with the bias sums; f32: the FMA kernels with their
-   split reductions), held against autograd through the plain
+   cluster, the fold with the bias sums; f32: the same on 3xTF32 wgmma
+   after the weight pack, whose kernel is held against its plain version
+   bit for bit), held against autograd through the plain
    version and a second call bit for bit, timed beside the plain backward
    (the phase convolutions' cuDNN gradients), autograd through the cuDNN
-   convolution and the bound, with the bias gradient's share of the
+   convolution and the bound (f32: the exact-FMA and the 3xTF32 bounds,
+   held to the smaller), with the bias gradient's share of the
    kernels' time and the autograd node's device time;
    then K1's backward node split by kernel and stage at the 16x16, 64x64
-   and fused steps' shapes (profiled; [k1_split] lines; alone with
+   and fused steps' shapes in bf16 and the 16x16 and 64x64 f32 steps'
+   (profiled, in a process of its own; [k1_split] lines; alone with
    --k1-backward-split);
 4. dataset: a synthetic radar tensor of 448 days x 24 h x 256 x 256 (2.8 GB
    of float32, a multi-year store) made on the card from --seed with the
@@ -66,7 +69,11 @@ Run from the repository root.  Phases:
    the plain backward in their place (K1's backward device time, the
    elementwise and layout kernels' counts; no cuDNN gradient inside K1's
    backward node with the kernels) and one float32 step on the card
-   against the same step on the CPU path;
+   against the same step on the CPU path; then the same Trainer.fit in
+   float32 as `cli train --f32-parity` builds it (graphed, 2 calls of 50
+   replays timed, the kernels counted through the wrappers and by name in
+   a profiled call of 10 replays, K1's backward share of busy time, the
+   idle share and conservation; [f32_train] lines; alone with --f32-step);
 9. graph check: float32, smoke width, dropout on, from mid-training Adam
    moments: the graphed step against eager steps from the same state and
    generator state, draws bit for bit, losses and parameters within 1e-4
@@ -216,6 +223,7 @@ import traceback
 
 # published dense peaks of one H100 SXM at its 700 W limit
 PEAK_F32_FLOPS = 67e12      # float32 FMA, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # TF32 tensor cores (3xTF32 is f32-accurate)
 PEAK_BF16_FLOPS = 989e12    # bf16 tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
 
@@ -351,15 +359,22 @@ SPATIAL_LIMIT_S = 420
 SPATIAL_GRAD_TOL = 1e-2
 # K1's backward split by kernel and stage (phase_k1_backward_split): the
 # generator update's three stages, bf16, in the 16x16 step (B 32), the 64x64
-# step (B 32) and the fused step (B (n_disc + 1) * 32); calls a stage, each
-# after a synchronise and a host pause that leaves a gap on the card
-SPLIT_STEPS = (("16x16", TRAIN_BATCH, [s[2:] for s in STAGES[:3]]),
-               ("64x64", TRAIN_BATCH, [s[1:] for s in LARGE_STAGES]),
+# step (B 32) and the fused step (B (n_disc + 1) * 32); in f32 the 16x16
+# step (B 32, what cli train --f32-parity runs) and the 64x64 f32 step check's
+# (B 4); calls a stage, each after a synchronise and a host pause that leaves
+# a gap on the card
+SPLIT_STEPS = (("16x16", TRAIN_BATCH, [s[2:] for s in STAGES[:3]], "bfloat16"),
+               ("64x64", TRAIN_BATCH, [s[1:] for s in LARGE_STAGES],
+                "bfloat16"),
                ("fused", (N_DISC + 1) * TRAIN_BATCH,
-                [s[2:] for s in STAGES[:3]]))
+                [s[2:] for s in STAGES[:3]], "bfloat16"),
+               ("16x16_f32", TRAIN_BATCH, [s[2:] for s in STAGES[:3]],
+                "float32"),
+               ("64x64_f32", LARGE_F32_CHECK["batch"],
+                [s[1:] for s in LARGE_STAGES], "float32"))
 SPLIT_REPS, SPLIT_GAP_S = 5, 0.003
 K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
-            + [(s, ("bfloat16",)) for s in TRAIN_STAGES]
+            + [(s, ("float32", "bfloat16")) for s in TRAIN_STAGES]
             + [(s, ("float32", "bfloat16")) for s in DP_STAGES]
             + [(s, ("float32",)) for s in DP_SCORE_STAGES])
 
@@ -431,10 +446,12 @@ def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
 
 def _backward_expected(plan) -> dict:
     """The kernels one K1 backward launches under `plan`: dx, dk and dk's
-    fold, and dx's reduce where an FMA dx reduction is split (the bf16
-    halo kernels sum their splits in a cluster)."""
+    fold, the f32 halo dx's weight pack, and dx's reduce where an FMA dx
+    reduction is split (the halo kernels sum their splits in a cluster)."""
     want = {f"dx_{plan.variant}": 1, f"dk_{plan.variant}": 1, "dk_fold": 1,
-            "dx_reduce": int(plan.variant != "halo" and plan.dx.splits > 1)}
+            "pack_tf32": int(plan.variant == "halo_f32"),
+            "dx_reduce": int(not plan.variant.startswith("halo")
+                             and plan.dx.splits > 1)}
     return {n: c for n, c in want.items() if c}
 
 
@@ -443,7 +460,7 @@ def backward_workspace_bytes(plan, b, d, h, w, cin, cout) -> int:
     beside its outputs: the halo kernels' summed phase-tap tiles and
     phases' bias sums, or the FMA kernels' split partials (dx's when split,
     dk's always)."""
-    if plan.variant == "halo":
+    if plan.variant != "general":
         return 4 * (64 * cin * cout + 8 * cout)
     dx = plan.dx.splits * b * d * h * w * cin if plan.dx.splits > 1 else 0
     return 4 * (dx + plan.dk.splits * 64 * cin * cout)
@@ -585,16 +602,36 @@ def _sass(name: str) -> list:
             for ln in out.splitlines() if ";" in ln]
 
 
-def _kernel_row(name, dtype, shape, flops, nbytes, peak_flops, **kw) -> dict:
-    """A [kernel] line's fields, with the card's bound for the work: the
-    larger of FLOPs over the operand type's peak and bytes over HBM's
-    rate, and the kernel's share of that bound and its ratio to the library
-    call."""
-    ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_BYTES
-    bound = max(ops_ms, bytes_ms)
-    return dict(stage=name, dtype=dtype, shape=shape, **kw, bound_ms=bound,
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                bound_share=bound / kw["ms"],
+def _bound(flops: float, nbytes: float, dtype: str, prefix: str = "") -> dict:
+    """The least time the card could take for `flops` operations on
+    `nbytes` bytes: the larger of FLOPs over the type's peak and bytes over
+    HBM's rate, and which bounds it.  f32 work has two routes: exact FMA
+    (PEAK_F32_FLOPS) and 3xTF32 on the tensor cores (3 TF32 products a
+    product, PEAK_TF32_FLOPS); its rows carry both (bound_fma_ms,
+    bound_tf32x3_ms) and are held to the smaller."""
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    if dtype != "float32" or not flops:
+        ops_ms = 1e3 * flops / PEAK_BF16_FLOPS
+        return {f"{prefix}bound_ms": max(ops_ms, bytes_ms),
+                f"{prefix}bound_by": "operations" if ops_ms >= bytes_ms
+                else "bytes"}
+    fma_ms = 1e3 * flops / PEAK_F32_FLOPS
+    tf32_ms = 3e3 * flops / PEAK_TF32_FLOPS
+    ops_ms = min(fma_ms, tf32_ms)
+    return {f"{prefix}bound_ms": max(ops_ms, bytes_ms),
+            f"{prefix}bound_by": "operations" if ops_ms >= bytes_ms
+            else "bytes",
+            f"{prefix}bound_fma_ms": max(fma_ms, bytes_ms),
+            f"{prefix}bound_tf32x3_ms": max(tf32_ms, bytes_ms)}
+
+
+def _kernel_row(name, dtype, shape, flops, nbytes, **kw) -> dict:
+    """A [kernel] line's fields, with the card's bound for the work
+    (:func:`_bound`), and the kernel's share of that bound and its ratio to
+    the library call."""
+    bound = _bound(flops, nbytes, dtype)
+    return dict(stage=name, dtype=dtype, shape=shape, **kw, **bound,
+                bound_share=bound["bound_ms"] / kw["ms"],
                 library_ratio=kw["ms"] / kw["library_ms"])
 
 
@@ -616,8 +653,7 @@ def _plain_backward_ms(fn, dtype) -> dict:
             "backward_plain_timer": "events"}
 
 
-def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
-                 tol: tuple) -> dict:
+def _k1_backward(x, k, bias, g, flops: float, tol: tuple) -> dict:
     """K1's backward kernels (through the autograd.Function) against
     autograd through the plain version (rtol, atol of the maximum in
     `tol`), a second call bit for bit, and the kernels k1_backward_plan
@@ -626,9 +662,11 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
     main path calls it, and ``call_ms`` with CUDA events around one call),
     of the plain backward (the phase convolutions' cuDNN
     gradients, upsample2_conv3_backward) and of autograd through one cuDNN
-    conv of the upsampled input (the library), beside the bound: 2x the
-    forward's FLOPs (dx and dkernel) or the bytes of x, g, dx, the kernel
-    and its gradient, whichever is larger."""
+    conv of the upsampled input (the library), beside the bound
+    (:func:`_bound`): 2x the forward's FLOPs (dx and dkernel) or the bytes
+    of x, g, dx, the kernel and its gradient, whichever is larger.  In f32
+    also the weight pack's kernel against its plain version, bit for
+    bit."""
     import torch
     import torch.nn.functional as F
 
@@ -665,13 +703,16 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
     lib_out = F.conv3d(xu, lk.permute(4, 3, 0, 1, 2).to(x.dtype),
                        lb.to(x.dtype), padding=1)
     lib_g = g.permute(0, 4, 1, 2, 3)
-    ops_ms = 1e3 * 2 * flops / peak_flops
     nbytes = (x.element_size() * (2 * x.numel() + g.numel())
               + 2 * 4 * k.numel())
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES
     # as the main path calls them: on the forward's packed weights, with
     # the bias gradient; and without it, and the whole autograd node
     kp = pack_phase_kernels(k, x.dtype)
+    pack = {}
+    if x.dtype == torch.float32:
+        pack = {"backward_pack_bit_exact": torch.equal(
+            upsample_conv.pack_tf32_cuda(kp),
+            upsample_conv.pack_backward_kernels_tf32(kp))}
     kernels = lambda: upsample2_conv3_backward_cuda(  # noqa: E731
         x, k, g, kp=kp, need_db=True)
     kernels_ms = queued_ms(kernels, 10)
@@ -683,7 +724,8 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
         node_out, node_leaves, g, retain_graph=True), 10)
     return dict(
         backward_ok=within and ran == expect and all(
-            torch.equal(a, b) for a, b in zip(got, again)),
+            torch.equal(a, b) for a, b in zip(got, again))
+        and all(pack.values()), **pack,
         backward_within_tol=within,
         backward_bit_identical=all(torch.equal(a, b)
                                    for a, b in zip(got, again)),
@@ -705,8 +747,8 @@ def _k1_backward(x, k, bias, g, flops: float, peak_flops: float,
         backward_nonkernel_ms=node_ms - kernels_ms,
         **_plain_backward_ms(lambda: upsample2_conv3_backward(x, k, g),
                              x.dtype),
-        backward_bound_ms=max(ops_ms, bytes_ms),
-        backward_bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        **_bound(2 * flops, nbytes, "float32" if x.dtype == torch.float32
+                 else "bfloat16", "backward_"),
         backward_library_ms=queued_ms(lambda: torch.autograd.grad(
             lib_out, lib_leaves, lib_g, retain_graph=True), 10))
 
@@ -757,11 +799,12 @@ def phase_k1_backward_split(seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     out = {}
-    for step, b, stages in SPLIT_STEPS:
+    for step, b, stages, dname in SPLIT_STEPS:
+        dtype = getattr(torch, dname)
         calls = []
         for d, h, w, cin, cout in stages:
             x = torch.randn((b, d, h, w, cin), generator=gen,
-                            device=dev).to(torch.bfloat16).requires_grad_(True)
+                            device=dev).to(dtype).requires_grad_(True)
             k = (0.02 * torch.randn((3, 3, 3, cin, cout), generator=gen,
                                     device=dev)).requires_grad_(True)
             bias = (0.02 * torch.randn((cout,), generator=gen,
@@ -804,9 +847,8 @@ def phase_k1_backward_split(seed: int) -> dict:
                             parts[kind] = parts.get(kind, 0.0) + ms / len(mine)
                     names = collections.Counter(
                         _split_kind(e.name) or e.name[:60] for e in mine[0])
-                    plan = k1_backward_plan(torch.bfloat16, b, d, h, w, cin,
-                                            cout)
-                    rows.append({"step": step, "stage": s,
+                    plan = k1_backward_plan(dtype, b, d, h, w, cin, cout)
+                    rows.append({"step": step, "stage": s, "dtype": dname,
                                  "shape": [b, d, h, w, cin, cout],
                                  "workspace_mb": backward_workspace_bytes(
                                      plan, b, d, h, w, cin, cout) / 1e6,
@@ -825,7 +867,7 @@ def phase_k1_backward_split(seed: int) -> dict:
             continue
         for row in rows:
             print("[k1_split] " + json.dumps(row))
-        total = {"step": step, "stages": len(rows),
+        total = {"step": step, "dtype": dname, "stages": len(rows),
                  "node_ms": sum(r["node_ms"] for r in rows),
                  "k1_kernels_ms": sum(r["k1_kernels_ms"] for r in rows),
                  "workspace_mb": sum(r["workspace_mb"] for r in rows),
@@ -839,6 +881,37 @@ def phase_k1_backward_split(seed: int) -> dict:
         out[step] = {"stages": rows, "total": total}
         del calls
         torch.cuda.empty_cache()
+    return out
+
+
+# the split phase's own process: its time limit
+SPLIT_LIMIT_S = 300
+
+
+def phase_k1_backward_split_proc(seed: int) -> dict:
+    """phase_k1_backward_split in a process of its own (`chip_smoke.py
+    --k1-backward-split`, which finds the kernels built): its profiler
+    sessions, one a step, left the profiler of this process seeing no
+    device events in the phases after it.  Echoes and returns its
+    [k1_split] rows by step."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--k1-backward-split", "--seed", str(seed)],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=SPLIT_LIMIT_S)
+    out: dict = {}
+    for line in r.stdout.splitlines():
+        if line.startswith("[k1_split]"):
+            print(line)
+            if line.startswith("[k1_split] {"):
+                row = json.loads(line[len("[k1_split] "):])
+                step = out.setdefault(row["step"], {"stages": []})
+                if "stage" in row:
+                    step["stages"].append(row)
+                else:
+                    step["total"] = row
+    check(r.returncode == 0, f"the split phase's process: rc "
+          f"{r.returncode}\n{r.stderr[-3000:]}")
     return out
 
 
@@ -897,7 +970,6 @@ def phase_kernel_check(seed: int) -> dict:
             rtol, atol = TOL[dname]
             es = x.element_size()
             flops = 2 * 64 * b * d * h * w * cin * cout
-            peak = PEAK_F32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
             with full_f32():
                 ref = upsample2_conv3_reference(x, k, bias)
                 counts = upsample_conv.launches_by_variant
@@ -917,8 +989,7 @@ def phase_kernel_check(seed: int) -> dict:
                 if b in backward_batches:
                     g = torch.randn(out_shape, generator=gen,
                                     device=dev).to(dtype)
-                    extra = _k1_backward(x, k, bias, g, flops, peak,
-                                         (rtol, atol))
+                    extra = _k1_backward(x, k, bias, g, flops, (rtol, atol))
                     good &= extra["backward_ok"]
                     del g
                 reps = 10 if flops < HEAVY_FLOPS else 1
@@ -939,7 +1010,7 @@ def phase_kernel_check(seed: int) -> dict:
                 name, dname, [b, d, h, w, cin, cout], flops,
                 b * d * h * w * cin * es + 64 * cin * cout * es + 4 * cout
                 + 8 * b * d * h * w * cout * es,
-                peak, ok=good, variant=variant[0], tile=[plan.bm, plan.bn],
+                ok=good, variant=variant[0], tile=[plan.bm, plan.bn],
                 ctas=plan.ctas, max_abs_err=max_err, max_ref=scale, rtol=rtol,
                 atol_over_max=atol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=library_ms, tflops=flops / ms / 1e9, **extra)
@@ -1052,7 +1123,7 @@ def phase_gather_check(ds, seed: int) -> dict:
 
         nbytes = 2 * b * nh * nd * nd * 4
         row = _kernel_row(
-            name, "float32", [b, nh, nd, nd], 0, nbytes, PEAK_F32_FLOPS,
+            name, "float32", [b, nh, nd, nd], 0, nbytes,
             ok=equal, exact=equal, max_abs_err=max_err,
             ms=device_ms(lambda: gather_patches_cuda(src, next(cycle), nd),
                          reps),
@@ -1209,8 +1280,20 @@ def _k1_backward_ms(prof) -> float:
 
 # the hand-written kernels, by a part of their names in a profile
 BY_NAME = ("k1_bf16_wgmma", "k1_f32_fma", "k1_general", "k2_gather",
-           "k1_dx_bf16_halo", "k1_dk_bf16_halo", "k1_dx_fma", "k1_dk_fma",
+           "k1_dx_bf16_halo", "k1_dk_bf16_halo", "k1_dx_f32_halo",
+           "k1_dk_f32_halo", "k1_pack_tf32", "k1_dx_fma", "k1_dk_fma",
            "k1_dx_reduce", "k1_dk_fold")
+# K1's backward kernels' counter names (BACKWARD_KERNELS) by profile name;
+# the FMA kernels also ran f32 as "dx_fast" and "dk_fast" before the f32
+# halo kernels, named here so that --f32-step can measure such a tree
+BACKWARD_BY_NAME = {"k1_dx_bf16_halo": ("dx_halo",),
+                    "k1_dk_bf16_halo": ("dk_halo",),
+                    "k1_dx_f32_halo": ("dx_halo_f32",),
+                    "k1_dk_f32_halo": ("dk_halo_f32",),
+                    "k1_pack_tf32": ("pack_tf32",),
+                    "k1_dx_fma": ("dx_general", "dx_fast"),
+                    "k1_dk_fma": ("dk_general", "dk_fast"),
+                    "k1_dx_reduce": ("dx_reduce",), "k1_dk_fold": ("dk_fold",)}
 
 
 def _eager_backward(prof: dict) -> dict:
@@ -1322,21 +1405,22 @@ def _step_peaks(step_fn, state, ds) -> list:
 
 
 def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
-                   tag: str, replays: int = PROFILE_REPLAYS) -> dict:
+                   tag: str, replays: int = PROFILE_REPLAYS,
+                   dtype: str = "bfloat16") -> dict:
     """A profile of one call of `replays` graphed steps (step_fn's
     steps_per_call): device busy and idle share, and the hand-written
-    kernels counted by name inside the replays (K1 forward on wgmma 6 a
-    step, its backward kernels as `per_step` says, K2 2 a step) with their
-    device ms a step.  CUPTI now and then drops events of a long trace, so
-    a trace whose counts differ is taken again, up to DEVICE_TRACE_TRIES
-    traces, before the check fails."""
+    kernels counted by name inside the replays (K1 forward on its fast
+    kernel, wgmma in bf16, 6 a step; its backward kernels as `per_step`
+    says; K2 2 a step) with their device ms a step.  CUPTI now and then
+    drops events of a long trace, so a trace whose counts differ is taken
+    again, up to DEVICE_TRACE_TRIES traces, before the check fails."""
     import torch
 
-    want = {"k1_bf16_wgmma": 6, "k2_gather": 2,
-            "k1_dx_bf16_halo": per_step["upsample2_conv3_backward_dx_halo"],
-            "k1_dk_bf16_halo": per_step["upsample2_conv3_backward_dk_halo"],
-            "k1_dx_reduce": per_step["upsample2_conv3_backward_dx_reduce"],
-            "k1_dk_fold": per_step["upsample2_conv3_backward_dk_fold"]}
+    want = {"k1_bf16_wgmma" if dtype == "bfloat16" else "k1_f32_fma": 6,
+            "k2_gather": 2}
+    want.update({n: sum(per_step.get(f"upsample2_conv3_backward_{k}", 0)
+                        for k in ks)
+                 for n, ks in BACKWARD_BY_NAME.items()})
     want = {n: want.get(n, 0) * replays for n in BY_NAME}
     for _ in range(DEVICE_TRACE_TRIES):
         prof = profile_breakdown(
@@ -1594,6 +1678,55 @@ def phase_train(ds, seed: int, workdir: str) -> dict:
             "graph_profile": {k: graph_prof[k] for k in (
                 "window_ms", "busy_ms", "idle_share")},
             "k1_backward_ms": k1_bwd, "eager_profiles": eager}
+
+
+def phase_f32_train(ds, seed: int, workdir: str) -> dict:
+    """Trainer.fit of the flagship 16x16 in float32, as `cli train
+    --f32-parity` builds it (ExperimentConfig.compute_dtype "float32", B
+    32, n_disc 5), graphed, on the card-resident dataset: the kernels
+    counted through the wrappers and by name in a profiled call of
+    PROFILE_REPLAYS replays; steps/s over TIMED_EPOCHS calls of
+    STEPS_PER_EPOCH replays; busy ms a step, K1's backward kernels' device
+    ms a step and their share of busy, the idle share; the trained
+    generator's conservation."""
+    from prdisagg_torch.train.loop import Trainer
+    from prdisagg_torch.train.wgan_gp import make_train_step
+
+    epochs = WARM_EPOCHS + TIMED_EPOCHS
+    exp = dataclasses.replace(
+        _train_exp(epochs, seed, log_every_steps=STEPS_PER_EPOCH,
+                   checkpoint_every_epochs=0), compute_dtype="float32")
+    trainer = Trainer(exp, ds, workdir, steps_per_epoch=STEPS_PER_EPOCH,
+                      plot_every_epochs=0, export_weights_every_epochs=0,
+                      export_format="npz")
+    check(trainer.model_cfg.compute_dtype == "float32"
+          and trainer.model_cfg.gen_channels == (256, 128, 64), exp)
+    per_step = train_per_step("float32")
+    _, counts = _fit_counted(trainer, epochs * STEPS_PER_EPOCH, per_step,
+                             "f32_train")
+    timed = sum(trainer.epoch_seconds[WARM_EPOCHS:])
+    graphed = TIMED_EPOCHS * STEPS_PER_EPOCH / timed
+    step_fn = make_train_step(trainer.model_cfg, exp.train, TRAIN_BATCH,
+                              steps_per_call=PROFILE_REPLAYS)
+    prof = _graph_kernels(
+        step_fn, trainer.state, ds, per_step, f"one call of "
+        f"{PROFILE_REPLAYS} graphed f32 steps, batch {TRAIN_BATCH}",
+        "f32_train", PROFILE_REPLAYS, "float32")
+    bwd_ms = sum(ms for n, ms in prof["kernel_ms_per_step"].items()
+                 if n in BACKWARD_BY_NAME)
+    row = {"graphed_steps_per_s": graphed, "timed_steps":
+           TIMED_EPOCHS * STEPS_PER_EPOCH, "timed_s": timed,
+           "warm_epoch_s": trainer.epoch_seconds[0],
+           "busy_ms_per_step": prof["busy_ms_per_step"],
+           "idle_share": prof["idle_share"],
+           "k1_backward_ms_per_step": bwd_ms,
+           "k1_backward_share_of_busy": bwd_ms / prof["busy_ms_per_step"],
+           "k1_ms_per_step": sum(
+               ms for n, ms in prof["kernel_ms_per_step"].items()
+               if n.startswith("k1_")),
+           "conservation": _conserves(trainer.state.gen, ds, seed)}
+    print("[f32_train] graphed f32 train: " + json.dumps(row))
+    return {"counts": counts, **row}
 
 
 def _warm_adam(state, seed: int) -> None:
@@ -4384,23 +4517,31 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                   slice_by_variant: dict, eval_counts: dict,
                   rf_counts: dict, dp_counts: dict,
                   data_counts: dict, var_counts: dict, fused_counts: dict,
-                  spatial_counts: dict) -> list:
+                  spatial_counts: dict, f32_counts: dict) -> list:
     paths = {"eval": eval_counts, "rainfarm": rf_counts, "dp": dp_counts,
              "data": data_counts, "variants": var_counts,
-             "fused": fused_counts, "spatial": spatial_counts}
+             "fused": fused_counts, "spatial": spatial_counts,
+             "f32_train": f32_counts}
     main_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "float32"]
     bf16_rows = [r for r in kc["rows"] if r["stage"] in MAIN_PATH_STAGES
                  and r["dtype"] == "bfloat16"]
-    step_rows = [r for r in kc["rows"]
-                 if r["stage"] in {s[0] for s in TRAIN_STAGES}]
+    step_names = {s[0] for s in TRAIN_STAGES}
+    step_rows = [r for r in kc["rows"] if r["stage"] in step_names
+                 and r["dtype"] == "bfloat16"]
     dp_rows = [r for r in kc["rows"]
                if r["stage"] in {s[0] for s in DP_STAGES + DP_SCORE_STAGES}]
     bwd_rows = [r for r in kc["rows"] if "backward_ms" in r]
     step_bwd = [r for r in step_rows if "backward_ms" in r]
+    # the f32 backward at the generator update's B 32 (what `cli train
+    # --f32-parity` runs), and every f32 backward checked
+    f32_bwd = [r for r in kc["rows"] if r["stage"] in step_names
+               and r["dtype"] == "float32" and "backward_ms" in r]
+    f32_rows = [r for r in bwd_rows if r["dtype"] == "float32"]
     bwd_train = counts["upsample2_conv3_backward_kernels"]
     bwd = {p: c["upsample2_conv3_backward_kernels"] for p, c in paths.items()
            if "upsample2_conv3_backward_kernels" in c}
+    f32_kernels = ("dx_halo_f32", "dk_halo_f32", "pack_tf32")
     k2 = {r["stage"]: r for r in gc["rows"]}
     real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
     cond = k2[f"cond_b{TRAIN_BATCH}"]
@@ -4432,6 +4573,9 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "bound_ms": sum(r["bound_ms"] for r in main_rows),
         "bound_by": "operations" if all(
             r["bound_by"] == "operations" for r in main_rows) else "bytes",
+        # f32: the exact-FMA and the 3xTF32 bounds (bound_ms the smaller)
+        "bound_fma_ms": sum(r["bound_fma_ms"] for r in main_rows),
+        "bound_tf32x3_ms": sum(r["bound_tf32x3_ms"] for r in main_rows),
         "library_ms": sum(r["library_ms"] for r in main_rows),
         "call_ms": sum(r["call_ms"] for r in main_rows),
         # the same forward in bf16
@@ -4489,6 +4633,41 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "spatial_shapes": _shape_rows(kc["rows"], "backward_", "sp"),
         "fused_shapes": _shape_rows(kc["rows"], "backward_", "fused_"),
     }, {
+        "name": "upsample2_conv3_backward_f32",
+        "route": "cuda",
+        "source": "prdisagg_torch/csrc/upsample_conv.cu",
+        # the same custom_vjp backward in f32: k1_dx_f32_halo,
+        # k1_dk_f32_halo and k1_pack_tf32 (3xTF32 on the tensor cores), with
+        # the fold that the bf16 kernels share
+        "replaces": "prdisagg_tpu/ops/pallas_upsample_conv.py:99",
+        # their launches on the paths that train in f32 (the f32 graphed
+        # step, dp's gloo ranks, the 64x64 f32 step, the fused and spatial
+        # f32 steps)
+        "launches": sum(b.get(k, 0) for b in bwd.values()
+                        for k in f32_kernels),
+        "launches_by_path": {p: sum(b.get(k, 0) for k in f32_kernels)
+                             for p, b in bwd.items()},
+        "launches_by_kernel": {k: sum(b.get(k, 0) for b in bwd.values())
+                               for k in f32_kernels},
+        # the generator update's three backward passes at B 32 in f32 (the
+        # kernels' call, pack and fold included; every f32 backward
+        # checked is in the [kernel] lines)
+        "max_abs_err": max(r["backward_max_abs_err"] for r in f32_rows),
+        "max_err_over_max": max(r["backward_max_err_over_max"]
+                                for r in f32_rows),
+        "ms": sum(r["backward_ms"] for r in f32_bwd),
+        "call_ms": sum(r["backward_call_ms"] for r in f32_bwd),
+        "plain_ms": sum(r["backward_plain_ms"] for r in f32_bwd),
+        "bound_ms": sum(r["backward_bound_ms"] for r in f32_bwd),
+        "bound_by": "operations" if all(
+            r["backward_bound_by"] == "operations" for r in f32_bwd)
+        else "bytes",
+        "bound_fma_ms": sum(r["backward_bound_fma_ms"] for r in f32_bwd),
+        "bound_tf32x3_ms": sum(r["backward_bound_tf32x3_ms"]
+                               for r in f32_bwd),
+        "library_ms": sum(r["backward_library_ms"] for r in f32_bwd),
+        "per_stage_ms": [r["backward_ms"] for r in f32_bwd],
+    }, {
         "name": "gather_patches",
         "route": "cuda",
         "source": "prdisagg_torch/csrc/gather.cu",
@@ -4528,6 +4707,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     # only the device, build and K1-backward-split phases
     ap.add_argument("--k1-backward-split", action="store_true")
+    # only the device, build, dataset and f32 graphed-step phases
+    ap.add_argument("--f32-step", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -4559,6 +4740,10 @@ def main() -> int:
     if args.k1_backward_split:
         phase_k1_backward_split(args.seed)
         return 0
+    if args.f32_step:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+            phase_f32_train(phase_dataset(args.seed), args.seed, tmp)
+        return 0
 
     failed = []
     out: dict = {}
@@ -4585,7 +4770,8 @@ def main() -> int:
                   f"beside the other subprocess phases)", flush=True)
 
     run("kernel_check", lambda: phase_kernel_check(args.seed))
-    run("k1_backward_split", lambda: phase_k1_backward_split(args.seed))
+    run("k1_backward_split",
+        lambda: phase_k1_backward_split_proc(args.seed))
     run("dataset", lambda: phase_dataset(args.seed))
     run("gather_check", lambda: phase_gather_check(out["dataset"], args.seed),
         needs=("dataset",))
@@ -4593,6 +4779,9 @@ def main() -> int:
     run("serve", lambda: phase_serve(out["slice"]), needs=("slice",))
     run("train", lambda: phase_train(out["dataset"], args.seed,
                                      os.path.join(workdir.name, "train")),
+        needs=("dataset",))
+    run("f32_train", lambda: phase_f32_train(
+        out["dataset"], args.seed, os.path.join(workdir.name, "f32_train")),
         needs=("dataset",))
     run("graph_check", lambda: phase_graph_check(out["dataset"], args.seed),
         needs=("dataset",))
@@ -4664,7 +4853,8 @@ def main() -> int:
                             out["slice"]["by_variant"], out["eval"]["counts"],
                             out["rainfarm"]["counts"], out["dp"]["counts"],
                             out["data"]["counts"], out["variants"]["counts"],
-                            out["fused"]["counts"], out["spatial"]["counts"])
+                            out["fused"]["counts"], out["spatial"]["counts"],
+                            out["f32_train"]["counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -723,19 +723,45 @@ int launch(const void* x, const void* kp, const void* bias, void* out, int B,
 // one thread and waited for on an mbarrier: with per-thread 16-byte
 // cp.async gathers of the same boxes the copies set dk's pace.
 //
+// f32 (k1_dx_f32_halo, k1_dk_f32_halo; the tf namespace): the same halo
+// walk on 3xTF32 wgmma.  What bounds f32 work on this card: exact FMA
+// runs at 67 TFLOP/s (the FMA kernels these replace reached 0.27-0.30 of
+// that on an H100), the TF32 tensor cores at 495; a value v splits into two
+// TF32 values hi + lo, and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, summed in
+// f32, keeps f32 accuracy (about 3 * 2^-22 relative a product) at three
+// times the tensor-core work, so the least time is 3 * FLOPs / 495e12,
+// 0.406 of the FMA bound.  TF32's wgmma takes B K-major only (its
+// transpose bits exist for 16-bit types alone), and ldmatrix .trans moves
+// 16-bit elements, so the bf16 layouts do not carry over: dx's B is
+// pack_backward_kernels()'s permuted weights (k = off*Cout + co
+// contiguous), split into hi and lo once a call in PyTorch (split_tf32),
+// in 32-byte boxes; dx's A, the cotangent rows, is K-major, and ldmatrix
+// on f32 rows gives the tf32 A fragment, split in registers.  dk's B, the
+// cotangent rows, has Cout contiguous (N-major): one pass a block
+// transposes it in shared memory into hi and lo K-major tiles, shared by
+// the 8 taps and every Cin tile's CTA (and sums the bias gradient there);
+// dk's A, the input window, is read with 8-byte shared loads and split in
+// registers.  Units of 8 channels and blocks of 64 positions keep the f32
+// rings inside 227 KB.  The tensor cores round their f32 sums toward zero,
+// so an error grows with the number of wgmmas summed into one accumulator
+// (3e-5 of the largest gradient after 1,536 of them, measured on an H100):
+// each unit (dx) or block (dk) starts a fresh accumulator, added at its end
+// to f32 sums in registers.
+//
 // Split-K.  At the training batch the grids are small (dx at 16x16 stage 0
 // is 8 blocks x N tiles), so each GEMM's reduction units are cut into
 // `splits` contiguous ranges, chosen by k1_backward_plan() so that the grid
-// fills the 132 SMs.  In bf16 the splits of one output tile are the CTAs
-// of one thread-block cluster (at most 8, the portable size): each stages
-// its f32 tile in its own shared memory and each sums a share of the rows
-// over the cluster's tiles through distributed shared memory, in rank
-// order; dx rounds once to bf16, dk writes the summed phase-tap tiles, and
-// one pass folds them (k1_dk_fold, which also sums the 8 phases' bias
-// sums).  In f32 and at other widths (the FMA kernels) every split writes
-// its f32 partial tile to a workspace and a second kernel sums the partials
-// in split order (k1_dx_reduce: and rounds once to x's dtype; k1_dk_fold:
-// and folds).  No atomics: the gradients are the same bits on every run.
+// fills the 132 SMs.  On the halo kernels (bf16 and f32) the splits of one
+// output tile are the CTAs of one thread-block cluster (at most 8, the
+// portable size): each stages its f32 tile in its own shared memory and
+// each sums a share of the rows over the cluster's tiles through
+// distributed shared memory, in rank order; dx rounds once to x's dtype,
+// dk writes the summed phase-tap tiles, and one pass folds them
+// (k1_dk_fold, which also sums the 8 phases' bias sums).  At other widths
+// and on misaligned operands (the FMA kernels) every split writes its f32
+// partial tile to a workspace and a second kernel sums the partials in
+// split order (k1_dx_reduce: and rounds once to x's dtype; k1_dk_fold: and
+// folds).  No atomics: the gradients are the same bits on every run.
 
 namespace bwd {
 
@@ -1469,7 +1495,636 @@ k1_dk_bf16_halo(const __grid_constant__ CUtensorMap map_x,
 
 }  // namespace tc
 
-// -------------------------- backward, FMA: f32 (vectorised) and any width
+// ------------- backward, f32: halo boxes, 3xTF32 wgmma, in-cluster split sums
+
+namespace tf {
+
+using tc::Blocks;
+
+// The f32 halo kernels' limits.  dx: HF_BM positions a CTA, HF_CO output
+// channels a reduction unit (a 32-byte row of the cotangent sub-box, whose
+// ldmatrix fragment is the tf32 A fragment of one k8 step), sub-box rows,
+// ring stages; dk: HF_BP positions a block (two K blocks of 32 for the
+// transposed cotangent), sub-box rows, ring stages.  Each stays inside the
+// 227 KB a CTA may use (f32_dx_smem_bytes, f32_dk_smem_bytes).
+constexpr int HF_BM = 128;
+constexpr int HF_CO = 8;
+constexpr int HF_DX_RMAX = 256;
+constexpr int HF_DX_STAGES = 3;
+constexpr int HF_BP = 64;
+constexpr int HF_DK_RMAX = 192;
+constexpr int HF_DK_STAGES = 2;
+
+// v rounded to TF32, to nearest with ties away from zero (the low 13 bits
+// of the result are 0)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo to within 2^-22 |v|: hi is v in TF32, lo the remainder in
+// TF32, rounded here (the tensor cores would truncate it); split_tf32() in
+// ops/upsample_conv.py is the same split.  By cvt.rna (lo 0 where hi is not
+// finite), or (kInt) by integer rounding of the magnitude bits, which gives
+// the same parts for finite v in fewer issue slots (cvt.rna runs at a
+// fraction of the integer rate); a non-finite v gives non-finite products
+// either way.
+template <bool kInt>
+__device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float f = __uint_as_float(v);
+  if (kInt) {
+    hi = (v + 0x1000u) & 0xffffe000u;
+    lo = (__float_as_uint(__fsub_rn(f, __uint_as_float(hi))) + 0x1000u) &
+         0xffffe000u;
+  } else {
+    hi = tf32_rna(f);
+    lo = (hi & 0x7f800000u) == 0x7f800000u
+             ? 0u
+             : tf32_rna(f - __uint_as_float(hi));
+  }
+}
+
+// v becomes lo, hi its TF32 high part
+template <bool kInt, int N>
+__device__ __forceinline__ void split_regs(uint32_t (&v)[N][4],
+                                           uint32_t (&hi)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32<kInt>(v[i][e], hi[i][e], v[i][e]);
+}
+
+// the descriptor of a K-major tile in the 32-byte swizzle (TMA's
+// SWIZZLE_32B): 32-byte rows, 8-row atoms of 256 bytes, one after another
+// along N (stride byte offset 256), layout type 3
+__device__ __forceinline__ uint64_t desc_b32(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
+// m64n64k8 in TF32 with A from registers (each warp's 16 rows: a[0] row
+// g, k t; a[1] row g+8, k t; a[2] row g, k t+4; a[3] row g+8, k t+4, for
+// g = lane/4, t = lane%4) and B K-major from shared memory: D = A*B, plus
+// D if `accumulate`, in f32 registers (TF32 takes no transpose bits)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"((int)accumulate));
+}
+
+// product `prod` of a 3xTF32 product's three, small terms first (A_lo*B_hi,
+// A_hi*B_lo, A_hi*B_hi), into D, added to D if `accumulate`
+__device__ __forceinline__ void wgmma_part(float (&d)[32],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           uint64_t b_hi, uint64_t b_lo,
+                                           int prod, bool accumulate) {
+  wgmma_tf32(d, prod == 0 ? a_lo : a_hi, prod == 1 ? b_lo : b_hi,
+             accumulate);
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__host__ __device__ constexpr int f32_dx_slot(int nb) {
+  return HF_DX_RMAX * 32 + 16 * nb * 2048;  // A rows; 8 taps x (hi, lo) B
+}
+
+__host__ __device__ constexpr int f32_dx_smem_bytes(int nb) {
+  return HF_DX_STAGES * f32_dx_slot(nb) + HF_DX_STAGES * 16 + 1024;
+}
+
+// dk: a slot holds the input sub-box and the block's cotangent rows, each
+// as two 32-channel halves of 128-byte rows; then the transposed cotangent
+// (hi and lo, K blocks of 32 positions x 64 rows of 128 bytes)
+constexpr int HF_XH = HF_DK_RMAX * 128;
+constexpr int HF_GH = HF_BP * 128;
+constexpr int HF_DK_SLOT = 2 * HF_XH + 2 * HF_GH;
+constexpr int HF_BT = (HF_BP / 32) * 64 * 128;
+
+__host__ __device__ constexpr int f32_dk_smem_bytes() {
+  return HF_DK_STAGES * HF_DK_SLOT + 2 * HF_BT + HF_DK_STAGES * 8 +
+         HF_BP * 4 + 1024;
+}
+
+// dx in f32 on one block of HF_BM positions and 64*NB input channels: the
+// bf16 halo kernel's walk (tc::k1_dx_bf16_halo) with units of (phase, 8
+// output channels).  Per unit the phase's cotangent sub-box of those
+// channels (R rows of 32 bytes, one TMA box striding 2 over the full-res
+// axes, 32-byte swizzle) and, for each of the 8 taps, the tap's offset of
+// the weights in TF32 hi and lo parts, wt[part, ci0.., off*Cout + c0..]
+// (8 x 64*NB boxes of map_w: K-major, which TF32's wgmma needs for B).
+// Tap (p, q, r) of position (in, id, ih, iw) reads sub-box row (in, id+1-p,
+// ih+1-q, iw+1-r) by ldmatrix, which on f32 rows gives the tf32 A fragment
+// of a k8 step; each value is split into hi and lo in registers and each
+// product taken as three TF32 wgmmas.  The tensor cores round their f32
+// sums toward zero, so an error grows with the number of wgmmas summed into
+// one accumulator: each unit's products start a fresh accumulator, and at
+// the unit's end it is added to the thread's f32 sums (rounded to nearest).
+// A producer warp issues the TMA; the cluster's CTAs take contiguous ranges
+// of the units and sum their f32 tiles through distributed shared memory
+// in rank order.
+template <int NB>
+__global__ void __launch_bounds__(tc::HB_CTA_THREADS, 1)
+k1_dx_f32_halo(const __grid_constant__ CUtensorMap map_g,
+               const __grid_constant__ CUtensorMap map_w,
+               float* __restrict__ dx, int B, int D, int H, int W, int Cin,
+               int Cout, Blocks bl, int splits) {
+  constexpr int A_BYTES = HF_DX_RMAX * 32;
+  constexpr int B_TILE = NB * 2048;  // 64*NB rows of 8 floats
+  constexpr int SLOT = f32_dx_slot(NB);
+  constexpr int BN = 64 * NB, PITCH = BN + 4;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t full = base + HF_DX_STAGES * SLOT;
+  const uint32_t empty = full + 8 * HF_DX_STAGES;
+
+  const int split = (int)tc::cluster_rank();
+  const int ci0 = blockIdx.y * BN;
+  int n0, d0, h0, w0;
+  bl.origin(blockIdx.z, n0, d0, h0, w0);
+  const int SD = bl.td + 1, SH = bl.th + 1, SW = bl.tw + 1;
+  const int R = bl.tn * SD * SH * SW;
+  const int P = bl.tn * bl.td * bl.th * bl.tw;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < HF_DX_STAGES; ++i) {
+      tc::mbar_init(full + 8 * i, 1);
+      tc::mbar_init(empty + 8 * i, tc::HB_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  const int warp_id = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int wg = warp_id >> 2, warp = warp_id & 3;
+  const int lane = threadIdx.x & 31;
+  const int kc = lane >> 4;
+  int rho0;
+  {
+    const int m = wg * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    int t = m < P ? m : 0;  // rows past the block read a real row, unstored
+    const int iw = t % bl.tw;
+    t /= bl.tw;
+    const int ih = t % bl.th;
+    t /= bl.th;
+    const int id = t % bl.td;
+    rho0 = (((t / bl.td) * SD + id + 1) * SH + ih + 1) * SW + iw + 1;
+  }
+  __syncthreads();
+
+  const int U = 8 * (Cout / HF_CO);
+  int u0, u1;
+  bwd::split_range(U, splits, split, u0, u1);
+  const int NU = u1 - u0;
+
+  // unit i's boxes into ring slot `slot`, by the producer: the sub-box, then
+  // per tap the hi and lo weights of the tap's offset
+  auto load = [&](int i, int slot) {
+    const int u = u0 + i, phase = u & 7, c0 = (u >> 3) * HF_CO;
+    const int a = phase >> 2, b = (phase >> 1) & 1, c = phase & 1;
+    const uint32_t dst = base + slot * SLOT, bar = full + 8 * slot;
+    tc::mbar_expect(bar, R * 32 + 16 * B_TILE);
+    tc::tma_load_5d(dst, &map_g, bar, c0, 2 * w0 - c, 2 * h0 - b, 2 * d0 - a,
+                    n0);
+#pragma unroll
+    for (int tap = 0; tap < 8; ++tap) {
+      const int off = 16 * (2 * (tap >> 2) + a) +
+                      4 * (2 * ((tap >> 1) & 1) + b) + 2 * (tap & 1) + c;
+#pragma unroll
+      for (int part = 0; part < 2; ++part)
+        tc::tma_load_3d(dst + A_BYTES + (2 * tap + part) * B_TILE, &map_w,
+                        bar, off * Cout + c0, ci0, part);
+    }
+  };
+
+  float acc[NB][32], sum[NB][32];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = sum[j][i] = 0.0f;
+  uint32_t alo[2][2][4], ahi[2][2][4];
+
+  if (warp_id == tc::HB_THREADS / 32) {
+    // the producer: unit i into slot i % HF_DX_STAGES once the consumers
+    // have released the unit HF_DX_STAGES back
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < NU; ++i) {
+        const int slot = i % HF_DX_STAGES;
+        if (i >= HF_DX_STAGES)
+          tc::mbar_wait(empty + 8 * slot, (i / HF_DX_STAGES - 1) & 1);
+        load(i, slot);
+      }
+    __syncwarp();
+  } else {
+    // a unit's wgmmas are four groups of two taps, each on its own A
+    // registers (group parity), at most one group in flight; the first
+    // wgmma of a unit into each accumulator starts it afresh
+    for (int i = 0; i < NU; ++i) {
+      const int slot = i % HF_DX_STAGES;
+      tc::mbar_wait(full + 8 * slot, (i / HF_DX_STAGES) & 1);
+      const uint32_t a_sub = base + slot * SLOT;
+      const uint32_t b_sub = a_sub + A_BYTES;
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp) {
+        const int par = grp & 1;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int tap = grp * 2 + t;
+          const int rho = rho0 - ((tap >> 2) * SH * SW +
+                                  ((tap >> 1) & 1) * SW + (tap & 1));
+          tc::ldsm_x4(alo[par][t],
+                      a_sub + rho * 32 + ((kc ^ ((rho >> 2) & 1)) << 4));
+        }
+        split_regs<false>(alo[par], ahi[par]);
+        tc::fence_regs(alo[par]);
+        tc::fence_regs(ahi[par]);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) tc::fence_acc(acc[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int prod = 0; prod < 3; ++prod)
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const uint32_t bt =
+                  b_sub + 2 * (grp * 2 + t) * B_TILE + j * 2048;
+              wgmma_part(acc[j], ahi[par][t], alo[par][t], desc_b32(bt),
+                         desc_b32(bt + B_TILE), prod,
+                         grp > 0 || prod > 0 || t > 0);
+            }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < NB; ++j) tc::fence_acc(acc[j]);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        tc::fence_acc(acc[j]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sum[j][e] += acc[j][e];
+      }
+      tc::mbar_arrive(empty + 8 * slot);  // the unit's slot is read
+    }
+  }
+  __syncthreads();  // every box has landed and been read
+
+  float* stage = reinterpret_cast<float*>(gbase);
+#pragma unroll
+  for (int h = 0; h < 2 * (warp_id < tc::HB_THREADS / 32); ++h) {
+    const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(stage + r * PITCH + nb * 64 + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(sum[nb][4 * j + 2 * h], sum[nb][4 * j + 2 * h + 1]);
+  }
+  tc::cluster_sync();
+
+  // rank `split` sums its rows of the tile over the cluster's CTAs in rank
+  // order and stores them
+  int r0, r1;
+  bwd::split_range(HF_BM, splits, split, r0, r1);
+  for (int idx = threadIdx.x; idx < (r1 - r0) * (BN / 4); idx += blockDim.x) {
+    const int row = r0 + idx / (BN / 4), c4 = idx % (BN / 4);
+    if (row >= P) continue;
+    int t = row;
+    const int w = w0 + t % bl.tw;
+    t /= bl.tw;
+    const int h = h0 + t % bl.th;
+    t /= bl.th;
+    const int d = d0 + t % bl.td;
+    const int n = n0 + t / bl.td;
+    if (n >= B || d >= D || h >= H || w >= W) continue;
+    const uint32_t off = base + (row * PITCH + 4 * c4) * 4;
+    float4 s = tc::ld_cluster4(off, 0);
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = tc::ld_cluster4(off, q);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    *reinterpret_cast<float4*>(
+        dx + ((((size_t)n * D + d) * H + h) * W + w) * Cin + ci0 + 4 * c4) = s;
+  }
+  tc::cluster_sync();  // no CTA leaves while another reads its shared memory
+}
+
+// dk in f32 on one phase, half of its taps (p = the CTA's half; warpgroup w
+// takes q = w, r = 0 and 1), 64 input channels ci0.. and 64 output
+// channels co0..: the bf16 halo kernel's walk (tc::k1_dk_bf16_halo) over
+// position blocks of at most HF_BP.  Per block the phase's input sub-box
+// and the block's cotangent rows arrive by TMA, each as two 32-channel
+// boxes in the 128-byte swizzle.  The cotangent rows are N-major as B (Cout
+// is contiguous), and TF32's wgmma reads B only K-major, so one pass
+// transposes them into hi and lo tiles of 64 rows (co) by 32 positions, in
+// the swizzle the descriptor names; the pass serves the CTA's taps, and the
+// first Cin tile's p = 0 CTAs also sum the rows' columns there (the bias
+// gradient's share).  A (ci, position) comes by 8-byte shared loads at each
+// tap's window: logical row g of a warp's 16 is channel 2g, row g + 8
+// channel 2g + 1, so that one load gives the two rows of a k column; the
+// epilogue writes the rows back in channel order.  Each block's products
+// start fresh accumulators, added to the thread's f32 sums at the block's
+// end (the tensor cores round toward zero: see k1_dx_f32_halo); two taps a
+// warpgroup leave the registers for both.  Splits as in bf16: the
+// cluster's CTAs sum their 4 f32 tiles and bias sums in rank order into
+// dk2[phase][tap][ci][co] and dbp[phase][co].
+__global__ void __launch_bounds__(tc::HB_THREADS, 1)
+k1_dk_f32_halo(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_g,
+               float* __restrict__ dk2, float* __restrict__ dbp, int B, int D,
+               int H, int W, int Cin, int Cout, Blocks bl, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t bt_hi = base + HF_DK_STAGES * HF_DK_SLOT;
+  const uint32_t bt_lo = bt_hi + HF_BT;
+  const uint32_t full = bt_lo + HF_BT;  // a slot's copies landed
+  int* qrho = reinterpret_cast<int*>(gbase + (full - base) +
+                                     HF_DK_STAGES * 8);
+
+  const int split = (int)tc::cluster_rank();
+  const int co_tiles = Cout / 64;
+  const int ci0 = (blockIdx.y / co_tiles) * 64;
+  const int co0 = (blockIdx.y % co_tiles) * 64;
+  const int phase = blockIdx.z >> 1, p = blockIdx.z & 1;
+  const bool db_cta = ci0 == 0 && p == 0 && dbp != nullptr;
+  const int a = phase >> 2, b = (phase >> 1) & 1, c = phase & 1;
+  const int SD = bl.td + 1, SH = bl.th + 1, SW = bl.tw + 1;
+  const int R = bl.tn * SD * SH * SW;
+  const int P = bl.tn * bl.td * bl.th * bl.tw;
+  const int nblk =
+      ((B + bl.tn - 1) / bl.tn) * bl.nbd * bl.nbh * bl.nbw;
+
+  // each block position's sub-box row at tap (0, 0, 0)
+  for (int q = threadIdx.x; q < HF_BP; q += blockDim.x) {
+    int t = q < P ? q : 0;
+    const int iw = t % bl.tw;
+    t /= bl.tw;
+    const int ih = t % bl.th;
+    t /= bl.th;
+    const int id = t % bl.td;
+    qrho[q] = (((t / bl.td) * SD + id) * SH + ih) * SW + iw;
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < HF_DK_STAGES; ++i) tc::mbar_init(full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int b0, b1;
+  bwd::split_range(nblk, splits, split, b0, b1);
+  const int NU = b1 - b0;
+
+  // block i's boxes into ring slot `slot`, by thread 0
+  auto load = [&](int i, int slot) {
+    int n0, d0, h0, w0;
+    bl.origin(b0 + i, n0, d0, h0, w0);
+    const uint32_t dst = base + slot * HF_DK_SLOT, bar = full + 8 * slot;
+    tc::mbar_expect(bar, 2 * (R + P) * 128);
+#pragma unroll
+    for (int hc = 0; hc < 2; ++hc) {
+      tc::tma_load_5d(dst + hc * HF_XH, &map_x, bar, ci0 + 32 * hc,
+                      w0 + c - 1, h0 + b - 1, d0 + a - 1, n0);
+      tc::tma_load_5d(dst + 2 * HF_XH + hc * HF_GH, &map_g, bar,
+                      co0 + 32 * hc, 2 * w0 + c, 2 * h0 + b, 2 * d0 + a, n0);
+    }
+  };
+
+  float acc[2][32], sum[2][32];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = sum[t][i] = 0.0f;
+  uint32_t alo[2][2][4], ahi[2][2][4];
+  float dbsum = 0.0f;  // column threadIdx % 64
+  const int warp_id = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int wg = warp_id >> 2, warp = warp_id & 3;
+  const int lane = threadIdx.x & 31;
+  const int tap_shift = p * SH * SW + wg * SW;  // taps (p, q = wg, r)
+  // this lane's channels 2g, 2g + 1 of the warp's 16: which 32-channel
+  // half, its 16-byte chunk there and the byte inside the chunk
+  const int g = lane >> 2, kt = lane & 3;
+  const uint32_t a_half = (warp >> 1) * HF_XH;
+  const int a_chunk = 4 * (warp & 1) + (g >> 1);
+  const int a_byte = 8 * (g & 1);
+
+  if (threadIdx.x == 0)
+    for (int s = 0; s < HF_DK_STAGES - 1 && s < NU; ++s) load(s, s);
+  for (int i = 0; i < NU; ++i) {
+    // every thread is done with block i - 1: its slot's reads, and (each
+    // warpgroup waited for its wgmmas) the transposed tiles
+    __syncthreads();
+    if (threadIdx.x == 0 && i + HF_DK_STAGES - 1 < NU)
+      load(i + HF_DK_STAGES - 1, (i + HF_DK_STAGES - 1) % HF_DK_STAGES);
+    tc::mbar_wait(full + 8 * (i % HF_DK_STAGES), (i / HF_DK_STAGES) & 1);
+    const uint32_t a_sub = base + (i % HF_DK_STAGES) * HF_DK_SLOT;
+    const uint8_t* graw = gbase + (a_sub - base) + 2 * HF_XH;
+
+    // the transpose: item (n, j, kb) takes positions 32kb + 4j .. + 3 of
+    // channel n (0 past the block) into row n, chunk j of K block kb
+#pragma unroll
+    for (int e = 0; e < HF_BP * 64 / 4 / tc::HB_THREADS; ++e) {
+      const int it = threadIdx.x + e * tc::HB_THREADS;
+      const int n = it & 63, j = (it >> 6) & 7, kb = it >> 9;
+      const int f = n & 31;
+      uint32_t v[1][4], hi[1][4];
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int q = 32 * kb + 4 * j + z;
+        v[0][z] = q < P ? *reinterpret_cast<const uint32_t*>(
+                              graw + (n >> 5) * HF_GH + q * 128 +
+                              (((f >> 2) ^ (q & 7)) << 4) + (f & 3) * 4)
+                        : 0u;
+        if (db_cta) dbsum += __uint_as_float(v[0][z]);
+      }
+      split_regs<true>(v, hi);
+      const uint32_t o = kb * (64 * 128) + n * 128 + ((j ^ (n & 7)) << 4);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       bt_hi + o),
+                   "r"(hi[0][0]), "r"(hi[0][1]), "r"(hi[0][2]), "r"(hi[0][3])
+                   : "memory");
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       bt_lo + o),
+                   "r"(v[0][0]), "r"(v[0][1]), "r"(v[0][2]), "r"(v[0][3])
+                   : "memory");
+    }
+    // make the tiles visible to the async proxy that wgmma reads through
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // k8 step s: positions 8s + t and 8s + t + 4 of the warpgroup's 2 taps
+    // make one group of 6 wgmmas, on A registers of parity s % 2 (at most
+    // one group stays in flight)
+#pragma unroll
+    for (int s = 0; s < HF_BP / 8; ++s) {
+      const int rq0 = qrho[8 * s + kt] + tap_shift;
+      const int rq1 = qrho[8 * s + kt + 4] + tap_shift;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int r0 = rq0 + r, r1 = rq1 + r;
+        const uint2 p0 = lds64(a_sub + a_half + r0 * 128 +
+                               ((a_chunk ^ (r0 & 7)) << 4) + a_byte);
+        const uint2 p1 = lds64(a_sub + a_half + r1 * 128 +
+                               ((a_chunk ^ (r1 & 7)) << 4) + a_byte);
+        alo[s & 1][r][0] = p0.x;
+        alo[s & 1][r][1] = p0.y;
+        alo[s & 1][r][2] = p1.x;
+        alo[s & 1][r][3] = p1.y;
+      }
+      split_regs<true>(alo[s & 1], ahi[s & 1]);
+      tc::fence_regs(alo[s & 1]);
+      tc::fence_regs(ahi[s & 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) tc::fence_acc(acc[r]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint32_t kofs = (s >> 2) * (64 * 128);
+      const uint64_t dh = tc::desc(bt_hi + kofs) + 2 * (s & 3);
+      const uint64_t dl = tc::desc(bt_lo + kofs) + 2 * (s & 3);
+#pragma unroll
+      for (int prod = 0; prod < 3; ++prod)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          wgmma_part(acc[r], ahi[s & 1][r], alo[s & 1][r], dh, dl, prod,
+                     s > 0 || prod > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+      for (int r = 0; r < 2; ++r) tc::fence_acc(acc[r]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tc::fence_acc(acc[r]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sum[r][e] += acc[r][e];
+    }
+  }
+  __syncthreads();
+
+  // the 4 f32 tiles, row (local tap 2*wg + r, ci) of 64 columns, into the
+  // idle ring (row g of a warp's 16 is channel 2g, row g + 8 channel
+  // 2g + 1); then the 4 row groups' bias sums
+  float* stage = reinterpret_cast<float*>(gbase);
+  float* dbs = stage + 4 * 64 * tc::HB_PITCH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = (wg * 2 + r) * 64 + warp * 16 + 2 * g + h;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(stage + row * tc::HB_PITCH + 8 * j +
+                                   2 * kt) =
+            make_float2(sum[r][4 * j + 2 * h], sum[r][4 * j + 2 * h + 1]);
+    }
+  dbs[threadIdx.x] = dbsum;
+  tc::cluster_sync();
+
+  int r0, r1;
+  bwd::split_range(4 * 64, splits, split, r0, r1);
+  for (int idx = threadIdx.x; idx < (r1 - r0) * 16; idx += blockDim.x) {
+    const int row = r0 + idx / 16, c4 = idx % 16;
+    const uint32_t off = base + (row * tc::HB_PITCH + 4 * c4) * 4;
+    float4 s = tc::ld_cluster4(off, 0);
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = tc::ld_cluster4(off, q);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const int tap = 4 * p + (row >> 6), ci = row & 63;
+    *reinterpret_cast<float4*>(
+        dk2 + (((size_t)phase * 8 + tap) * Cin + ci0 + ci) * Cout + co0 +
+        4 * c4) = s;
+  }
+  if (db_cta && split == 0 && threadIdx.x < 64) {
+    const uint32_t off = base + (4 * 64 * tc::HB_PITCH + threadIdx.x) * 4;
+    float s = 0.0f;
+    for (int q = 0; q < splits; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s += tc::ld_cluster(off + k * 256, q);
+    dbp[phase * Cout + co0 + threadIdx.x] = s;
+  }
+  tc::cluster_sync();
+}
+
+// The f32 halo dx kernel's weights in one pass: wt[part][ci][off*Cout + co]
+// = the TF32 hi (part 0) or lo (part 1) of kp[phase][co][tap*Cin + ci], off
+// = 16*(2p + a) + 4*(2q + b) + 2r + c for phase (a, b, c) and tap (p, q,
+// r) (pack_backward_kernels() and split_tf32() in ops/upsample_conv.py).
+// A block transposes a 32 x 32 tile of (co, ci) of one (phase, tap) through
+// shared memory, so that both the reads (ci) and the writes (co) are
+// contiguous; it is bound by its bytes (read kp once, write two parts).
+__global__ void __launch_bounds__(256)
+k1_pack_tf32(const float* __restrict__ kp, float* __restrict__ wt, int Cin,
+             int Cout) {
+  __shared__ float tile[32][33];
+  const int pt = blockIdx.z;  // phase * 8 + tap
+  const int phase = pt >> 3, tap = pt & 7;
+  const int a = phase >> 2, b = (phase >> 1) & 1, c = phase & 1;
+  const int off = 16 * (2 * (tap >> 2) + a) + 4 * (2 * ((tap >> 1) & 1) + b) +
+                  2 * (tap & 1) + c;
+  const int co0 = blockIdx.y * 32, ci0 = blockIdx.x * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int co = co0 + ty + 8 * k;
+    tile[ty + 8 * k][tx] =
+        kp[((size_t)phase * Cout + co) * 8 * Cin + (size_t)tap * Cin + ci0 +
+           tx];
+  }
+  __syncthreads();
+  const size_t plane = (size_t)Cin * 64 * Cout;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int ci = ci0 + ty + 8 * k;
+    uint32_t hi, lo;
+    split_tf32<false>(__float_as_uint(tile[tx][ty + 8 * k]), hi, lo);
+    const size_t o = (size_t)ci * 64 * Cout + (size_t)off * Cout + co0 + tx;
+    wt[o] = __uint_as_float(hi);
+    wt[plane + o] = __uint_as_float(lo);
+  }
+}
+
+}  // namespace tf
+
+// ----------------------- backward, FMA: any width, misaligned operands
 
 namespace bfma {
 
@@ -1479,10 +2134,8 @@ constexpr int PITCH = 68;  // floats per smem row; keeps float4 reads aligned
 using general::from_float;
 using general::to_float;
 
-// dx in exact FMA.  VEC (f32, Cin % 64 == 0, Cout % 16 == 0, 16-byte
-// aligned operands): float4 loads with one mask per row; otherwise scalar
-// loads masked by element, for any widths.
-template <typename T, bool VEC>
+// dx in exact FMA, for any widths: scalar loads masked by element.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 k1_dx_fma(const T* __restrict__ g, const T* __restrict__ wb,
           T* __restrict__ dx, float* __restrict__ part, int B, int D, int H,
@@ -1510,33 +2163,18 @@ k1_dx_fma(const T* __restrict__ g, const T* __restrict__ wb,
   for (int kt = kt0; kt < kt1; ++kt) {
     const bwd::DxSlice s = bwd::dx_slice(kt, slices, BK, H, W);
     const size_t wk = (size_t)s.off * Cout + s.c0;  // packed k of the slice
-    if constexpr (VEC) {
-      const int r = tid >> 2, q = (tid & 3) * 4;
-      const int4 rc = rows[r];
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (bwd::dx_inside(rc, s, D, H, W))
-        v = *reinterpret_cast<const float4*>(
-            g + (size_t)(rc.w + s.shift) * Cout + s.c0 + q);
-      As[q][r] = v.x; As[q + 1][r] = v.y; As[q + 2][r] = v.z;
-      As[q + 3][r] = v.w;
-      const float4 b = *reinterpret_cast<const float4*>(
-          wb + (size_t)(n0 + r) * K64 + wk + q);
-      Bs[q][r] = b.x; Bs[q + 1][r] = b.y; Bs[q + 2][r] = b.z;
-      Bs[q + 3][r] = b.w;
-    } else {
 #pragma unroll
-      for (int e = 0; e < BM * BK / THREADS; ++e) {
-        const int i = tid + e * THREADS, r = i / BK, kk = i % BK;
-        const int co = s.c0 + kk;
-        const int4 rc = rows[r];
-        As[kk][r] = co < Cout && bwd::dx_inside(rc, s, D, H, W)
-                        ? to_float(g[(size_t)(rc.w + s.shift) * Cout + co])
-                        : 0.0f;
-        const int ci = n0 + r;
-        Bs[kk][r] = co < Cout && ci < Cin
-                        ? to_float(wb[(size_t)ci * K64 + wk + kk])
-                        : 0.0f;
-      }
+    for (int e = 0; e < BM * BK / THREADS; ++e) {
+      const int i = tid + e * THREADS, r = i / BK, kk = i % BK;
+      const int co = s.c0 + kk;
+      const int4 rc = rows[r];
+      As[kk][r] = co < Cout && bwd::dx_inside(rc, s, D, H, W)
+                      ? to_float(g[(size_t)(rc.w + s.shift) * Cout + co])
+                      : 0.0f;
+      const int ci = n0 + r;
+      Bs[kk][r] = co < Cout && ci < Cin
+                      ? to_float(wb[(size_t)ci * K64 + wk + kk])
+                      : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -1568,11 +2206,10 @@ k1_dx_fma(const T* __restrict__ g, const T* __restrict__ wb,
   }
 }
 
-// dk in exact FMA: per CTA one phase, 64 rows of (tap, ci) (VEC: inside one
-// tap, Cin % 64 == 0, Cout % 64 == 0, float4 loads; otherwise rows may
-// straddle taps and loads are scalar), 64 output channels, one split of
+// dk in exact FMA, for any widths: per CTA one phase, 64 rows of (tap, ci)
+// (rows may straddle taps; scalar loads), 64 output channels, one split of
 // the positions in slices of BK
-template <typename T, bool VEC>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 k1_dk_fma(const T* __restrict__ x, const T* __restrict__ g,
           float* __restrict__ part, int B, int D, int H, int W, int Cin,
@@ -1612,40 +2249,23 @@ k1_dk_fma(const T* __restrict__ x, const T* __restrict__ g,
       grow[tid] = gr;
     }
     __syncthreads();
-    if constexpr (VEC) {
-      const int r = tid >> 4, q = (tid & 15) * 4;
-      const int tap = mrow0 / Cin;
-      const Slice s = slice_of(tap, 1, 0, phase, H, W);
-      const int4 pv = pos[r];
-      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (tap_inside(make_int4(0, pv.x, pv.y, pv.z), s, D, H, W))
-        a = *reinterpret_cast<const float4*>(
-            x + (size_t)(pv.w + s.shift) * Cin + (mrow0 - tap * Cin) + q);
-      *reinterpret_cast<float4*>(&As[r][q]) = a;
-      float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (grow[r] >= 0)
-        b = *reinterpret_cast<const float4*>(g + (size_t)grow[r] * Cout +
-                                             n0 + q);
-      *reinterpret_cast<float4*>(&Bs[r][q]) = b;
-    } else {
 #pragma unroll
-      for (int e = 0; e < BM * BK / THREADS; ++e) {
-        const int i = tid + e * THREADS, r = i / BM, c = i % BM;
-        const int mrow = mrow0 + c;
-        const int4 pv = pos[r];
-        float a = 0.0f;
-        if (mrow < 8 * Cin) {
-          const int tap = mrow / Cin;
-          const Slice s = slice_of(tap, 1, 0, phase, H, W);
-          if (tap_inside(make_int4(0, pv.x, pv.y, pv.z), s, D, H, W))
-            a = to_float(x[(size_t)(pv.w + s.shift) * Cin + mrow - tap * Cin]);
-        }
-        As[r][c] = a;
-        const int co = n0 + c;
-        Bs[r][c] = grow[r] >= 0 && co < Cout
-                       ? to_float(g[(size_t)grow[r] * Cout + co])
-                       : 0.0f;
+    for (int e = 0; e < BM * BK / THREADS; ++e) {
+      const int i = tid + e * THREADS, r = i / BM, c = i % BM;
+      const int mrow = mrow0 + c;
+      const int4 pv = pos[r];
+      float a = 0.0f;
+      if (mrow < 8 * Cin) {
+        const int tap = mrow / Cin;
+        const Slice s = slice_of(tap, 1, 0, phase, H, W);
+        if (tap_inside(make_int4(0, pv.x, pv.y, pv.z), s, D, H, W))
+          a = to_float(x[(size_t)(pv.w + s.shift) * Cin + mrow - tap * Cin]);
       }
+      As[r][c] = a;
+      const int co = n0 + c;
+      Bs[r][c] = grow[r] >= 0 && co < Cout
+                     ? to_float(g[(size_t)grow[r] * Cout + co])
+                     : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -1842,18 +2462,20 @@ cudaError_t bind_context() {
   return err == cudaSuccess ? cudaSetDevice(dev) : err;
 }
 
-// The tensor map of a contiguous bf16 tensor of `rank` dims (innermost
-// first), its box, the box's element strides and swizzle; boxes read 0
-// outside the tensor.
-bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
-              const cuuint64_t* dims, const cuuint32_t* box,
-              const cuuint32_t* steps, CUtensorMapSwizzle swizzle) {
+// The tensor map of a contiguous bf16 or f32 tensor of `rank` dims
+// (innermost first), its box, the box's element strides and swizzle; boxes
+// read 0 outside the tensor.
+bool tensor_map(CUtensorMap* map, bool f32, const void* ptr, int rank,
+                const cuuint64_t* dims, const cuuint32_t* box,
+                const cuuint32_t* steps, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  cuuint64_t strides[4], bytes = 2;
+  cuuint64_t strides[4], bytes = f32 ? 4 : 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(ptr), dims, strides, box, steps,
+  return encode(map,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                rank, const_cast<void*>(ptr), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1875,10 +2497,10 @@ int launch_dx_halo(const void* g, const void* kp, void* dx, int B, int D,
   const cuuint32_t gsteps[5] = {1, 2, 2, 2, 1};
   const cuuint64_t kdims[3] = {8ull * Cin, (cuuint64_t)Cout, 8};
   const cuuint32_t kbox[3] = {64, tc::HB_CO, 1}, ksteps[3] = {1, 1, 1};
-  if (!bf16_map(&map_g, g, 5, gdims, gbox, gsteps,
-                CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !bf16_map(&map_k, kp, 3, kdims, kbox, ksteps,
-                CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!tensor_map(&map_g, false, g, 5, gdims, gbox, gsteps,
+                  CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !tensor_map(&map_k, false, kp, 3, kdims, kbox, ksteps,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = tc::dx_smem_bytes(NB);
   static SmemLimit limit;
@@ -1913,10 +2535,10 @@ int launch_dk_halo(const void* x, const void* g, void* dk2, void* dbp, int B,
   const cuuint32_t gbox[5] = {64, 2u * bl.tw, 2u * bl.th, 2u * bl.td,
                               (cuuint32_t)bl.tn};
   const cuuint32_t gsteps[5] = {1, 2, 2, 2, 1};
-  if (!bf16_map(&map_x, x, 5, xdims, xbox, xsteps,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !bf16_map(&map_g, g, 5, gdims, gbox, gsteps,
-                CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!tensor_map(&map_x, false, x, 5, xdims, xbox, xsteps,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&map_g, false, g, 5, gdims, gbox, gsteps,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = tc::dk_smem_bytes();
   static SmemLimit limit;
@@ -1931,17 +2553,90 @@ int launch_dk_halo(const void* x, const void* g, void* dk2, void* dbp, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool VEC>
+template <int NB>
+int launch_dx_f32_halo(const void* g, const void* wt, void* dx, int B, int D,
+                       int H, int W, int Cin, int Cout, const tc::Blocks& bl,
+                       long long blocks, int splits, cudaStream_t stream) {
+  // the cotangent (Cout, 2W, 2H, 2D, B), a phase's sub-grid a box of 8
+  // channels; the weights' TF32 parts wt (64*Cout, Cin, 2), boxes of 8 x
+  // 64*NB
+  cudaError_t err = bind_context();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_g, map_w;
+  const cuuint64_t gdims[5] = {(cuuint64_t)Cout, 2ull * W, 2ull * H,
+                               2ull * D, (cuuint64_t)B};
+  const cuuint32_t gbox[5] = {tf::HF_CO, 2u * (bl.tw + 1), 2u * (bl.th + 1),
+                              2u * (bl.td + 1), (cuuint32_t)bl.tn};
+  const cuuint32_t gsteps[5] = {1, 2, 2, 2, 1};
+  const cuuint64_t wdims[3] = {64ull * Cout, (cuuint64_t)Cin, 2};
+  const cuuint32_t wbox[3] = {tf::HF_CO, 64u * NB, 1}, wsteps[3] = {1, 1, 1};
+  if (!tensor_map(&map_g, true, g, 5, gdims, gbox, gsteps,
+                  CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !tensor_map(&map_w, true, wt, 3, wdims, wbox, wsteps,
+                  CU_TENSOR_MAP_SWIZZLE_32B))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = tf::f32_dx_smem_bytes(NB);
+  static SmemLimit limit;
+  err = limit.ensure(tf::k1_dx_f32_halo<NB>, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_clustered(
+      tf::k1_dx_f32_halo<NB>,
+      dim3((unsigned)splits, (unsigned)(Cin / (64 * NB)), (unsigned)blocks),
+      tc::HB_CTA_THREADS, smem, splits, stream, map_g, map_w,
+      static_cast<float*>(dx), B, D, H, W, Cin, Cout, bl, splits);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int launch_dk_f32_halo(const void* x, const void* g, void* dk2, void* dbp,
+                       int B, int D, int H, int W, int Cin, int Cout,
+                       const tc::Blocks& bl, int splits, cudaStream_t stream) {
+  // the input (Cin, W, H, D, B), a phase's sub-box two boxes of 32
+  // channels; the cotangent (Cout, 2W, 2H, 2D, B), a block's rows of one
+  // phase two boxes of 32 channels striding 2
+  cudaError_t err = bind_context();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_x, map_g;
+  const cuuint64_t xdims[5] = {(cuuint64_t)Cin, (cuuint64_t)W,
+                               (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint32_t xbox[5] = {32, (cuuint32_t)bl.tw + 1,
+                              (cuuint32_t)bl.th + 1, (cuuint32_t)bl.td + 1,
+                              (cuuint32_t)bl.tn};
+  const cuuint32_t xsteps[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t gdims[5] = {(cuuint64_t)Cout, 2ull * W, 2ull * H,
+                               2ull * D, (cuuint64_t)B};
+  const cuuint32_t gbox[5] = {32, 2u * bl.tw, 2u * bl.th, 2u * bl.td,
+                              (cuuint32_t)bl.tn};
+  const cuuint32_t gsteps[5] = {1, 2, 2, 2, 1};
+  if (!tensor_map(&map_x, true, x, 5, xdims, xbox, xsteps,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&map_g, true, g, 5, gdims, gbox, gsteps,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = tf::f32_dk_smem_bytes();
+  static SmemLimit limit;
+  err = limit.ensure(tf::k1_dk_f32_halo, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_clustered(
+      tf::k1_dk_f32_halo,
+      dim3((unsigned)splits, (unsigned)((Cin / 64) * (Cout / 64)), 16),
+      tc::HB_THREADS, smem, splits, stream, map_x, map_g,
+      static_cast<float*>(dk2), static_cast<float*>(dbp), B, D, H, W, Cin,
+      Cout, bl, splits);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_dx_fma(const void* g, const void* wb, void* dx, void* part, int B,
                   int D, int H, int W, int Cin, int Cout, int bm, int bn,
                   int splits, void* stream) {
   using namespace bfma;
   const long long M = (long long)B * D * H * W;
   if (bm != BM || bn != BN ||
-      (VEC && (Cin % BN != 0 || Cout % BK != 0)) ||
       bad_splits(splits, 64LL * ((Cout + BK - 1) / BK)))
     return (int)cudaErrorInvalidValue;
-  k1_dx_fma<T, VEC>
+  k1_dx_fma<T>
       <<<(unsigned)(((M + BM - 1) / BM) * ((Cin + BN - 1) / BN) * splits),
          THREADS, 0, (cudaStream_t)stream>>>(
           static_cast<const T*>(g), static_cast<const T*>(wb),
@@ -1950,17 +2645,15 @@ int launch_dx_fma(const void* g, const void* wb, void* dx, void* part, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool VEC>
+template <typename T>
 int launch_dk_fma(const void* x, const void* g, void* part, int B, int D,
                   int H, int W, int Cin, int Cout, int bm, int bn, int splits,
                   void* stream) {
   using namespace bfma;
   const long long M = (long long)B * D * H * W;
-  if (bm != BM || bn != BN ||
-      (VEC && (Cin % BM != 0 || Cout % BN != 0)) ||
-      bad_splits(splits, (M + BK - 1) / BK))
+  if (bm != BM || bn != BN || bad_splits(splits, (M + BK - 1) / BK))
     return (int)cudaErrorInvalidValue;
-  k1_dk_fma<T, VEC>
+  k1_dk_fma<T>
       <<<(unsigned)(8 * ((8 * Cin + BM - 1) / BM) * ((Cout + BN - 1) / BN) *
                     splits),
          THREADS, 0, (cudaStream_t)stream>>>(
@@ -2068,58 +2761,96 @@ int prdisagg_k1_dk_halo_bf16(const void* x, const void* g, void* dk2,
                         (cudaStream_t)stream);
 }
 
-// K1's backward, f32 and any widths, on the FMA kernels.  g and x as above
-// in one dtype; wb (Cin, 64*Cout) of that dtype, packed by
-// pack_backward_kernels(); dx of that dtype, written when splits == 1,
-// else part (splits, B*D*H*W, Cin) f32 for prdisagg_k1_dx_reduce_*; dk's
-// part (splits, 8 phases, 8*Cin, Cout) f32 for prdisagg_k1_dk_fold.  All
-// contiguous on the current device; the fast (f32) entries also need
-// 16-byte aligned operands.  Tiles (64, 64) and splits come from
-// k1_backward_plan().
-int prdisagg_k1_dx_fast_f32(const void* g, const void* wb, void* dx,
-                            void* part, int B, int D, int H, int W, int Cin,
-                            int Cout, int bm, int bn, int splits,
+// K1's backward, f32 on the halo kernels.  g (B, 2D, 2H, 2W, Cout) and
+// x (B, D, H, W, Cin) f32; wt (2, Cin, 64*Cout) f32, the TF32 hi and lo
+// parts of pack_backward_kernels()'s weights (split_tf32(), k = off*Cout +
+// co); dx (B, D, H, W, Cin) f32; dk2 and dbp as for bf16.  All contiguous
+// on the current device and 16-byte aligned, Cin and Cout multiples of 64.
+// The block and the cluster size `splits` (1..8, at most the reduction's
+// units) come from k1_backward_plan().
+int prdisagg_k1_dx_halo_f32(const void* g, const void* wt, void* dx, int B,
+                            int D, int H, int W, int Cin, int Cout, int tn,
+                            int td, int th, int tw, int splits,
                             void* stream) {
-  return launch_dx_fma<float, true>(g, wb, dx, part, B, D, H, W, Cin, Cout,
-                                    bm, bn, splits, stream);
+  tc::Blocks bl;
+  long long blocks;
+  if (Cin % 64 != 0 || Cout % 64 != 0 || splits < 1 ||
+      splits > tc::MAX_CLUSTER || splits > 8 * (Cout / tf::HF_CO) ||
+      !halo_blocks(B, D, H, W, tn, td, th, tw, tf::HF_BM, tf::HF_DX_RMAX, bl,
+                   blocks))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return Cin % 128 == 0
+             ? launch_dx_f32_halo<2>(g, wt, dx, B, D, H, W, Cin, Cout, bl,
+                                     blocks, splits, st)
+             : launch_dx_f32_halo<1>(g, wt, dx, B, D, H, W, Cin, Cout, bl,
+                                     blocks, splits, st);
 }
 
+// wt (2, Cin, 64*Cout) f32 for prdisagg_k1_dx_halo_f32 from the forward's
+// packing kp (8 phases, Cout, 8*Cin) f32: pack_backward_kernels() split by
+// split_tf32() in one pass.  Cin and Cout multiples of 32.
+int prdisagg_k1_pack_tf32(const void* kp, void* wt, int Cin, int Cout,
+                          void* stream) {
+  if (Cin % 32 != 0 || Cout % 32 != 0 || Cin < 32 || Cout < 32)
+    return (int)cudaErrorInvalidValue;
+  tf::k1_pack_tf32<<<dim3((unsigned)(Cin / 32), (unsigned)(Cout / 32), 64),
+                     256, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(kp), static_cast<float*>(wt), Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+int prdisagg_k1_dk_halo_f32(const void* x, const void* g, void* dk2,
+                            void* dbp, int B, int D, int H, int W, int Cin,
+                            int Cout, int tn, int td, int th, int tw,
+                            int splits, void* stream) {
+  tc::Blocks bl;
+  long long blocks;
+  if (Cin % 64 != 0 || Cout % 64 != 0 || splits < 1 ||
+      splits > tc::MAX_CLUSTER ||
+      !halo_blocks(B, D, H, W, tn, td, th, tw, tf::HF_BP, tf::HF_DK_RMAX, bl,
+                   blocks) ||
+      splits > blocks)
+    return (int)cudaErrorInvalidValue;
+  return launch_dk_f32_halo(x, g, dk2, dbp, B, D, H, W, Cin, Cout, bl,
+                            splits, (cudaStream_t)stream);
+}
+
+// K1's backward at any widths (and on misaligned operands), on the FMA
+// kernels.  g and x as above in one dtype; wb (Cin, 64*Cout) of that
+// dtype, packed by pack_backward_kernels(); dx of that dtype, written when
+// splits == 1, else part (splits, B*D*H*W, Cin) f32 for
+// prdisagg_k1_dx_reduce_*; dk's part (splits, 8 phases, 8*Cin, Cout) f32
+// for prdisagg_k1_dk_fold.  All contiguous on the current device.  Tiles
+// (64, 64) and splits come from k1_backward_plan().
 int prdisagg_k1_dx_general_f32(const void* g, const void* wb, void* dx,
                                void* part, int B, int D, int H, int W,
                                int Cin, int Cout, int bm, int bn, int splits,
                                void* stream) {
-  return launch_dx_fma<float, false>(g, wb, dx, part, B, D, H, W, Cin, Cout,
-                                     bm, bn, splits, stream);
+  return launch_dx_fma<float>(g, wb, dx, part, B, D, H, W, Cin, Cout, bm,
+                              bn, splits, stream);
 }
 
 int prdisagg_k1_dx_general_bf16(const void* g, const void* wb, void* dx,
                                 void* part, int B, int D, int H, int W,
                                 int Cin, int Cout, int bm, int bn, int splits,
                                 void* stream) {
-  return launch_dx_fma<__nv_bfloat16, false>(g, wb, dx, part, B, D, H, W,
-                                             Cin, Cout, bm, bn, splits,
-                                             stream);
-}
-
-int prdisagg_k1_dk_fast_f32(const void* x, const void* g, void* part, int B,
-                            int D, int H, int W, int Cin, int Cout, int bm,
-                            int bn, int splits, void* stream) {
-  return launch_dk_fma<float, true>(x, g, part, B, D, H, W, Cin, Cout, bm, bn,
-                                    splits, stream);
+  return launch_dx_fma<__nv_bfloat16>(g, wb, dx, part, B, D, H, W, Cin,
+                                      Cout, bm, bn, splits, stream);
 }
 
 int prdisagg_k1_dk_general_f32(const void* x, const void* g, void* part,
                                int B, int D, int H, int W, int Cin, int Cout,
                                int bm, int bn, int splits, void* stream) {
-  return launch_dk_fma<float, false>(x, g, part, B, D, H, W, Cin, Cout, bm,
-                                     bn, splits, stream);
+  return launch_dk_fma<float>(x, g, part, B, D, H, W, Cin, Cout, bm, bn,
+                              splits, stream);
 }
 
 int prdisagg_k1_dk_general_bf16(const void* x, const void* g, void* part,
                                 int B, int D, int H, int W, int Cin, int Cout,
                                 int bm, int bn, int splits, void* stream) {
-  return launch_dk_fma<__nv_bfloat16, false>(x, g, part, B, D, H, W, Cin,
-                                             Cout, bm, bn, splits, stream);
+  return launch_dk_fma<__nv_bfloat16>(x, g, part, B, D, H, W, Cin, Cout,
+                                      bm, bn, splits, stream);
 }
 
 int prdisagg_k1_dx_reduce_f32(const void* part, void* dx, long long n,

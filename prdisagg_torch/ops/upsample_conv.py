@@ -32,14 +32,26 @@ Three implementations of one function:
   ``csrc/upsample_conv.cu``: dx as one implicit GEMM over the cotangent's
   4^3 windows at stride 2, dkernel as one GEMM per phase over the
   positions, each with a deterministic split of its reduction
-  (:func:`k1_backward_plan`).  In bf16 (the halo kernels) each CTA copies
-  the rows a block of positions reads into shared memory once, reads the
-  forward's packed weights in place, sums its split's tile with the other
-  CTAs of its cluster in a fixed order, and dkernel's kernel also sums the
-  bias gradient; one pass folds the phase-tap gradients onto the 3^3
-  kernel.  In f32 and at other widths (the FMA kernels) the weights are
-  permuted by :func:`pack_backward_kernels` and the partials summed in a
-  fixed order by a second kernel that also rounds (dx) or folds (dkernel).
+  (:func:`k1_backward_plan`).  On the halo kernels (Cin and Cout multiples
+  of 64) each CTA copies the rows a block of positions reads into shared
+  memory once, sums its split's tile with the other CTAs of its cluster in
+  a fixed order, and dkernel's kernel also sums the bias gradient; one pass
+  folds the phase-tap gradients onto the 3^3 kernel.  bf16 runs on bf16
+  wgmma and reads the forward's packed weights in place.  f32 is bound by
+  the card's exact FMA rate (67 TFLOP/s) unless it goes to the TF32 tensor
+  cores (495): its halo kernels take each product as three TF32 products
+  of the operands' hi and lo parts (:func:`split_tf32`), which keeps f32
+  accuracy at 3x the tensor-core work, 0.406 of the FMA bound's time.
+  TF32's wgmma reads B only K-major, so dx's weights stay permuted as by
+  :func:`pack_backward_kernels` and are split there, once a call, by one
+  kernel (:func:`pack_tf32_cuda`; plain :func:`pack_backward_kernels_tf32`),
+  and dkernel's kernel transposes the cotangent rows in shared memory.  The
+  tensor cores round their f32 sums toward zero, so both kernels start a
+  fresh accumulator every few dozen wgmmas and add it to f32 sums kept in
+  registers.  At other widths, and on misaligned
+  operands, the FMA kernels take permuted weights and sum split partials
+  in a fixed order by a second kernel that also rounds (dx) or folds
+  (dkernel).
 """
 
 from __future__ import annotations
@@ -241,8 +253,7 @@ def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
 
 # K1's backward on the card
 
-#: the FMA backward kernels' (f32 and other widths) tiles and reduction
-#: slices
+#: the FMA backward kernels' (other widths) tiles and reduction slices
 BWD_FMA_TILE, BWD_FMA_BK = 64, 16
 #: a split keeps at least this many reduction slices (units)
 MIN_SPLIT_SLICES = 2
@@ -252,14 +263,39 @@ MIN_SPLIT_SLICES = 2
 HALO_BM, HALO_CO, HALO_DX_RMAX = 128, 16, 512
 HALO_BP, HALO_DK_RMAX = 128, 256
 MAX_CLUSTER = 8
-#: what a halo block costs beside its sub-box rows, in rows: dx streams
-#: 8 taps x 16 x 128 weights (about 1024 sub-box rows of 32 bytes) a unit,
-#: dk copies HALO_BP cotangent rows (as many rows of 128 bytes) a block
-HALO_BLOCK_WEIGHT = {"dx": 1024, "dk": HALO_BP}
-BACKWARD_KERNELS = ("dx_halo", "dx_fast", "dx_general", "dk_halo", "dk_fast",
-                    "dk_general", "dx_reduce", "dk_fold")
+#: the f32 halo kernels' (tf namespace) counterparts: units of 8 channels
+#: (a 32-byte row) and blocks of 64 positions keep their rings in 227 KB
+HALO_F32_BM, HALO_F32_CO, HALO_F32_DX_RMAX = 128, 8, 256
+HALO_F32_BP, HALO_F32_DK_RMAX = 64, 192
+#: what a halo block costs beside its sub-box rows, in rows: bf16 dx
+#: streams 8 taps x 16 x 128 weights (about 1024 sub-box rows of 32 bytes)
+#: a unit, f32 dx 8 taps x 8 x 128 weights in two parts (2048 rows of 32
+#: bytes); dk copies as many cotangent rows as positions a block, rows as
+#: wide as the sub-box's
+HALO_BLOCK_WEIGHT = {("dx", torch.bfloat16): 1024, ("dk", torch.bfloat16):
+                     HALO_BP, ("dx", torch.float32): 2048,
+                     ("dk", torch.float32): HALO_F32_BP}
+#: the halo kernels' limits by dtype: dx's positions, unit channels and
+#: sub-box rows, dk's positions and sub-box rows
+HALO_LIMITS = {torch.bfloat16: (HALO_BM, HALO_CO, HALO_DX_RMAX, HALO_BP,
+                                HALO_DK_RMAX),
+               torch.float32: (HALO_F32_BM, HALO_F32_CO, HALO_F32_DX_RMAX,
+                               HALO_F32_BP, HALO_F32_DK_RMAX)}
+#: the plan variant of the halo kernels by dtype
+HALO_VARIANT = {torch.bfloat16: "halo", torch.float32: "halo_f32"}
+BACKWARD_KERNELS = ("dx_halo", "dx_halo_f32", "dx_general", "dk_halo",
+                    "dk_halo_f32", "dk_general", "dx_reduce", "dk_fold",
+                    "pack_tf32")
 #: launches of :func:`upsample2_conv3_backward_cuda`'s kernels, by kernel
 backward_launches_by_variant = dict.fromkeys(BACKWARD_KERNELS, 0)
+
+
+def _backward_permuted(kp: torch.Tensor) -> torch.Tensor:
+    """kp (8 phases, Cout, 8*Cin) viewed as dx's weights (Cin, 64 offsets,
+    Cout), not copied."""
+    cout, cin = kp.shape[1], kp.shape[2] // 8
+    k8 = kp.view(2, 2, 2, cout, 2, 2, 2, cin)  # (a, b, c, co, p, q, r, ci)
+    return k8.permute(7, 4, 0, 5, 1, 6, 2, 3)
 
 
 def pack_backward_kernels(kp: torch.Tensor) -> torch.Tensor:
@@ -271,8 +307,40 @@ def pack_backward_kernels(kp: torch.Tensor) -> torch.Tensor:
     off = 16*j_d + 4*j_h + j_w: a permutation of kp, one copy.  The bf16
     halo kernel reads kp itself."""
     cout, cin = kp.shape[1], kp.shape[2] // 8
-    k8 = kp.view(2, 2, 2, cout, 2, 2, 2, cin)  # (a, b, c, co, p, q, r, ci)
-    return k8.permute(7, 4, 0, 5, 1, 6, 2, 3).reshape(cin, 64 * cout)
+    return _backward_permuted(kp).reshape(cin, 64 * cout)
+
+
+def split_tf32(v: torch.Tensor) -> tuple:
+    """float32 v as two TF32 values, v = hi + lo to within 2^-22 |v|: hi is
+    v rounded to TF32 (10 mantissa bits) to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds, and lo the remainder v - hi (exact
+    in float32) rounded the same way; the tensor cores ignore a TF32
+    operand's low 13 bits, so lo is rounded here and not left to be
+    truncated.  Signs and zeros carry into hi; inf and NaN pass through hi,
+    with lo 0.  Returns (hi, lo), float32 tensors of v's shape."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        # the magnitude bits rounded at bit 13 (the carry may reach the
+        # exponent: the next binade, or inf past the largest value)
+        return bits.add(0x1000).bitwise_and_(-0x2000).view(torch.float32)
+
+    hi = torch.where(torch.isnan(v), v, rna(v))
+    lo = torch.where(torch.isfinite(hi), rna(v - hi), 0.0)
+    return hi, lo
+
+
+def pack_backward_kernels_tf32(kp: torch.Tensor) -> torch.Tensor:
+    """The f32 halo dx kernel's weights: :func:`pack_backward_kernels` of
+    float32 kp split by :func:`split_tf32`, as (2, Cin, 64*Cout), hi then
+    lo, contiguous.  The plain version of the card's ``k1_pack_tf32``
+    (:func:`pack_tf32_cuda`): the split runs on kp in its own order and
+    each part is permuted by one copy."""
+    cout, cin = kp.shape[1], kp.shape[2] // 8
+    out = torch.empty((2, cin, 2, 2, 2, 2, 2, 2, cout), dtype=torch.float32,
+                      device=kp.device)
+    for part, t in zip(out, split_tf32(kp)):
+        part.copy_(_backward_permuted(t))
+    return out.view(2, cin, 64 * cout)
 
 
 def split_range(kt: int, splits: int, s: int) -> tuple:
@@ -307,7 +375,7 @@ class HaloPlan(NamedTuple):
 
 
 class K1BackwardPlan(NamedTuple):
-    """Which kernels a backward takes ("halo": bf16; "fast": f32; or
+    """Which kernels a backward takes ("halo": bf16, "halo_f32": f32, or
     "general"), and dx's and dk's launches."""
     variant: str
     dx: tuple
@@ -320,6 +388,31 @@ def _splits(tiles: int, units: int, most: int) -> int:
     if tiles >= SMS:
         return 1
     return max(1, min(most, _ceil(SMS, tiles), units // MIN_SPLIT_SLICES))
+
+
+#: CTAs of the f32 halo kernels (one an SM) that run at once, by cluster
+#: size: cudaOccupancyMaxActiveClusters times the size on an H100 SXM (a
+#: cluster lives in one GPC, so sizes that do not divide its SMs leave
+#: some idle)
+CLUSTER_CTAS = {1: 132, 2: 132, 3: 117, 4: 120, 5: 110, 6: 102, 7: 105,
+                8: 120}
+
+
+def _splits_by_waves(tiles: int, units: int, most: int) -> int:
+    """Splits for kernels that hold one CTA an SM for their whole run (the
+    f32 halo kernels): of at most `most`, each split keeping at least
+    MIN_SPLIT_SLICES units and the grid at most 3 waves, the count with
+    the least time, taken as the waves of CTAs (CLUSTER_CTAS at once) over
+    the splits (each CTA does a split's share); one more split must cut it
+    by 5% to be taken."""
+    def time(s):
+        return _ceil(tiles * s, CLUSTER_CTAS[s]) / s
+
+    best = 1
+    for s in range(2, max(1, min(most, units // MIN_SPLIT_SLICES)) + 1):
+        if tiles * s <= 3 * CLUSTER_CTAS[s] and time(s) < 0.95 * time(best):
+            best = s
+    return best
 
 
 def _gemm_plan(bm: int, bn: int, bk: int, tiles: int, kt: int) -> GemmPlan:
@@ -357,20 +450,23 @@ def halo_block(b: int, d: int, h: int, w: int, positions: int, rows: int,
     return best[1]
 
 
-def _halo_plan(kind: str, b: int, d: int, h: int, w: int, cin: int,
-               cout: int) -> HaloPlan:
+def _halo_plan(kind: str, dtype: torch.dtype, b: int, d: int, h: int,
+               w: int, cin: int, cout: int) -> HaloPlan:
+    bm, co, dx_rmax, bp, dk_rmax = HALO_LIMITS[dtype]
+    weight = HALO_BLOCK_WEIGHT[kind, dtype]
     if kind == "dx":
-        block, grid, rows = halo_block(b, d, h, w, HALO_BM, HALO_DX_RMAX,
-                                       HALO_BLOCK_WEIGHT["dx"])
+        block, grid, rows = halo_block(b, d, h, w, bm, dx_rmax, weight)
         blocks = grid[0] * grid[1] * grid[2] * grid[3]
         tiles = blocks * (cin // (128 if cin % 128 == 0 else 64))
-        units = 8 * cout // HALO_CO
+        units = 8 * cout // co
     else:
-        block, grid, rows = halo_block(b, d, h, w, HALO_BP, HALO_DK_RMAX,
-                                       HALO_BLOCK_WEIGHT["dk"])
-        tiles = 8 * (cin // 64) * (cout // 64)
+        block, grid, rows = halo_block(b, d, h, w, bp, dk_rmax, weight)
+        # bf16: a CTA a phase's 8 taps; f32: half of them (p = 0 or 1)
+        tiles = (8 if dtype == torch.bfloat16 else 16) * (cin // 64) * (
+            cout // 64)
         units = grid[0] * grid[1] * grid[2] * grid[3]
-    splits = _splits(tiles, units, MAX_CLUSTER)
+    splits = (_splits(tiles, units, MAX_CLUSTER) if dtype == torch.bfloat16
+              else _splits_by_waves(tiles, units, MAX_CLUSTER))
     return HaloPlan(block, grid, rows, tiles, units, splits, tiles * splits)
 
 
@@ -380,39 +476,44 @@ def k1_backward_plan(dtype: torch.dtype, b: int, d: int, h: int, w: int,
     """The backward kernels and their launches for x (b, d, h, w, cin) ->
     cout channels.
 
-    Cin and Cout multiples of 64 take the fast kernels: bf16 the halo
-    kernels (:class:`HaloPlan`: dx on blocks of at most HALO_BM positions
-    and 64 or 128 channels of Cin, reduction units of 16 channels of Cout
-    and one phase; dk on blocks of at most HALO_BP positions, one phase,
-    64 x 64 channels a CTA), f32 the FMA kernels with 16-byte loads
-    (:class:`GemmPlan`, 64 x 64 tiles, slices of 16).  Other widths, or
-    `general`, take the general FMA kernels (64 x 64, slices of 16).  Each
-    reduction is split until the grid fills the card (a bf16 split at most
-    MAX_CLUSTER ways, the CTAs of one cluster)."""
-    fast = cin % 64 == 0 and cout % 64 == 0 and not general
-    if fast and dtype == torch.bfloat16:
-        return K1BackwardPlan("halo", _halo_plan("dx", b, d, h, w, cin, cout),
-                              _halo_plan("dk", b, d, h, w, cin, cout))
+    Cin and Cout multiples of 64 take the halo kernels of their dtype
+    (:class:`HaloPlan`): bf16 ("halo") dx on blocks of at most HALO_BM
+    positions and 64 or 128 channels of Cin, reduction units of 16
+    channels of Cout and one phase, dk on blocks of at most HALO_BP
+    positions, one phase, 64 x 64 channels a CTA; f32 ("halo_f32") the
+    same with HALO_F32_BM positions, units of HALO_F32_CO channels and dk
+    blocks of HALO_F32_BP positions.  Other widths, or `general`, take the
+    general FMA kernels (:class:`GemmPlan`, 64 x 64 tiles, slices of 16).
+    Each reduction is split (a halo split at most MAX_CLUSTER ways, the
+    CTAs of one cluster): until the grid fills the card, or for the f32
+    halo kernels by their waves (:func:`_splits_by_waves`)."""
+    if cin % 64 == 0 and cout % 64 == 0 and not general:
+        return K1BackwardPlan(
+            HALO_VARIANT[dtype],
+            _halo_plan("dx", dtype, b, d, h, w, cin, cout),
+            _halo_plan("dk", dtype, b, d, h, w, cin, cout))
     m = b * d * h * w
     t, bk = BWD_FMA_TILE, BWD_FMA_BK
     dx = _gemm_plan(t, t, bk, _ceil(m, t) * _ceil(cin, t),
                     64 * _ceil(cout, bk))
     dk = _gemm_plan(t, t, bk, 8 * _ceil(8 * cin, t) * _ceil(cout, t),
                     _ceil(m, bk))
-    return K1BackwardPlan("fast" if fast else "general", dx, dk)
+    return K1BackwardPlan("general", dx, dk)
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_fns(variant: str, dtype: torch.dtype):
     """The dx, dk, dx-reduce and dk-fold entries of one variant and dtype
-    (the halo variant's dx and dk take a block where the others take a
-    tile and a reduce)."""
+    (the halo variants' dx and dk take a block where the general ones take
+    a tile and a reduce)."""
     lib = _build.load("upsample_conv")
     tag = _ENTRY_DTYPES[dtype]
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    dx = getattr(lib, f"prdisagg_k1_dx_{variant}_{tag}")
-    dk = getattr(lib, f"prdisagg_k1_dk_{variant}_{tag}")
-    if variant == "halo":
+    halo = variant.startswith("halo")
+    kind = "halo" if halo else variant
+    dx = getattr(lib, f"prdisagg_k1_dx_{kind}_{tag}")
+    dk = getattr(lib, f"prdisagg_k1_dk_{kind}_{tag}")
+    if halo:
         dx.argtypes = [ptr] * 3 + [i] * 11 + [ptr]
         dk.argtypes = [ptr] * 4 + [i] * 11 + [ptr]
     else:
@@ -425,6 +526,35 @@ def _backward_fns(variant: str, dtype: torch.dtype):
     for fn in (dx, dk, reduce, fold):
         fn.restype = ctypes.c_int
     return dx, dk, reduce, fold
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_fn():
+    fn = _build.load("upsample_conv").prdisagg_k1_pack_tf32
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_tf32_cuda(kp: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_backward_kernels_tf32` on the card in one pass (the
+    kernel ``k1_pack_tf32``): kp (8, Cout, 8*Cin) float32, contiguous, Cin
+    and Cout multiples of 32, on a CUDA device.  Returns (2, Cin, 64*Cout)
+    float32 on the current stream."""
+    if kp.device.type != "cuda" or kp.dtype != torch.float32 \
+            or not kp.is_contiguous() or kp.dim() != 3 or kp.shape[0] != 8:
+        raise ValueError(f"kp must be a contiguous (8, Cout, 8*Cin) float32 "
+                         f"CUDA tensor, got {tuple(kp.shape)} {kp.dtype} on "
+                         f"{kp.device}")
+    cout, cin = kp.shape[1], kp.shape[2] // 8
+    wt = torch.empty((2, cin, 64 * cout), dtype=torch.float32,
+                     device=kp.device)
+    with torch.cuda.device(kp.device):
+        _launched("pack_tf32", _pack_fn()(
+            kp.data_ptr(), wt.data_ptr(), cin, cout,
+            torch.cuda.current_stream(kp.device).cuda_stream))
+    return wt
 
 
 def _launched(name: str, err: int) -> None:
@@ -452,11 +582,13 @@ def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
     the dk kernel on the halo path (with need_dk), else from one reduction
     that accumulates in float32 (no float32 copy of g).  kp, the forward's
     :func:`pack_phase_kernels` of kernel in x's dtype, spares packing the
-    weights again; the bf16 halo kernels read it as it is.  Split sums are
-    taken in a fixed order (in a cluster's shared memory in bf16, through
-    workspaces allocated here otherwise, which a graph capture takes from
-    its pool), so two calls give the same bits.  Runs on the current
-    stream.  Returns (dx or None, dkernel or None, db or None)."""
+    weights again; the bf16 halo kernels read it as it is, the f32 ones its
+    permutation split into TF32 parts (:func:`pack_tf32_cuda`).
+    Split sums are taken in a fixed order (in a cluster's shared memory on
+    the halo kernels, through workspaces allocated here otherwise, which a
+    graph capture takes from its pool), so two calls give the same bits.
+    Runs on the current stream.  Returns (dx or None, dkernel or None, db
+    or None)."""
     for name, t in (("x", x), ("kernel", kernel), ("g", g)):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; every operand must "
@@ -497,18 +629,22 @@ def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
     plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout)
     if need_dx and kp is None:
         kp = pack_phase_kernels(kernel, x.dtype)
-    if plan.variant != "halo" or any(t is not None and t.data_ptr() % 16
-                                     for t in (x, g, kp)):
+    if plan.variant == "general" or any(t is not None and t.data_ptr() % 16
+                                        for t in (x, g, kp)):
+        # other widths, or operands off the 16-byte alignment TMA needs
         return _backward_fma(x, kernel, g, need_dx, need_dk, kp, need_db,
                              dx, dk)
-    fdx, fdk, _, ffold = _backward_fns("halo", x.dtype)
+    v = plan.variant
+    # dx's B: the bf16 kernel reads kp in place, the f32 one its TF32 parts
+    wt = kp if not need_dx or v == "halo" else pack_tf32_cuda(kp)
+    fdx, fdk, _, ffold = _backward_fns(v, x.dtype)
     db = None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if need_dx:
             p = plan.dx
-            _launched("dx_halo", fdx(
-                g.data_ptr(), kp.data_ptr(), dx.data_ptr(), b, d, h, w, cin,
+            _launched(f"dx_{v}", fdx(
+                g.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, d, h, w, cin,
                 cout, *p.block, p.splits, stream))
         if need_dk:
             p = plan.dk
@@ -518,7 +654,7 @@ def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
             dbp = part[64 * cin * cout:] if need_db else None
             db = torch.empty((cout,), dtype=torch.float32, device=x.device) \
                 if need_db else None
-            _launched("dk_halo", fdk(
+            _launched(f"dk_{v}", fdk(
                 x.data_ptr(), g.data_ptr(), part.data_ptr(),
                 None if dbp is None else dbp.data_ptr(), b, d, h, w, cin,
                 cout, *p.block, p.splits, stream))
@@ -532,19 +668,14 @@ def upsample2_conv3_backward_cuda(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def _backward_fma(x, kernel, g, need_dx, need_dk, kp, need_db, dx, dk):
-    """upsample2_conv3_backward_cuda on the FMA kernels: f32 ("fast", with
-    16-byte loads), other widths or misaligned operands ("general")."""
+    """upsample2_conv3_backward_cuda on the general FMA kernels: other
+    widths, or operands off the 16-byte alignment the halo kernels' TMA
+    needs."""
     b, d, h, w, cin = x.shape
     cout = kernel.shape[-1]
-    plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout)
+    plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout, general=True)
     wb = pack_backward_kernels(kp) if need_dx else None
-    variant = plan.variant
-    if variant == "halo" or (variant == "fast" and any(
-            t is not None and t.data_ptr() % 16 for t in (x, g, wb))):
-        variant = "general"  # TMA and 16-byte loads need aligned operands
-    if variant != plan.variant:
-        plan = k1_backward_plan(x.dtype, b, d, h, w, cin, cout, general=True)
-    fdx, fdk, freduce, ffold = _backward_fns(variant, x.dtype)
+    fdx, fdk, freduce, ffold = _backward_fns("general", x.dtype)
     m = b * d * h * w
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -552,7 +683,7 @@ def _backward_fma(x, kernel, g, need_dx, need_dk, kp, need_db, dx, dk):
             p = plan.dx
             part = torch.empty((p.splits, m, cin), dtype=torch.float32,
                                device=x.device) if p.splits > 1 else dx
-            _launched(f"dx_{variant}", fdx(
+            _launched("dx_general", fdx(
                 g.data_ptr(), wb.data_ptr(), dx.data_ptr(), part.data_ptr(),
                 b, d, h, w, cin, cout, p.bm, p.bn, p.splits, stream))
             if p.splits > 1:
@@ -562,7 +693,7 @@ def _backward_fma(x, kernel, g, need_dx, need_dk, kp, need_db, dx, dk):
             p = plan.dk
             part = torch.empty((p.splits, 8, 8 * cin, cout),
                                dtype=torch.float32, device=x.device)
-            _launched(f"dk_{variant}", fdk(
+            _launched("dk_general", fdk(
                 x.data_ptr(), g.data_ptr(), part.data_ptr(), b, d, h, w, cin,
                 cout, p.bm, p.bn, p.splits, stream))
             _launched("dk_fold", ffold(part.data_ptr(), dk.data_ptr(), cin,

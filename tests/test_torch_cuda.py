@@ -137,15 +137,18 @@ def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
                                    # halo blocks overhanging W, B; odd y
                                    (3, 5, 7, 11, 64, 64),
                                    (11, 3, 2, 2, 64, 64),
-                                   (1, 3, 5, 8, 64, 128)]
+                                   (1, 3, 5, 8, 64, 128),
+                                   # a 64x64 stage at the f32 step's B 4
+                                   (4, 12, 32, 32, 128, 64)]
                          + LARGE_DOMAIN + SPATIAL_SLABS + FUSED)
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-4),
                                              ("bfloat16", 2e-2, 2e-2)])
 def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
     """The kernel's autograd.Function against autograd through the plain
     version, on the card: dx, dkernel and dbias; the backward launches the
-    kernels k1_backward_plan names (dx, an FMA dx's reduce when split, dk
-    and its fold) and gives the same bits on a second call."""
+    kernels k1_backward_plan names (dx, an FMA dx's reduce when split, the
+    f32 halo dx's weight pack, dk and its fold) and gives the same bits on
+    a second call."""
     from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32
 
@@ -174,7 +177,8 @@ def test_upsample2_conv3_gradients_match_plain(cuda, shape, dtype, rtol, atol):
     plan = upsample_conv.k1_backward_plan(dt, *shape)
     v = plan.variant
     want = {f"dx_{v}": 2, f"dk_{v}": 2, "dk_fold": 2,
-            "dx_reduce": 2 * (v != "halo" and plan.dx.splits > 1)}
+            "pack_tf32": 2 * (v == "halo_f32"),
+            "dx_reduce": 2 * (v == "general" and plan.dx.splits > 1)}
     ran = {n: c - kernels[n] for n, c in
            upsample_conv.backward_launches_by_variant.items()}
     assert ran == {n: want.get(n, 0) for n in ran}
@@ -215,23 +219,25 @@ def test_pad_only_taps_have_exactly_zero_gradient_on_the_card(cuda, dtype):
     assert grad[~mask.to(cuda)].abs().max().item() > 0.0
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("need", [(True, True), (True, False),
                                   (False, True), (False, False)])
-def test_upsample2_conv3_backward_cuda_partial_gradients(cuda, need):
+def test_upsample2_conv3_backward_cuda_partial_gradients(cuda, need, dtype):
     """Any subset of dx and dkernel equals the full call's bit for bit, and
     the bias gradient beside it (from the halo dk kernel, or by one float32
     reduction without dk) g's float32 sum."""
     from prdisagg_torch.ops import upsample_conv
 
+    dt = getattr(torch, dtype)
     rng = np.random.RandomState(5)
     x = torch.tensor(rng.randn(4, 3, 2, 2, 64).astype("f4"),
-                     device=cuda).to(torch.bfloat16)
+                     device=cuda).to(dt)
     k = torch.tensor(0.1 * rng.randn(3, 3, 3, 64, 64).astype("f4"),
                      device=cuda)
     g = torch.tensor(rng.randn(4, 6, 4, 4, 64).astype("f4"),
-                     device=cuda).to(torch.bfloat16)
-    assert upsample_conv.k1_backward_plan(torch.bfloat16, *x.shape,
-                                          64).variant == "halo"
+                     device=cuda).to(dt)
+    assert upsample_conv.k1_backward_plan(dt, *x.shape, 64).variant == \
+        upsample_conv.HALO_VARIANT[dt]
     full = upsample_conv.upsample2_conv3_backward_cuda(x, k, g, need_db=True)
     got = upsample_conv.upsample2_conv3_backward_cuda(
         x, k, g, need[0], need[1], need_db=True)
@@ -245,22 +251,24 @@ def test_upsample2_conv3_backward_cuda_partial_gradients(cuda, need):
         got[2], g.float().sum(dim=(0, 1, 2, 3)), rtol=1e-5, atol=1e-4)
 
 
-def test_upsample2_conv3_backward_misaligned_operands_take_general(cuda):
-    """A bf16 x off the 16-byte alignment that TMA and the 16-byte loads
-    need takes the general FMA kernels, and agrees with the plain
-    backward."""
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-4)])
+def test_upsample2_conv3_backward_misaligned_operands_take_general(cuda,
+                                                                   dtype, tol):
+    """An x off the 16-byte alignment that TMA needs takes the general FMA
+    kernels, counted as such, and agrees with the plain backward."""
     from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32
 
+    dt = getattr(torch, dtype)
     b, d, h, w, cin, cout = 2, 3, 2, 2, 64, 64
     rng = np.random.RandomState(6)
     buf = torch.tensor(rng.randn(b * d * h * w * cin + 1).astype("f4"),
-                       device=cuda).to(torch.bfloat16)
+                       device=cuda).to(dt)
     x = buf[1:].view(b, d, h, w, cin)
     k = torch.tensor(0.1 * rng.randn(3, 3, 3, cin, cout).astype("f4"),
                      device=cuda)
     g = torch.tensor(rng.randn(b, 2 * d, 2 * h, 2 * w, cout).astype("f4"),
-                     device=cuda).to(torch.bfloat16)
+                     device=cuda).to(dt)
     assert x.data_ptr() % 16
     before = dict(upsample_conv.backward_launches_by_variant)
     got = upsample_conv.upsample2_conv3_backward_cuda(x, k, g, need_db=True)
@@ -268,14 +276,36 @@ def test_upsample2_conv3_backward_misaligned_operands_take_general(cuda):
     ran = {n: c - before[n] for n, c in
            upsample_conv.backward_launches_by_variant.items() if c != before[n]}
     assert ran["dx_general"] == ran["dk_general"] == 1
-    assert "dx_halo" not in ran and "dk_halo" not in ran
+    assert not any(n.startswith(("dx_halo", "dk_halo")) for n in ran)
     with full_f32():
         want = upsample_conv.upsample2_conv3_backward(x, k, g)
     for have, ref in zip(got, want):
         scale = ref.float().abs().max().item()
         np.testing.assert_allclose(have.float().cpu().numpy(),
-                                   ref.float().cpu().numpy(), rtol=2e-2,
-                                   atol=2e-2 * scale)
+                                   ref.float().cpu().numpy(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 64), (256, 128),
+                                      (32, 96)])
+def test_pack_tf32_kernel_matches_its_plain_version(cuda, cin, cout):
+    """k1_pack_tf32 gives pack_backward_kernels_tf32's bits: the permuted
+    weights' TF32 hi and lo parts, hi + lo the weights within 2^-22."""
+    from prdisagg_torch.ops import upsample_conv
+
+    rng = np.random.RandomState(cin + cout)
+    k = torch.tensor(rng.randn(3, 3, 3, cin, cout).astype("f4"), device=cuda)
+    kp = upsample_conv.pack_phase_kernels(k, torch.float32)
+    before = upsample_conv.backward_launches_by_variant["pack_tf32"]
+    got = upsample_conv.pack_tf32_cuda(kp)
+    torch.cuda.synchronize()
+    assert upsample_conv.backward_launches_by_variant["pack_tf32"] == \
+        before + 1
+    assert torch.equal(got, upsample_conv.pack_backward_kernels_tf32(kp))
+    wb = upsample_conv.pack_backward_kernels(kp)
+    assert ((got[0] + got[1] - wb).abs() <= 2.0 ** -22 * wb.abs()).all()
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_conv.pack_tf32_cuda(kp.to(torch.bfloat16))
 
 
 def test_upsample2_conv3_backward_refuses_what_it_cannot_take(cuda):

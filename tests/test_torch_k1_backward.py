@@ -11,13 +11,18 @@ windows against the block's cotangent rows, the blocks of each split
 summed, the splits in rank order, the first Cin tile's column sums of the
 cotangent rows giving the bias gradient, then the fold kernel's (phase,
 tap) pairs onto the 3^3 kernel and its sum of the phases' bias sums.  The
-FMA kernels (f32 and other widths): dx as one implicit GEMM whose rows
-gather the cotangent at the 64 full-res offsets against the weights
-``pack_backward_kernels`` permutes, dk as one GEMM per phase, each
-reduction cut into ``k1_backward_plan``'s splits by ``split_range``, the
-partials summed in split order and folded.  The emulation must equal
-``upsample2_conv3_backward`` and JAX's ``jax.vjp`` of the Pallas op
-(interpret mode) within float32 rtol 1e-4, atol 1e-5 of the maximum.
+f32 halo kernels: the same walk with their own limits (units of 8
+channels, dk blocks of 64 positions), dx against the TF32 parts of the
+permuted weights (``pack_backward_kernels_tf32``), every product as three
+TF32 products of ``split_tf32``'s parts summed in float32, a fresh sum for
+each unit (dx) or block (dk) added to the split's.  The FMA kernels (other
+widths): dx as one implicit GEMM whose rows gather the cotangent at the 64
+full-res offsets against the weights ``pack_backward_kernels`` permutes,
+dk as one GEMM per phase, each reduction cut into ``k1_backward_plan``'s
+splits by ``split_range``, the partials summed in split order and folded.
+The emulation must equal ``upsample2_conv3_backward`` and JAX's
+``jax.vjp`` of the Pallas op (interpret mode) within float32 rtol 1e-4,
+atol 1e-5 of the maximum.
 """
 
 import re
@@ -217,6 +222,111 @@ def _emulate_dk(x, g, plan):
     return _fold(part), dbp.sum(0)
 
 
+def _mm3(a, b_hi, b_lo):
+    """a @ b in 3xTF32, as the f32 halo kernels take it: a split by
+    split_tf32, the three TF32 products small terms first, summed in
+    float32."""
+    a_hi, a_lo = tuc.split_tf32(a)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _emulate_dx_f32(g, kp, cin, plan):
+    """k1_dx_f32_halo: k1_dx_bf16_halo's walk with units of (phase,
+    HALO_F32_CO output channels) against the TF32 parts of the permuted
+    weights, wt[part, ci, off*Cout + c0..] with off = 16*(2p + a) +
+    4*(2q + b) + 2r + c; each unit's 3xTF32 products summed afresh, then
+    added to the split's tile; the splits' tiles summed in rank order."""
+    b, d2, h2, w2, cout = g.shape
+    d, h, w = d2 // 2, h2 // 2, w2 // 2
+    co_n = tuc.HALO_F32_CO
+    p = plan.dx
+    tn, td, th, tw = p.block
+    sd, sh, sw = td + 1, th + 1, tw + 1
+    npos = tn * td * th * tw
+    assert npos <= tuc.HALO_F32_BM and p.rows == tn * sd * sh * sw
+    assert p.rows <= tuc.HALO_F32_DX_RMAX and p.units == 8 * cout // co_n
+    wt = tuc.pack_backward_kernels_tf32(kp)
+    gflat = g.reshape(-1, cout)
+    m = torch.arange(tuc.HALO_F32_BM)
+    i_n, i_d, i_h, i_w = _local(p.block, npos)
+    i_n, i_d, i_h, i_w = (t[torch.where(m < npos, m, 0)]
+                          for t in (i_n, i_d, i_h, i_w))
+    rho0 = ((i_n * sd + i_d + 1) * sh + i_h + 1) * sw + i_w + 1
+    dx = torch.zeros(b, d, h, w, cin)
+    for origin in _blocks(p):
+        boxes = [_subbox_rows(p.block, origin, ph >> 2, (ph >> 1) & 1, ph & 1,
+                              (b, d, h, w), True) for ph in range(8)]
+        tile = None
+        for s in range(p.splits):
+            acc = torch.zeros(tuc.HALO_F32_BM, cin)
+            for u in range(*tuc.split_range(p.units, p.splits, s)):
+                ph, c0 = u & 7, (u >> 3) * co_n
+                a, bb, c = ph >> 2, (ph >> 1) & 1, ph & 1
+                box = _rows_of(gflat[:, c0:c0 + co_n], boxes[ph])
+                unit = torch.zeros(tuc.HALO_F32_BM, cin)
+                for tap in range(8):
+                    pp, q, r = tap >> 2, (tap >> 1) & 1, tap & 1
+                    off = 16 * (2 * pp + a) + 4 * (2 * q + bb) + 2 * r + c
+                    cols = slice(off * cout + c0, off * cout + c0 + co_n)
+                    rho = rho0 - (pp * sh * sw + q * sw + r)
+                    unit += _mm3(box[rho], wt[0][:, cols].T, wt[1][:, cols].T)
+                acc += unit
+            tile = acc if tile is None else tile + acc
+        n, dd, hh, ww = (o + t[:npos] for o, t in zip(
+            origin, _local(p.block, npos)))
+        keep = (n < b) & (dd < d) & (hh < h) & (ww < w)
+        dx[n[keep], dd[keep], hh[keep], ww[keep]] = tile[:npos][keep]
+    return dx
+
+
+def _emulate_dk_f32(x, g, plan):
+    """k1_dk_f32_halo, then k1_dk_fold: k1_dk_bf16_halo's walk over blocks
+    of at most HALO_F32_BP positions, each tap's product in 3xTF32 (the
+    cotangent rows split once a block, as the kernel's transpose does),
+    each block's products summed afresh, then added to the split's; the
+    splits in rank order; the fold and the phases' bias sums.  Returns
+    (dkernel, db)."""
+    b, d, h, w, cin = x.shape
+    cout = g.shape[-1]
+    p = plan.dk
+    tn, td, th, tw = p.block
+    sd, sh, sw = td + 1, th + 1, tw + 1
+    npos = tn * td * th * tw
+    assert npos <= tuc.HALO_F32_BP and p.rows == tn * sd * sh * sw
+    assert p.rows <= tuc.HALO_F32_DK_RMAX and p.tiles == 16 * (cin // 64) * (
+        cout // 64)
+    blocks = _blocks(p)
+    assert p.units == len(blocks)
+    xflat, gflat = x.reshape(-1, cin), g.reshape(-1, cout)
+    i_n, i_d, i_h, i_w = _local(p.block, npos)
+    rho0 = ((i_n * sd + i_d) * sh + i_h) * sw + i_w
+    part = torch.zeros(1, 8, 8, cin, cout)
+    dbp = torch.zeros(8, cout)
+    for ph in range(8):
+        a, bb, c = ph >> 2, (ph >> 1) & 1, ph & 1
+        for s in range(p.splits):
+            acc = torch.zeros(8, cin, cout)
+            dbs = torch.zeros(cout)
+            for bi in range(*tuc.split_range(p.units, p.splits, s)):
+                n0, d0, h0, w0 = blocks[bi]
+                box = _rows_of(xflat, _subbox_rows(
+                    p.block, blocks[bi], a, bb, c, (b, d, h, w), False))
+                n, dd, hh, ww = n0 + i_n, d0 + i_d, h0 + i_h, w0 + i_w
+                inside = (n < b) & (dd < d) & (hh < h) & (ww < w)
+                grow = (((n * 2 * d + 2 * dd + a) * 2 * h + 2 * hh + bb)
+                        * 2 * w + 2 * ww + c)
+                rows = _rows_of(gflat, torch.where(inside, grow, -1))
+                dbs += rows.sum(0)
+                r_hi, r_lo = tuc.split_tf32(rows)
+                for tap in range(8):
+                    rho = rho0 + ((tap >> 2) * sh * sw
+                                  + ((tap >> 1) & 1) * sw + (tap & 1))
+                    acc[tap] += _mm3(box[rho].T.contiguous(), r_hi, r_lo)
+            part[0, ph] += acc
+            dbp[ph] += dbs
+    return _fold(part), dbp.sum(0)
+
+
 def _emulate_dx_fma(g, wb, cin, plan):
     """The FMA dx kernels: row m gathers the cotangent row of (2d+u, 2h+v,
     2w+t), one shift from the row of (2d, 2h, 2w), masked by one test per
@@ -315,12 +425,16 @@ CASES = [
 
 def _emulate(x, k, g, plan):
     """(dx, dkernel, db) by the kernels a plan names: the halo kernels
-    with their bias sums, or the FMA kernels (db by one reduction)."""
+    (bf16 or f32) with their bias sums, or the FMA kernels (db by one
+    reduction)."""
     cin = x.shape[-1]
     kp = tuc.pack_phase_kernels(k, torch.float32)
     if plan.variant == "halo":
         dk, db = _emulate_dk(x, g, plan)
         return _emulate_dx(g, kp, cin, plan), dk, db
+    if plan.variant == "halo_f32":
+        dk, db = _emulate_dk_f32(x, g, plan)
+        return _emulate_dx_f32(g, kp, cin, plan), dk, db
     wb = tuc.pack_backward_kernels(kp)
     return (_emulate_dx_fma(g, wb, cin, plan), _emulate_dk_fma(x, g, plan),
             g.sum(dim=(0, 1, 2, 3)))
@@ -405,6 +519,61 @@ def test_packed_backward_weights_unpack_to_jax_phase_kernels(cin, cout, seed):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_split_tf32_parts_are_tf32_and_sum_to_v(seed):
+    """hi and lo carry no bits below TF32's 10-bit mantissa (their low 13
+    bits are 0), and v - hi - lo is within 2^-22 |v|, over 60 binades."""
+    rng = np.random.RandomState(seed)
+    v = torch.tensor((rng.randn(4096)
+                      * 10.0 ** rng.uniform(-18, 18, 4096)).astype("f4"))
+    hi, lo = tuc.split_tf32(v)
+    assert ((_bits(hi) & 0x1FFF) == 0).all()
+    assert ((_bits(lo) & 0x1FFF) == 0).all()
+    err = (v.double() - hi.double() - lo.double()).abs()
+    assert (err <= 2.0 ** -22 * v.double().abs()).all()
+    assert (lo.abs() <= 2.0 ** -11 * v.abs()).all()
+
+
+def test_split_tf32_rounds_to_nearest_ties_away_from_zero():
+    """As cvt.rna.tf32.f32: below half a TF32 ulp rounds down, above it up,
+    and exactly half away from zero, for either sign (round-to-even would
+    give 1.0 for 1 + 2^-11)."""
+    cases = {0x3F801000: 0x3F802000,  # 1 + 2^-11: a tie, mantissa even
+             0x3F803000: 0x3F804000,  # a tie, mantissa odd
+             0x3F800FFF: 0x3F800000, 0x3F801001: 0x3F802000,
+             0x3F7FF000: 0x3F800000}  # the carry reaches the exponent
+    src = torch.tensor(list(cases), dtype=torch.int32)
+    want = torch.tensor(list(cases.values()), dtype=torch.int32)
+    for sign in (0, -2 ** 31):
+        hi, _ = tuc.split_tf32((src | sign).view(torch.float32))
+        assert torch.equal(_bits(hi), want | sign)
+
+
+def test_split_tf32_passes_signs_zeros_inf_and_nan():
+    v = torch.tensor([0.0, -0.0, 1.5, -1.5, float("inf"), -float("inf"),
+                      float("nan")])
+    hi, lo = tuc.split_tf32(v)
+    assert torch.equal(_bits(hi)[:6], _bits(v)[:6])  # -0.0 keeps its sign
+    assert torch.isnan(hi[6])
+    assert torch.equal(lo, torch.zeros(7))
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 64), (8, 4)])
+def test_tf32_packed_weights_split_the_permuted_weights(cin, cout):
+    """pack_backward_kernels_tf32 is split_tf32 of pack_backward_kernels,
+    hi then lo, contiguous."""
+    k = torch.tensor(_x((3, 3, 3, cin, cout), seed=cin + cout))
+    kp = tuc.pack_phase_kernels(k, torch.float32)
+    wt = tuc.pack_backward_kernels_tf32(kp)
+    assert wt.shape == (2, cin, 64 * cout) and wt.is_contiguous()
+    hi, lo = tuc.split_tf32(tuc.pack_backward_kernels(kp))
+    assert torch.equal(wt[0], hi) and torch.equal(wt[1], lo)
+
+
 def test_packed_backward_weights_round_once():
     """Folded in float32, then cast: bf16 weights are the f32 ones rounded."""
     k = torch.tensor(_x((3, 3, 3, 8, 8), seed=7))
@@ -415,9 +584,11 @@ def test_packed_backward_weights_round_once():
         packed[torch.float32].to(torch.bfloat16).float().numpy())
 
 
-def _check_halo(p, shape, positions, rmax):
+def _check_halo(p, shape, positions, rmax, waves=False):
     """A halo launch's block fits its kernel and tiles the tensor once; its
-    cluster is portable and its split order covers the reduction once."""
+    cluster is portable and its split order covers the reduction once; its
+    splits fill the card (bf16), or (`waves`) run in the least time of
+    the counts allowed."""
     b, d, h, w = shape[:4]
     tn, td, th, tw = p.block
     assert tn * td * th * tw <= positions and tn <= 255
@@ -427,9 +598,19 @@ def _check_halo(p, shape, positions, rmax):
     assert 1 <= p.splits <= tuc.MAX_CLUSTER
     assert p.splits <= p.units // tuc.MIN_SPLIT_SLICES or p.splits == 1
     assert p.ctas == p.tiles * p.splits
-    # the grid fills the card, or the cluster is as large as it may be
-    assert p.ctas >= tuc.SMS or p.splits == max(1, min(
-        tuc.MAX_CLUSTER, p.units // tuc.MIN_SPLIT_SLICES))
+    if waves:
+        def time(s):
+            return -(-p.tiles * s // tuc.CLUSTER_CTAS[s]) / s
+
+        allowed = [s for s in range(1, min(tuc.MAX_CLUSTER, max(
+            1, p.units // tuc.MIN_SPLIT_SLICES)) + 1)
+            if s == 1 or p.tiles * s <= 3 * tuc.CLUSTER_CTAS[s]]
+        assert p.splits in allowed
+        assert time(p.splits) <= min(time(s) for s in allowed) / 0.95
+    else:
+        # the grid fills the card, or the cluster is as large as it may be
+        assert p.ctas >= tuc.SMS or p.splits == max(1, min(
+            tuc.MAX_CLUSTER, p.units // tuc.MIN_SPLIT_SLICES))
     ranges = [tuc.split_range(p.units, p.splits, s) for s in range(p.splits)]
     covered = np.zeros(p.units, dtype=int)
     for a0, a1 in ranges:
@@ -438,25 +619,32 @@ def _check_halo(p, shape, positions, rmax):
     assert (covered == 1).all()
 
 
+def _check_halo_plan(plan, shape, dtype):
+    """A halo plan's two launches against their dtype's limits; f32's
+    splits are the count that runs its CTAs (one an SM, CLUSTER_CTAS at a
+    time) in the least time, at most 3 waves."""
+    cin, cout = shape[4:]
+    if dtype == torch.bfloat16:
+        assert plan.variant == "halo"
+        _check_halo(plan.dx, shape, tuc.HALO_BM, tuc.HALO_DX_RMAX)
+        _check_halo(plan.dk, shape, tuc.HALO_BP, tuc.HALO_DK_RMAX)
+        return
+    assert plan.variant == "halo_f32"
+    _check_halo(plan.dx, shape, tuc.HALO_F32_BM, tuc.HALO_F32_DX_RMAX,
+                waves=True)
+    _check_halo(plan.dk, shape, tuc.HALO_F32_BP, tuc.HALO_F32_DK_RMAX,
+                waves=True)
+    assert plan.dx.units == 8 * cout // tuc.HALO_F32_CO
+    assert plan.dk.tiles == 16 * (cin // 64) * (cout // 64)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("batch", [32, 16, 192])
 @pytest.mark.parametrize("stage", range(3))
 def test_backward_plan_puts_main_path_on_fast_kernels(dtype, batch, stage):
     d, h, w, cin, cout = FLAGSHIP_STAGES[stage]
     shape = (batch, d, h, w, cin, cout)
-    plan = tuc.k1_backward_plan(dtype, *shape)
-    if dtype == torch.bfloat16:
-        assert plan.variant == "halo"
-        _check_halo(plan.dx, shape, tuc.HALO_BM, tuc.HALO_DX_RMAX)
-        _check_halo(plan.dk, shape, tuc.HALO_BP, tuc.HALO_DK_RMAX)
-        return
-    assert plan.variant == "fast"
-    m = batch * d * h * w
-    for p, tiles in ((plan.dx, -(-m // plan.dx.bm) * (cin // plan.dx.bn)),
-                     (plan.dk, 8 * (8 * cin // plan.dk.bm)
-                      * (cout // plan.dk.bn))):
-        assert p.ctas == tiles * p.splits >= tuc.SMS  # the grid fills the card
-        assert 1 <= p.splits <= p.kt // tuc.MIN_SPLIT_SLICES or p.splits == 1
+    _check_halo_plan(tuc.k1_backward_plan(dtype, *shape), shape, dtype)
 
 
 # the 64x64 generator's stages (D, H, W, Cin, Cout), and each stage's y-slab
@@ -467,16 +655,16 @@ SLABS = [(d, h // p + 2, w, cin, cout) for p in (4, 2)
          for d, h, w, cin, cout in LARGE_STAGES]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("batch", [32, 4, 1])
 @pytest.mark.parametrize("stage", LARGE_STAGES + SLABS + [(3, 5, 8, 256, 256),
                                                           (6, 9, 16, 256, 128)])
 def test_backward_plan_puts_64x64_stages_and_slabs_on_halo_kernels(batch,
-                                                                     stage):
+                                                                     stage,
+                                                                     dtype):
     shape = (batch, *stage)
-    plan = tuc.k1_backward_plan(torch.bfloat16, *shape)
-    assert plan.variant == "halo"
-    _check_halo(plan.dx, shape, tuc.HALO_BM, tuc.HALO_DX_RMAX)
-    _check_halo(plan.dk, shape, tuc.HALO_BP, tuc.HALO_DK_RMAX)
+    plan = tuc.k1_backward_plan(dtype, *shape)
+    _check_halo_plan(plan, shape, dtype)
     assert np.prod(plan.dx.grid) < 65536 and np.prod(plan.dk.grid) < 65536
 
 
@@ -535,6 +723,12 @@ def test_constants_match_the_kernel_source():
     assert const("DX_RMAX") == tuc.HALO_DX_RMAX
     assert const("DK_RMAX") == tuc.HALO_DK_RMAX
     assert const("MAX_CLUSTER") == tuc.MAX_CLUSTER
+    # the f32 halo kernels' limits
+    assert const("HF_BM") == tuc.HALO_F32_BM
+    assert const("HF_CO") == tuc.HALO_F32_CO
+    assert const("HF_DX_RMAX") == tuc.HALO_F32_DX_RMAX
+    assert const("HF_BP") == tuc.HALO_F32_BP
+    assert const("HF_DK_RMAX") == tuc.HALO_F32_DK_RMAX
     fma = re.search(r"constexpr int BM = (\d+), BN = (\d+), BK = (\d+), "
                     r"THREADS = 256;", src)
     assert fma.groups() == (str(tuc.BWD_FMA_TILE), str(tuc.BWD_FMA_TILE),
