@@ -259,6 +259,16 @@ LARGE_WARM_EPOCHS, LARGE_TIMED_EPOCHS, LARGE_STEPS = 1, 2, 10
 LARGE_PROFILE_REPLAYS = 3
 # its float32 step: K1's kernels against K1's plain route on the card
 LARGE_F32_CHECK = dict(n_disc=2, batch=4, rtol=1e-4)
+# The f32 latent projection (taken in float64 above 1,024 inputs) and head
+# (models/generator.py), timed at the 64x64 serving batch and the 64x64
+# f32 step's, the head at 16x16 and 64x64 serving's; each held to the CPU
+# tests' bound on its distance from a float64 product of the same operands
+# (tests/test_torch_precision.py PROJ_BOUND, HEAD_BOUND), the head on
+# HEAD_F64_BATCH samples.
+PROJ_BATCHES = (("serving", 512), ("step", 4))
+HEAD_SHAPES = (("16x16_serving", 1000, 16), ("64x64_serving", 512, 64))
+PROJ_F64_BOUND, HEAD_F64_BOUND = 1e-7, 3e-7
+HEAD_F64_BATCH = 8
 # sample_statistics' chunk, the large-domain protocol's 64x64 f32 forward
 EVAL_CHUNK = 500
 # the lon variant's graphed Trainer.fit at the flagship 16x16
@@ -373,6 +383,8 @@ SPLIT_STEPS = (("16x16", TRAIN_BATCH, [s[2:] for s in STAGES[:3]], "bfloat16"),
                ("64x64_f32", LARGE_F32_CHECK["batch"],
                 [s[1:] for s in LARGE_STAGES], "float32"))
 SPLIT_REPS, SPLIT_GAP_S = 5, 0.003
+# _launches: the pause after each traced call, which parts the calls' events
+LAUNCH_GAP_S = 0.05
 K1_CASES = ([(s, ("float32", "bfloat16")) for s in STAGES]
             + [(s, ("float32", "bfloat16")) for s in TRAIN_STAGES]
             + [(s, ("float32", "bfloat16")) for s in DP_STAGES]
@@ -1937,6 +1949,134 @@ def _device_events(prof) -> list:
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def _launches(fn, reps: int = 3):
+    """Device events (kernels, copies, memsets) one call of fn launches,
+    from a torch.profiler trace of `reps` calls, each synchronised and
+    followed by a pause of LAUNCH_GAP_S, so that a call's events form one
+    group in time.  CUPTI now and then drops events from a trace (whole
+    calls' worth late in a long run), and never adds one, so the count is
+    the largest group.  A trace with no device event is taken again, up to
+    DEVICE_TRACE_TRIES traces; then the count is None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(DEVICE_TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(LAUNCH_GAP_S)
+        starts = sorted((e.time_range.start, e.time_range.end)
+                        for e in _device_events(prof))
+        if not starts:
+            continue
+        sizes, end = [0], starts[0][1]
+        for start, stop in starts:
+            if start - end > LAUNCH_GAP_S * 1e6 / 2:  # us
+                sizes.append(0)
+            sizes[-1] += 1
+            end = max(end, stop)
+        return max(sizes)
+    print(f"[variants] the profiler saw no device activity in "
+          f"{DEVICE_TRACE_TRIES} traces: launches not measured")
+    return None
+
+
+def _f32_layers(gen, seed: int) -> dict:
+    """The float32 latent projection (in float64 above PROJ_F32_MAX_K
+    inputs) and head (a C -> 27 product and a tree of shifted sums) of the
+    64x64 generator module `gen` on the card: device ms (`queued_ms`) and
+    device events a call at PROJ_BATCHES and HEAD_SHAPES, beside one float32 F.linear and
+    one cuDNN F.conv3d with TF32 off (what the layers ran before) and the
+    float32 projection in chunks of 1,024 along K, and each one's
+    distance from a float64 product of the same operands on the card as a
+    share of its largest output, held to the CPU tests' bounds.  The
+    inputs are those of the CPU tests: latents N(0, 1) and conditions
+    U(0, 1); leaky-ReLU'd N(0, 1) activations and a N(0, 0.3) head."""
+    import torch
+    import torch.nn.functional as F
+
+    from prdisagg_torch.models.generator import (
+        head_conv_f32,
+        latent_projection,
+    )
+    from prdisagg_torch.ops.core import full_f32
+
+    def share(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    def chunked(x, w, b, n=1024):
+        """f32 partial products over chunks of n along K, added in order
+        (the design the float64 projection replaced)."""
+        acc = x[:, :n] @ w[:, :n].T
+        for lo in range(n, x.shape[1], n):
+            acc.addmm_(x[:, lo:lo + n], w[:, lo:lo + n].T)
+        return acc.add_(b)
+
+    dev, out = gen.latent_proj.weight.device, {}
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    w, b = gen.latent_proj.weight, gen.latent_proj.bias
+    k = w.shape[1]
+    with torch.no_grad(), full_f32():
+        for name, n in PROJ_BATCHES:
+            x = torch.cat([torch.randn(n, gen.cfg.latent_dim, generator=g,
+                                       device=dev),
+                           torch.rand(n, k - gen.cfg.latent_dim, generator=g,
+                                      device=dev)], 1)
+            ms = queued_ms(lambda: latent_projection(x, w, b), 5)
+            plain_ms = queued_ms(lambda: F.linear(x, w, b), 5)
+            chunk_ms = queued_ms(lambda: chunked(x, w, b), 5)
+            want = x.double() @ w.double().T + b.double()
+            got = latent_projection(x, w, b)
+            row = {"batch": n, "k": k, "n": w.shape[0], "ms": ms,
+                   "launches": _launches(lambda: latent_projection(x, w, b)),
+                   "f_linear_ms": plain_ms, "f_linear_launches": _launches(
+                       lambda: F.linear(x, w, b)), "chunk_1024_ms": chunk_ms,
+                   "f64_share": share(got, want),
+                   "f_linear_f64_share": share(F.linear(x, w, b), want),
+                   "chunk_1024_f64_share": share(chunked(x, w, b), want),
+                   "repeat_bit_equal": torch.equal(
+                       got, latent_projection(x, w, b))}
+            del x, want, got
+            print(f"[variants] f32 latent projection, 64x64 {name}: "
+                  + json.dumps(row))
+            check(row["f64_share"] <= PROJ_F64_BOUND
+                  and row["repeat_bit_equal"], f"f32 projection: {row}")
+            out[f"proj_{name}"] = row
+        gh = torch.Generator(device=dev).manual_seed(seed + 12)
+        for name, n, nd in HEAD_SHAPES:
+            c = gen.cfg.gen_channels[-1]
+            x = F.leaky_relu(torch.randn(n, gen.cfg.nhours, nd, nd, c,
+                                         generator=gh, device=dev), 0.2)
+            hw = 0.3 * torch.randn(1, c, 3, 3, 3, generator=gh, device=dev)
+            hb = torch.randn(1, generator=gh, device=dev)
+            head = lambda: head_conv_f32(x, hw, hb)  # noqa: E731
+            conv = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), hw,  # noqa: E731
+                                    hb, padding=1)
+            xs = x[:HEAD_F64_BATCH]
+            want = F.conv3d(xs.double().permute(0, 4, 1, 2, 3), hw.double(),
+                            hb.double(), padding=1)
+            got = head_conv_f32(x, hw, hb)
+            row = {"batch": n, "ndomain": nd, "c": c,
+                   "ms": queued_ms(head, 3), "launches": _launches(head),
+                   "conv3d_ms": queued_ms(conv, 2),
+                   "conv3d_launches": _launches(conv, 2),
+                   "f64_share": share(got[:HEAD_F64_BATCH], want),
+                   "conv3d_f64_share": share(F.conv3d(
+                       xs.permute(0, 4, 1, 2, 3), hw, hb, padding=1), want),
+                   "repeat_bit_equal": torch.equal(
+                       got, head_conv_f32(x, hw, hb))}
+            del x, xs, want, got
+            torch.cuda.empty_cache()
+            print(f"[variants] f32 head conv, {name}: " + json.dumps(row))
+            check(row["f64_share"] <= HEAD_F64_BOUND
+                  and row["repeat_bit_equal"], f"f32 head: {row}")
+            out[f"head_{name}"] = row
+    return out
 
 
 def device_ms(fn, reps: int) -> float:
@@ -3524,8 +3664,8 @@ def _batch_dependence(gen, lat, cond, lat_more, cond_more) -> dict:
     are equal.  The first layer whose input is equal and output is not is
     the one whose result depends on the batch it runs in."""
     import torch
-    import torch.nn.functional as F
 
+    from prdisagg_torch.models.generator import latent_projection
     from prdisagg_torch.ops.core import full_f32
 
     def run(lt, cd):
@@ -3539,7 +3679,7 @@ def _batch_dependence(gen, lat, cond, lat_more, cond_more) -> dict:
                 seen["fractions"] = (seen[f"conv{len(hooks) - 1}"][1], y)
                 with full_f32():
                     x = torch.cat([lt, cd.reshape(len(lt), -1)], dim=-1)
-                    seen["latent_proj"] = (x, F.linear(
+                    seen["latent_proj"] = (x, latent_projection(
                         x, gen.latent_proj.weight, gen.latent_proj.bias))
         finally:
             for h in hooks:
@@ -4296,6 +4436,7 @@ def phase_variants(ds, seed: int, workdir: str) -> dict:
     check(peak <= card_bytes / 2, f"64x64 serving takes over half the "
           f"card at max_batch {n}: {row}")
     out["large_domain_serving"] = row
+    out["f32_layers"] = _f32_layers(gen._gen, seed)
     del gen
     torch.cuda.empty_cache()
 

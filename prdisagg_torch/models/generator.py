@@ -11,7 +11,10 @@ Activations stay channels-last (B, D, H, W, C) as in the JAX package, so the
 condition flatten and the dense reshape keep the channel-last order that
 reference and JAX weights expect.  Parameters are float32; conv and matmul
 inputs run in ``cfg.compute_dtype``; pixel-norm (when ``pixelnorm_f32``) and
-the softmax run in float32.
+the softmax run in float32.  In float32 the latent projection and the head
+conv fix their order of summation (:func:`latent_projection`,
+:func:`head_conv_f32`), so that the port is no farther from the exact
+result than the JAX package on any host.
 
 With ``cfg.spatial_axis`` set, under a mesh with that axis
 (parallel/spatial.py ``use_mesh``), the y rows of every stage's output are
@@ -27,6 +30,7 @@ of the fractions; :meth:`Generator.assemble` puts them together.
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +56,90 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                          f"got {name!r}")
     return _DTYPES[name]
+
+
+# The longest input (K) whose float32 latent projection is one F.linear in
+# float32; longer ones are taken in float64 (latent_projection).
+PROJ_F32_MAX_K = 1024
+
+
+def latent_projection(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T + bias, the latent projection (JAX's ``nn.Dense``).
+
+    In float32 with more than PROJ_F32_MAX_K inputs (the 64x64 domain's K
+    is latent_dim + 64^2 * n_cond_channels), the product and the bias are
+    taken in float64 and rounded to float32 once.  A float32 product sums
+    its K terms in the BLAS's order: on an H100, cuBLAS's run over the
+    4,196 of the 64x64 flagship lands 3.1e-6 of the largest output from
+    the exact product, and float32 partial products over chunks of 1,024
+    still 1.0e-6, where one rounding is within 6e-8.  Otherwise, and
+    always in bfloat16, it is one ``F.linear``."""
+    if x.dtype != torch.float32 or x.shape[-1] <= PROJ_F32_MAX_K:
+        return F.linear(x, weight, bias)
+    return F.linear(x.double(), weight.double(), bias.double()).float()
+
+
+def _shift(n_in: int, pad: int, t: int):
+    """Tap t of a width-3 window padded by `pad` on an axis of n_in: the
+    output slice it adds to and the input slice it reads."""
+    lo, hi = max(0, pad - t), min(n_in + 2 * pad - 2, n_in + pad - t)
+    return slice(lo, hi), slice(lo + t - pad, hi + t - pad)
+
+
+class _TapSum(torch.autograd.Function):
+    """The 27 tap planes (3, 3, 3, B, D, H, W) of a 3^3 conv, each shifted
+    to where it lands (padded 1 in hours and x, `pad_h` in y) and summed:
+    three along x, then those three along y, then those three along hours,
+    so that each output is a tree of 3-term sums.  The backward copies each
+    output region's gradient back to the planes that fed it."""
+
+    @staticmethod
+    def forward(ctx, planes, pad_h: int):
+        *_, b, d, h, w = planes.shape
+        ctx.pad_h, ctx.shape = pad_h, planes.shape
+        out_shape = (b, d, h + 2 * pad_h - 2, w)
+        out, by_y, by_x = (planes.new_zeros(out_shape),
+                           planes.new_zeros(out_shape),
+                           planes.new_zeros(b, d, h, w))
+        for i in range(3):
+            by_y.zero_()
+            for j in range(3):
+                by_x.zero_()
+                for k in range(3):
+                    o, n = _shift(w, 1, k)
+                    by_x[..., o] += planes[i, j, k][..., n]
+                o, n = _shift(h, pad_h, j)
+                by_y[:, :, o] += by_x[:, :, n]
+            o, n = _shift(d, 1, i)
+            out[:, o] += by_y[:, n]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *_, d, h, w = ctx.shape
+        grad = g.new_zeros(ctx.shape)
+        for i, j, k in itertools.product(range(3), repeat=3):
+            (od, id_), (oh, ih), (ow, iw) = (
+                _shift(d, 1, i), _shift(h, ctx.pad_h, j), _shift(w, 1, k))
+            grad[i, j, k][:, id_, ih, iw] = g[:, od, oh, ow]
+        return grad, None
+
+
+def head_conv_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  pad_h: int = 1) -> torch.Tensor:
+    """The float32 head conv: Conv3D(3^3, C -> 1) of channels-last x (B, D,
+    H, W, C), padded 1 in hours and x and `pad_h` in y, NCDHW out.
+
+    One (C -> 27) product gives a plane a tap, the 27 planes are summed
+    shifted in a fixed tree (:class:`_TapSum`) and the bias is added last.
+    A convolution library sums the 27 * C products in an order of its own,
+    which on the CPU rounds 3x (C 8) to 10x (C 64) as far from the exact
+    result as JAX's head does."""
+    b, d, h, w, c = x.shape
+    taps = weight[0].permute(1, 2, 3, 0).reshape(27, c)
+    planes = torch.mm(taps, x.reshape(-1, c).T).view(3, 3, 3, b, d, h, w)
+    return (_TapSum.apply(planes, pad_h) + bias).unsqueeze(1)
 
 
 class UpsampleConv(nn.Module):
@@ -109,8 +197,8 @@ class Generator(nn.Module):
         with strict:
             b = latent.shape[0]
             x = torch.cat([latent, cond.reshape(b, -1)], dim=-1).to(cd)
-            x = F.linear(x, self.latent_proj.weight.to(cd),
-                         self.latent_proj.bias.to(cd))
+            x = latent_projection(x, self.latent_proj.weight.to(cd),
+                                  self.latent_proj.bias.to(cd))
             x = leaky_relu(x, cfg.leak)
             x = x.reshape(b, *cfg.latent_grid, cfg.base_channels)
             n = cfg.latent_grid[1]  # y rows, dim 2
@@ -145,19 +233,22 @@ class Generator(nn.Module):
 
     def _head(self, x: torch.Tensor, n: int, sp) -> torch.Tensor:
         """The 64 -> 1 head conv (SAME), NCDHW out, on a one-row halo of
-        this rank's rows where n is sharded."""
+        this rank's rows where n is sharded; in float32 as
+        :func:`head_conv_f32`."""
         cd = self.compute_dtype
         w, bias = self.head.weight.to(cd), self.head.bias.to(cd)
         if not spatial.is_sharded(n, sp):
-            x = spatial.gather_rows(x, n, sp, 2)
-            return F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=1)
+            x, pad_h = spatial.gather_rows(x, n, sp, 2), 1
+        else:
+            def need(r):
+                c, d = spatial.row_bounds(n, r, sp.size)
+                return c - 1, d + 1
 
-        def need(r):
-            c, d = spatial.row_bounds(n, r, sp.size)
-            return c - 1, d + 1
-
-        x = spatial.fetch_rows(x, n, sp, need, 2)
-        return F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=(1, 0, 1))
+            x, pad_h = spatial.fetch_rows(x, n, sp, need, 2), 0
+        if cd == torch.float32:
+            return head_conv_f32(x, w, bias, pad_h)
+        return F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias,
+                        padding=(1, pad_h, 1))
 
     def assemble(self, fractions: torch.Tensor) -> torch.Tensor:
         """The whole (B, nhours, nd, nd, 1) fractions, replicated, from each
