@@ -46,6 +46,7 @@ from prdisagg_torch.parallel.mesh import (
     batch_shard,
     replicate,
 )
+from prdisagg_torch.utils.profiling import span
 
 NORM_SCALE = 127.4
 
@@ -284,7 +285,7 @@ class PretrainedGenerator:
         """One forward; with a mesh, this rank's shard of the batch
         (zero-padded to a multiple of the mesh size), then the shards
         gathered and the padding dropped."""
-        with torch.inference_mode():
+        with span("prdisagg.forward"), torch.inference_mode():
             if self.mesh is None:
                 return gen(lat, cnd)
             n = lat.shape[0]
@@ -316,7 +317,8 @@ class PretrainedGenerator:
     @staticmethod
     def _fetch(t: torch.Tensor) -> torch.Tensor:
         """The device->host copy of a response."""
-        return t.cpu()
+        with span("prdisagg.fetch"):
+            return t.cpu()
 
     def _to_mm(self, fractions: torch.Tensor, cond0: np.ndarray) -> np.ndarray:
         """fractions (..., nhours, nd, nd) times the unnormalized daily sum
@@ -341,13 +343,15 @@ class PretrainedGenerator:
         channels after it).  Returns (n_scenarios, nhours, nd, nd) hourly
         precipitation in mm.
         """
-        cond_norm = self._normalize_cond(np.asarray(cond, dtype=np.float32))
-        if latent is None:
-            latent = self._latent(n_scenarios)
-        cond_batch = torch.as_tensor(cond_norm, device=self.device)[None]
-        cond_batch = cond_batch.expand(n_scenarios, *cond_norm.shape)
-        fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
-        return self._to_mm(fractions, cond_norm[..., 0])
+        with span("prdisagg.request"):
+            cond_norm = self._normalize_cond(
+                np.asarray(cond, dtype=np.float32))
+            if latent is None:
+                latent = self._latent(n_scenarios)
+            cond_batch = torch.as_tensor(cond_norm, device=self.device)[None]
+            cond_batch = cond_batch.expand(n_scenarios, *cond_norm.shape)
+            fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
+            return self._to_mm(fractions, cond_norm[..., 0])
 
     def generate_scenarios_batch(
         self, conds: np.ndarray, n_scenarios: int,
@@ -360,16 +364,18 @@ class PretrainedGenerator:
         — row k equals ``generate_scenarios(conds[k], n_scenarios)`` up to
         the latent draw.  `max_batch` chunking bounds device memory for
         any K."""
-        cond_norm = self._normalize_cond(
-            np.asarray(conds, dtype=np.float32))   # (K, nd, nd, C)
-        k = cond_norm.shape[0]
-        if latent is None:
-            latent = self._latent(k * n_scenarios)
-        cond_batch = torch.as_tensor(cond_norm, device=self.device)
-        cond_batch = cond_batch.repeat_interleave(n_scenarios, dim=0)
-        fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
-        fractions = fractions.reshape(k, n_scenarios, *fractions.shape[1:])
-        return self._to_mm(fractions, cond_norm[:, None, ..., 0])
+        with span("prdisagg.request"):
+            cond_norm = self._normalize_cond(
+                np.asarray(conds, dtype=np.float32))   # (K, nd, nd, C)
+            k = cond_norm.shape[0]
+            if latent is None:
+                latent = self._latent(k * n_scenarios)
+            cond_batch = torch.as_tensor(cond_norm, device=self.device)
+            cond_batch = cond_batch.repeat_interleave(n_scenarios, dim=0)
+            fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
+            fractions = fractions.reshape(k, n_scenarios,
+                                          *fractions.shape[1:])
+            return self._to_mm(fractions, cond_norm[:, None, ..., 0])
 
     def generate_scenarios_multi(
         self, conds: list, n_list: list,
@@ -391,24 +397,25 @@ class PretrainedGenerator:
         if len(conds) != len(n_list) or not conds:
             raise ValueError("conds and n_list must be equal-length and "
                              "non-empty")
-        norm, counts = [], []
-        for cond, n in zip(conds, n_list):
-            norm.append(self._normalize_cond(
-                np.asarray(cond, dtype=np.float32)))
-            counts.append(int(n))
-        total = sum(counts)
-        target = max(min(_bucket(total), self.max_batch), total)
-        latent = self._latent(target)
-        cond_batch = np.repeat(np.stack(norm), counts, axis=0)
-        if target > total:  # pad conds to the bucket shape; sliced below
-            cond_batch = np.concatenate(
-                [cond_batch, np.zeros((target - total,
-                                       *cond_batch.shape[1:]),
-                                      cond_batch.dtype)])
-        fractions = self.predict_fractions(latent, cond_batch)[:total]
-        fractions = fractions.squeeze(-1)
-        scenarios = self._to_mm(fractions, cond_batch[:total, ..., 0])
-        return list(np.split(scenarios, np.cumsum(counts)[:-1]))
+        with span("prdisagg.request"):
+            norm, counts = [], []
+            for cond, n in zip(conds, n_list):
+                norm.append(self._normalize_cond(
+                    np.asarray(cond, dtype=np.float32)))
+                counts.append(int(n))
+            total = sum(counts)
+            target = max(min(_bucket(total), self.max_batch), total)
+            latent = self._latent(target)
+            cond_batch = np.repeat(np.stack(norm), counts, axis=0)
+            if target > total:  # pad conds to the bucket shape; sliced below
+                cond_batch = np.concatenate(
+                    [cond_batch, np.zeros((target - total,
+                                           *cond_batch.shape[1:]),
+                                          cond_batch.dtype)])
+            fractions = self.predict_fractions(latent, cond_batch)[:total]
+            fractions = fractions.squeeze(-1)
+            scenarios = self._to_mm(fractions, cond_batch[:total, ..., 0])
+            return list(np.split(scenarios, np.cumsum(counts)[:-1]))
 
     def plot_scenarios(self, scenarios: np.ndarray,
                        hour_labels: str = "reference"):

@@ -42,8 +42,11 @@ Operability: `stats` reports uptime, request/error/fused-batch counters,
 total scenarios generated, and client-observed latency percentiles over
 the last 2048 scenario requests (wall time from request admission to
 response encode — queueing and lock waits included, so it is the number
-an SLA cares about).  `reload` hot-swaps the served weights from a
-`.h5`/`.npz` file of the SAME architecture without dropping a request
+an SLA cares about), and beside them `queue_wait_ms`, the same requests'
+waits from admission to the start of their compute (the batcher's queue,
+or the compute lock), which tell queueing apart from compute.  `reload`
+hot-swaps the served weights from a `.h5`/`.npz` file of the SAME
+architecture without dropping a request
 (`PretrainedGenerator.reload_params`); a mismatched file is refused and the
 old weights keep serving.  The swap is atomic: an in-flight forward uses
 whichever weights it already grabbed, never a mix.
@@ -122,11 +125,25 @@ def watch_signature(path: str):
 _BASELINE_NOW = object()  # sentinel: capture the watch baseline in __init__
 
 
+def _percentiles_ms(secs: list) -> dict:
+    """{count, p50, p90, p99, max} in ms of sorted seconds, nearest rank
+    (ceil); {count: 0} when empty."""
+    if not secs:
+        return {"count": 0}
+
+    def pct(q):
+        idx = max(0, math.ceil(q * len(secs)) - 1)
+        return round(1e3 * secs[min(len(secs) - 1, idx)], 2)
+
+    return {"count": len(secs), "p50": pct(0.50), "p90": pct(0.90),
+            "p99": pct(0.99), "max": round(1e3 * secs[-1], 2)}
+
+
 class _Pending:
     """One scenario request waiting in the micro-batch queue."""
 
     __slots__ = ("cond", "n", "is_stack", "event", "scenarios", "error",
-                 "seconds")
+                 "seconds", "queued", "waited")
 
     def __init__(self, cond, n, is_stack):
         self.cond = cond
@@ -136,6 +153,8 @@ class _Pending:
         self.scenarios = None
         self.error = None
         self.seconds = 0.0
+        self.queued = time.perf_counter()
+        self.waited = None  # seconds from the enqueue to its batch's start
 
     @property
     def samples(self) -> int:
@@ -186,6 +205,9 @@ class ScenarioServer:
         self._t_start = time.time()
         self._stats_lock = threading.Lock()
         self._latencies = collections.deque(maxlen=2048)
+        # the same requests' waits from admission to the start of their
+        # compute (the batcher's queue, or the compute lock)
+        self._queue_waits = collections.deque(maxlen=2048)
         self._scenario_requests = 0
         self._scenarios_out = 0
         self._errors = 0
@@ -263,6 +285,7 @@ class ScenarioServer:
     def _stats(self) -> dict:
         with self._stats_lock:
             lats = sorted(self._latencies)
+            waits = sorted(self._queue_waits)
             out = {
                 "ok": True,
                 "uptime_s": round(time.time() - self._t_start, 1),
@@ -276,18 +299,10 @@ class ScenarioServer:
                 "last_reload": self._last_reload,
                 "watch_path": self._watch_path,
             }
+        out["latency_ms"] = _percentiles_ms(lats)
         if lats:
-            def pct(q):  # nearest-rank (ceil) on the sorted snapshot
-                idx = max(0, math.ceil(q * len(lats)) - 1)
-                return round(1e3 * lats[min(len(lats) - 1, idx)], 2)
-
-            out["latency_ms"] = {
-                "count": len(lats), "p50": pct(0.50), "p90": pct(0.90),
-                "p99": pct(0.99), "max": round(1e3 * lats[-1], 2),
-                "mean": round(1e3 * sum(lats) / len(lats), 2),
-            }
-        else:
-            out["latency_ms"] = {"count": 0}
+            out["latency_ms"]["mean"] = round(1e3 * sum(lats) / len(lats), 2)
+        out["queue_wait_ms"] = _percentiles_ms(waits)
         return out
 
     def _reload(self, req: dict) -> dict:
@@ -347,9 +362,11 @@ class ScenarioServer:
             else:
                 print(f"[serve] watch: {resp['error']}", flush=True)
 
-    def _record_scenario(self, resp: dict, wall_s: float) -> None:
+    def _record_scenario(self, resp: dict, wall_s: float,
+                         wait_s: Optional[float]) -> None:
         """Fold one scenario request into the stats (wire-level wall time:
-        admission -> response built, queue/lock waits included)."""
+        admission -> response built, queue/lock waits included; `wait_s`
+        the part of it before its compute started)."""
         per_scenario = (self.generator.cfg.nhours
                         * self.generator.cfg.ndomain ** 2)
         with self._stats_lock:
@@ -360,6 +377,7 @@ class ScenarioServer:
                     n *= d
                 self._scenarios_out += n // per_scenario
                 self._latencies.append(wall_s)
+                self._queue_waits.append(wait_s)
             else:
                 self._errors += 1
 
@@ -433,23 +451,25 @@ class ScenarioServer:
         return resp
 
     # -- micro-batching ----------------------------------------------------------
-    def _submit_batched(self, req: dict) -> dict:
+    def _submit_batched(self, req: dict) -> tuple:
         """Parse in this handler thread, enqueue for the batcher thread,
         wait, then encode here (disk I/O and JSON/b64 encode stay off the
-        compute path and overlap across clients)."""
+        compute path and overlap across clients).  Returns the response
+        and the seconds the request waited in the queue (None if its
+        compute never started)."""
         parsed = self._parse_scenario(req)
         if isinstance(parsed, dict):
-            return parsed
+            return parsed, None
         cond, n, is_stack, encoding, out = parsed
         item = _Pending(cond, n, is_stack)
         self._queue.put(item)
         # generous: a first fused batch may also pay the kernel build
         if not item.event.wait(timeout=1200.0):
-            return {"ok": False, "error": "batched compute timed out"}
+            return {"ok": False, "error": "batched compute timed out"}, None
         if item.error is not None:
-            return {"ok": False, "error": item.error}
+            return {"ok": False, "error": item.error}, item.waited
         return self._encode_response(item.scenarios, encoding, out,
-                                     item.seconds)
+                                     item.seconds), item.waited
 
     def _batcher_loop(self) -> None:
         """Single compute thread: collect requests for up to the batch
@@ -497,6 +517,10 @@ class ScenarioServer:
                 return
 
     def _run_batch(self, batch: list) -> None:
+        t_run = time.perf_counter()
+        for item in batch:
+            if item.waited is None:  # a retry alone keeps the first start
+                item.waited = t_run - item.queued
         conds, ns, spans = [], [], []
         for item in batch:
             if item.is_stack:
@@ -565,18 +589,20 @@ class ScenarioServer:
                 if req is not None:
                     is_scenario = req.get("cmd") is None
                     t_req = time.perf_counter()
+                    wait_s = None
                     try:
                         if self._queue is not None and is_scenario:
                             # micro-batched: EVERY scenario compute runs in
                             # the batcher thread (this thread parses, waits,
                             # encodes) — including {"cmd": null, "cond": ...},
                             # which must not race the batcher's random stream
-                            resp = self._submit_batched(req)
+                            resp, wait_s = self._submit_batched(req)
                         elif is_scenario:
                             # compute + the generator's random stream are
                             # single-file; the sendall below is NOT, so a
                             # slow reader only delays itself
                             with self._compute_lock:
+                                wait_s = time.perf_counter() - t_req
                                 resp = self.handle_request(req)
                         else:
                             # control commands never wait on compute: stats
@@ -591,7 +617,7 @@ class ScenarioServer:
                                 "error": f"{type(err).__name__}: {err}"}
                     if is_scenario:
                         self._record_scenario(
-                            resp, time.perf_counter() - t_req)
+                            resp, time.perf_counter() - t_req, wait_s)
                 conn.sendall(json.dumps(resp).encode() + b"\n")
                 if self._shutdown or (max_requests is not None
                                       and self._served >= max_requests):

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from prdisagg_torch import _build
+from prdisagg_torch.utils.profiling import span
 
 # per-axis folding matrices: K2[phase] = F[phase] @ K3 along that axis
 _F0 = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 1.0]])  # sources (d-1, d)
@@ -760,8 +761,10 @@ class _UpsampleConv3(torch.autograd.Function):
     def forward(ctx, x, kernel, bias):
         ctx.bias_dtype = bias.dtype
         cpu = x.device.type == "cpu"
-        # the packed weights serve the card's backward too
-        kp = None if cpu else pack_phase_kernels(kernel, x.dtype)
+        kp = None
+        if not cpu:  # the packed weights serve the card's backward too
+            with span("prdisagg.k1.pack"):
+                kp = pack_phase_kernels(kernel, x.dtype)
         ctx.save_for_backward(x, kernel, kp)
         if cpu:
             return upsample2_conv3_reference(x, kernel, bias)
@@ -794,4 +797,5 @@ def upsample2_conv3(x: torch.Tensor, kernel: torch.Tensor,
     raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"upsample2_conv3 runs on cpu or cuda, got {x.device}")
-    return _UpsampleConv3.apply(x, kernel, bias)
+    with span("prdisagg.k1"):
+        return _UpsampleConv3.apply(x, kernel, bias)

@@ -3,6 +3,13 @@
 * `trace(logdir)`: a context manager around `torch.profiler` (CPU, and the
   card when CUDA is available) that writes a Chrome trace of whatever runs
   inside it into `logdir`, loadable in TensorBoard or Perfetto.
+* `span(name)`: a named interval of the program on the profiler's clock
+  (``record_function``) while a torch profiler records, else a shared
+  no-op context that costs one check of a flag.  The serving path opens
+  ``prdisagg.request`` (a ``generate_scenarios*`` call),
+  ``prdisagg.forward`` (one chunk's forward), ``prdisagg.k1`` (one
+  upsample-conv call), ``prdisagg.k1.pack`` (its weight pack, on the card)
+  and ``prdisagg.fetch`` (the response's device->host copy).
 * `StepTimer`: steps/s of a chain of device steps.  Launches return before
   the device finishes, so the timer syncs by fetching a caller-provided
   scalar that depends on the computation, or with
@@ -18,6 +25,9 @@ import time
 from typing import Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,6 +44,16 @@ def trace(logdir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 logdir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A context manager marking `name` in the trace while a torch profiler
+    records (``trace``, or any ``torch.profiler.profile``); otherwise a
+    shared no-op.  Spans nest on the calling thread; names are fixed, so
+    that a trace's spans sum by name."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StepTimer:

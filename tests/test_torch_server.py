@@ -136,3 +136,42 @@ def test_server_micro_batching_fuses_requests(served):
         server.shutdown()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("window_ms", [0, 50])
+def test_stats_report_queue_waits_of_served_requests(served, window_ms):
+    """queue_wait_ms counts every served scenario request, the compute
+    lock's wait unbatched and the batcher's queue batched, and each of its
+    percentiles lies within the matching latency's (a request's wait is a
+    part of its latency)."""
+    gen, sock, _, _ = served
+    server = ScenarioServer(gen, sock, batch_window_ms=window_ms)
+    thread = _serve(server)
+    cond = np.random.RandomState(2).gamma(0.6, 12.0, (16, 16)).astype("f4")
+
+    def client(i):
+        request(sock, {"cond": cond.tolist(), "n_scenarios": i + 1,
+                       "encoding": "b64"})
+
+    try:
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(3)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=60)
+        assert all(not c.is_alive() for c in clients)
+        client(3)
+        bad = request(sock, {"cond": np.zeros((5, 5)).tolist()})
+        assert not bad["ok"]
+        stats = request(sock, {"cmd": "stats"})
+        lat, wait = stats["latency_ms"], stats["queue_wait_ms"]
+        assert stats["scenario_requests"] == 5 and stats["errors"] == 1
+        assert wait["count"] == lat["count"] == 4
+        for key in ("p50", "p90", "p99", "max"):
+            assert 0 <= wait[key] <= lat[key]
+        request(sock, {"cmd": "shutdown"})
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
