@@ -316,9 +316,8 @@ WIRE_F16_RTOL = 1e-3
 # kernel launches of one flagship train step, through the wrappers: K1's
 # forward, its backward passes and K2 (K1's backward kernels by
 # train_per_step())
-TRAIN_PER_STEP = {"upsample2_conv3": 6, "upsample2_conv3_fast": 6,
-                  "upsample2_conv3_general": 0,
-                  "upsample2_conv3_backward": 3, "gather_patches": 2}
+TRAIN_PER_STEP = {"upsample2_conv3": 6, "upsample2_conv3_backward": 3,
+                  "gather_patches": 2}
 # data parallelism: gloo's world on the one card; the crps_gan check's
 # samples (at EVAL_MEMBERS members); the gloo step's dataset (days, ny, nx)
 DP_GLOO_WORLD = 2
@@ -448,6 +447,9 @@ def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
                 for k in upsample_conv.BACKWARD_KERNELS})
     if stages is None:
         stages = [s[:1] + s[2:] for s in STAGES[:3]]
+    # the held-over n_disc*B forward and the generator update's B
+    per.update({f"upsample2_conv3_{v}": n for v, n in k1_forward_expected(
+        dtype, (N_DISC * batch, batch), stages).items()})
     for _, d, h, w, cin, cout in stages:
         plan = upsample_conv.k1_backward_plan(getattr(torch, dtype), batch, d,
                                               h, w, cin, cout)
@@ -496,8 +498,33 @@ def reset_k1_counts() -> None:
 
 
 def fast_only(n: int) -> dict:
-    """K1's launches by variant when the main path made n, all fast."""
-    return {"fast": n, "general": 0}
+    """K1's launches by variant when the main path made n, all fast (bf16:
+    wgmma)."""
+    return {"fast": n, "general": 0, "halo_f32": 0}
+
+
+def main_only(by_variant: dict, n: int) -> bool:
+    """Whether K1's launches by variant are n on the main path's kernels
+    (fast or halo_f32), none general."""
+    return by_variant["general"] == 0 and sum(by_variant.values()) == n
+
+
+def k1_forward_expected(dtype: str, batches, stages=None) -> dict:
+    """K1's launches by variant of one generator forward at each of
+    `batches`, as k1_plan picks them; `stages` (name, D, H, W, Cin, Cout),
+    the 16x16 ones by default."""
+    import torch
+
+    from prdisagg_torch.ops import upsample_conv
+
+    if stages is None:
+        stages = [s[:1] + s[2:] for s in STAGES[:3]]
+    want = dict.fromkeys(upsample_conv.VARIANTS, 0)
+    for b in batches:
+        for _, d, h, w, cin, cout in stages:
+            want[upsample_conv.k1_plan(getattr(torch, dtype), b, d, h, w,
+                                       cin, cout).variant] += 1
+    return want
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -896,6 +923,111 @@ def phase_k1_backward_split(seed: int) -> dict:
     return out
 
 
+# K1's f32 forward by kernel: (name, batch, D, H, W, Cin, Cout) at the
+# serving batches (16x16 B 1000, 64x64 B 512 and 488), the f32 step's
+# (B 32, its fused B 192, the 64x64 step's B 4), crps_gan's member batch,
+# a spatial rank's slab and small or ragged batches
+K1_FORWARD_CASES = (
+    [(f"serve16_{n}", 1000, *s[1:]) for n, *s in STAGES[:3]]
+    + [(f"serve64_{n}", 512, d, h, w, cin, cout)
+       for n, d, h, w, cin, cout in LARGE_STAGES]
+    + [("serve64_last_b488", 488, *LARGE_STAGES[2][1:])]
+    + [(f"step16_{n}", TRAIN_BATCH, *s[1:]) for n, *s in STAGES[:3]]
+    + [(f"fused16_{n}", (N_DISC + 1) * TRAIN_BATCH, *s[1:])
+       for n, *s in STAGES[:3]]
+    + [(f"step64_{n}", LARGE_F32_CHECK["batch"], d, h, w, cin, cout)
+       for n, d, h, w, cin, cout in LARGE_STAGES]
+    + [(f"crps_{n}", EVAL_MEMBER_BATCH, *s[1:]) for n, *s in STAGES[:3]]
+    + [("slab64_p4_stage2", 4, 12, 32 // 4 + 2, 32, 128, 64),
+       ("small_b3_stage0", 3, 3, 2, 2, 256, 256),
+       ("small_b5_stage1", 5, 6, 4, 4, 256, 128),
+       ("ragged_b33_stage1", 33, 6, 4, 4, 256, 128)])
+
+
+def _ptxas_lines(name: str, kernels: tuple) -> list:
+    """The ptxas report (registers, spills) of the kernels whose mangled
+    names contain one of `kernels`, from this process's build log."""
+    from prdisagg_torch import _build
+
+    lines = _build.build_logs.get(name, "").splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(
+                k in line for k in kernels):
+            out += [ln.strip() for ln in lines[i:i + 5]
+                    if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    return out
+
+
+def phase_k1_forward(seed: int) -> dict:
+    """K1's f32 forward by kernel at K1_FORWARD_CASES: the halo forward at
+    k1_plan's tile and at each of HALO_F32_FW_TILES, and the FMA kernel at
+    its tile, each against the plain version (TF32 off; rtol 1e-4, atol
+    1e-5 of the largest value) and timed in device ms (queued_ms), beside
+    the plain version, the exact-FMA and 3xTF32 bounds; the weight split
+    bit for bit against its plain version.  Prints [k1_forward] rows."""
+    import torch
+
+    from prdisagg_torch.ops import upsample_conv as uc
+    from prdisagg_torch.ops.core import full_f32
+
+    for line in _ptxas_lines("upsample_conv", ("k1_f32_halo",
+                                               "k1_pack_fwd_tf32")):
+        print("[k1_forward] ptxas " + line)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    rtol, atol = TOL["float32"]
+    rows, ok, packs = [], True, set()
+    for name, b, d, h, w, cin, cout in K1_FORWARD_CASES:
+        x = torch.randn((b, d, h, w, cin), generator=gen, device=dev)
+        k = 0.02 * torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev)
+        bias = 0.02 * torch.randn((cout,), generator=gen, device=dev)
+        kp = uc.pack_phase_kernels(k, torch.float32)
+        if (cin, cout) not in packs:
+            packs.add((cin, cout))
+            same = torch.equal(uc.pack_fwd_tf32_cuda(kp),
+                               uc.pack_phase_kernels_tf32(kp))
+            print(f"[k1_forward] pack Cin {cin} Cout {cout}: bit for bit "
+                  f"{same}")
+            ok &= same
+        flops = 2 * 64 * b * d * h * w * cin * cout
+        heavy = flops > HEAVY_FLOPS
+        with full_f32():
+            ref = uc.upsample2_conv3_reference(x, k, bias)
+            plain_ms = queued_ms(
+                lambda: uc.upsample2_conv3_reference(x, k, bias),
+                1 if heavy else 5)
+        chosen = uc.k1_plan(torch.float32, b, d, h, w, cin, cout)
+        plans = [chosen] + [
+            p for p in (uc._halo_forward_plan(b, d, h, w, cout, (bm,))
+                        for bm in uc.HALO_F32_FW_TILES)
+            if p != chosen] + [
+            uc.fast_plan(b, d, h, w, cout)]
+        for plan in plans:
+            got = uc.upsample2_conv3_cuda(x, kp, bias, plan)
+            torch.cuda.synchronize()
+            good, err, scale = _compare(got, ref, rtol, atol)
+            del got
+            ms = queued_ms(lambda: uc.upsample2_conv3_cuda(x, kp, bias, plan),
+                           2 if heavy else 10)
+            row = {"case": name, "shape": [b, d, h, w, cin, cout],
+                   "variant": plan.variant, "chosen": plan == chosen,
+                   "tile": [plan.bm, plan.bn], "block": list(plan.block),
+                   "ctas": plan.ctas, "ok": good, "max_err_over_max": err /
+                   scale, "ms": ms, "plain_ms": plain_ms,
+                   "fma_bound_ms": 1e3 * flops / PEAK_F32_FLOPS,
+                   "tf32x3_bound_ms": 3e3 * flops / PEAK_TF32_FLOPS,
+                   "tf32x3_share": 3e3 * flops / PEAK_TF32_FLOPS / ms}
+            print("[k1_forward] " + json.dumps(row), flush=True)
+            rows.append(row)
+            ok &= good
+        del x, ref, kp
+        torch.cuda.empty_cache()
+    check(ok, "K1's f32 forward disagrees with its plain version (see "
+          "[k1_forward] lines)")
+    return {"rows": rows}
+
+
 # the split phase's own process: its time limit
 SPLIT_LIMIT_S = 300
 
@@ -991,8 +1123,9 @@ def phase_kernel_check(seed: int) -> dict:
                 variant = [v for v in counts if counts[v] != before[v]]
                 plan = upsample_conv.k1_plan(dtype, b, d, h, w, cin, cout)
                 good, max_err, scale = _compare(got, ref, rtol, atol)
-                # every flagship and 64x64 stage takes the fast kernel
-                good &= variant == ["fast"]
+                # every flagship and 64x64 stage takes the main path's
+                # kernel (k1_plan's: fast, or halo_f32 in f32)
+                good &= variant == [plan.variant] != ["general"]
                 out_shape = ref.shape
                 del got, ref
                 extra = {}
@@ -1292,9 +1425,10 @@ def _k1_backward_ms(prof) -> float:
 
 # the hand-written kernels, by a part of their names in a profile
 BY_NAME = ("k1_bf16_wgmma", "k1_f32_fma", "k1_general", "k2_gather",
-           "k1_dx_bf16_halo", "k1_dk_bf16_halo", "k1_dx_f32_halo",
-           "k1_dk_f32_halo", "k1_pack_tf32", "k1_dx_fma", "k1_dk_fma",
-           "k1_dx_reduce", "k1_dk_fold")
+           "k1_f32_halo", "k1_pack_fwd_tf32", "k1_dx_bf16_halo",
+           "k1_dk_bf16_halo", "k1_dx_f32_halo", "k1_dk_f32_halo",
+           "k1_pack_tf32", "k1_dx_fma", "k1_dk_fma", "k1_dx_reduce",
+           "k1_dk_fold")
 # K1's backward kernels' counter names (BACKWARD_KERNELS) by profile name;
 # the FMA kernels also ran f32 as "dx_fast" and "dk_fast" before the f32
 # halo kernels, named here so that --f32-step can measure such a tree
@@ -1356,7 +1490,7 @@ def _fit_counted(trainer, steps: int, per_step: dict, tag: str) -> tuple:
     Returns (hist, counts of the kernels run)."""
     import torch
 
-    from prdisagg_torch.ops import gather
+    from prdisagg_torch.ops import gather, upsample_conv
     from prdisagg_torch.train import wgan_gp
 
     torch.cuda.synchronize()
@@ -1381,8 +1515,8 @@ def _fit_counted(trainer, steps: int, per_step: dict, tag: str) -> tuple:
                        for k, n in per_step.items()}, wrappers)
     counts = {"upsample2_conv3": executed["upsample2_conv3"],
               "upsample2_conv3_by_variant": {
-                  v: executed[f"upsample2_conv3_{v}"] for v in ("fast",
-                                                               "general")},
+                  v: executed[f"upsample2_conv3_{v}"]
+                  for v in upsample_conv.VARIANTS},
               "upsample2_conv3_backward": executed["upsample2_conv3_backward"],
               "upsample2_conv3_backward_kernels": _backward_kernels(executed),
               "gather_patches": executed["gather_patches"]}
@@ -1421,15 +1555,19 @@ def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
                    dtype: str = "bfloat16") -> dict:
     """A profile of one call of `replays` graphed steps (step_fn's
     steps_per_call): device busy and idle share, and the hand-written
-    kernels counted by name inside the replays (K1 forward on its fast
-    kernel, wgmma in bf16, 6 a step; its backward kernels as `per_step`
-    says; K2 2 a step) with their device ms a step.  CUPTI now and then
+    kernels counted by name inside the replays (K1's forward and backward
+    kernels as `per_step` says: 6 forwards a step, on wgmma in bf16 and on
+    the halo forward and its weight split in f32; K2 2 a step) with their
+    device ms a step.  CUPTI now and then
     drops events of a long trace, so a trace whose counts differ is taken
     again, up to DEVICE_TRACE_TRIES traces, before the check fails."""
     import torch
 
-    want = {"k1_bf16_wgmma" if dtype == "bfloat16" else "k1_f32_fma": 6,
-            "k2_gather": 2}
+    fast = "k1_bf16_wgmma" if dtype == "bfloat16" else "k1_f32_fma"
+    halo = per_step.get("upsample2_conv3_halo_f32", 0)
+    want = {fast: per_step.get("upsample2_conv3_fast", 0),
+            "k1_general": per_step.get("upsample2_conv3_general", 0),
+            "k1_f32_halo": halo, "k1_pack_fwd_tf32": halo, "k2_gather": 2}
     want.update({n: sum(per_step.get(f"upsample2_conv3_backward_{k}", 0)
                         for k in ks)
                  for n, ks in BACKWARD_BY_NAME.items()})
@@ -2206,8 +2344,9 @@ def phase_slice(seed: int, workdir: str) -> dict:
     print(f"[slice] main path: generate_scenarios(cond, {SCENARIOS}) "
           f"launched the kernel {launches} times {by_variant} (max_batch "
           f"{gen.max_batch})")
-    check(launches == 3 and by_variant == fast_only(3),
-          f"expected 3 fast kernel launches, got {by_variant}")
+    check(launches == 3
+          and by_variant == k1_forward_expected("float32", [SCENARIOS]),
+          f"expected 3 halo_f32 kernel launches, got {by_variant}")
     check(scen.shape == (SCENARIOS, 24, 16, 16), scen.shape)
     check(np.isfinite(scen).all(), "non-finite scenarios")
     cons = _conservation_err(scen, cond)
@@ -2313,8 +2452,9 @@ def phase_serve(sl: dict) -> None:
           f"launches {upsample_conv.launches} for 2 scenario requests")
     check(cons <= CONSERVATION_RTOL, f"conservation error {cons}")
     check(upsample_conv.launches == 6
-          and upsample_conv.launches_by_variant == fast_only(6),
-          f"expected 6 fast kernel launches, got "
+          and upsample_conv.launches_by_variant == k1_forward_expected(
+              "float32", [16, 8 * 4]),
+          f"expected 6 main-path kernel launches, got "
           f"{upsample_conv.launches_by_variant}")
 
 
@@ -2615,8 +2755,8 @@ def phase_eval(ds, sl: dict, seed: int, workdir: str) -> dict:
     print(f"[eval] main path: launches by item (K1, K2) {got}, in all "
           f"{counts}")
     check(got == want, f"eval launches {got}, expected {want}")
-    check(counts["upsample2_conv3_by_variant"]
-          == fast_only(counts["upsample2_conv3"]), counts)
+    check(main_only(counts["upsample2_conv3_by_variant"],
+                    counts["upsample2_conv3"]), counts)
 
     t = items["crps_gan"]["seconds"]
     _eval_item("crps_gan", {
@@ -2804,8 +2944,8 @@ def phase_rainfarm(ds, sl: dict, seed: int, workdir: str) -> dict:
     print(f"[rainfarm] main path: launches by item (K1, K2) {got}, in all "
           f"{counts}")
     check(got == want, f"rainfarm launches {got}, expected {want}")
-    check(counts["upsample2_conv3_by_variant"]
-          == fast_only(counts["upsample2_conv3"]), counts)
+    check(main_only(counts["upsample2_conv3_by_variant"],
+                    counts["upsample2_conv3"]), counts)
 
     for i, (a, b) in enumerate(slopes):
         print(f"[rainfarm] repeat {i}: alpha={a:.6f} beta={b:.6f}")
@@ -3397,6 +3537,8 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
     """Data parallelism through its workers (phase 15 of the docstring)."""
     import numpy as np
 
+    from prdisagg_torch.ops import upsample_conv
+
     os.makedirs(workdir, exist_ok=True)
     rng = np.random.RandomState(seed + 8)
     reals = rng.gamma(0.5, 0.4, (DP_CRPS_SAMPLES, 24, 16, 16)).astype("f4")
@@ -3498,8 +3640,11 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
         # forward (3)
         half = DP_CRPS_SAMPLES // DP_GLOO_WORLD
         want = train_per_step("float32", TRAIN_BATCH // DP_GLOO_WORLD)
-        for k in ("upsample2_conv3", "upsample2_conv3_fast"):
-            want[k] += 3 * half * (EVAL_MEMBERS // EVAL_MEMBER_BATCH) + 3
+        scored = [EVAL_MEMBER_BATCH] * (half * EVAL_MEMBERS
+                                        // EVAL_MEMBER_BATCH) + [SCENARIOS]
+        want["upsample2_conv3"] += 3 * len(scored)
+        for v, n in k1_forward_expected("float32", scored).items():
+            want[f"upsample2_conv3_{v}"] += n
         check(g["counts"] == want, f"gloo rank launches {g['counts']}, "
               f"expected {want}")
     check("data-parallel over 1 rank(s)" in res["cli_train"]["log"],
@@ -3535,8 +3680,8 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
     return {"counts": {
         "upsample2_conv3": counts["upsample2_conv3"],
         "upsample2_conv3_by_variant": {
-            "fast": counts["upsample2_conv3_fast"],
-            "general": counts["upsample2_conv3_general"]},
+            v: counts[f"upsample2_conv3_{v}"]
+            for v in upsample_conv.VARIANTS},
         "upsample2_conv3_backward": counts["upsample2_conv3_backward"],
         "upsample2_conv3_backward_kernels": _backward_kernels(counts),
         "gather_patches": counts["gather_patches"]},
@@ -3599,7 +3744,9 @@ def phase_fused(ds, seed: int) -> dict:
             steps[name] = (fn, state)
         rates[name].append(_graphed_rate(*steps[name], ds))
     want = train_per_step("bfloat16", (N_DISC + 1) * TRAIN_BATCH)
-    want["upsample2_conv3"] = want["upsample2_conv3_fast"] = 3
+    want["upsample2_conv3"] = 3
+    want.update({f"upsample2_conv3_{v}": n for v, n in k1_forward_expected(
+        "bfloat16", [(N_DISC + 1) * TRAIN_BATCH]).items()})
     check(counts["fused"]["per_replay"] == want,
           f"fused replay's launches {counts['fused']['per_replay']}, "
           f"expected {want}")
@@ -3697,10 +3844,12 @@ def _batch_dependence(gen, lat, cond, lat_more, cond_more) -> dict:
 
 def _path_counts(c: dict) -> dict:
     """A path's counters in the shape the kernels line sums."""
+    from prdisagg_torch.ops import upsample_conv
+
     return {"upsample2_conv3": c["upsample2_conv3"],
             "upsample2_conv3_by_variant": {
-                "fast": c["upsample2_conv3_fast"],
-                "general": c["upsample2_conv3_general"]},
+                v: c[f"upsample2_conv3_{v}"]
+                for v in upsample_conv.VARIANTS},
             "upsample2_conv3_backward": c["upsample2_conv3_backward"],
             "upsample2_conv3_backward_kernels": _backward_kernels(c),
             "gather_patches": c["gather_patches"]}
@@ -4408,8 +4557,8 @@ def phase_variants(ds, seed: int, workdir: str) -> dict:
     serve_counts = {"upsample2_conv3": upsample_conv.launches,
                     "upsample2_conv3_by_variant":
                         dict(upsample_conv.launches_by_variant)}
-    check(serve_counts["upsample2_conv3_by_variant"] == fast_only(3),
-          serve_counts)
+    check(serve_counts["upsample2_conv3_by_variant"] == k1_forward_expected(
+        "float32", [n], [s[:1] + s[1:] for s in LARGE_STAGES]), serve_counts)
     check(scen.shape == (n, 24, ND_LARGE, ND_LARGE)
           and np.isfinite(scen).all(), scen.shape)
     scen_cons = _conservation_err(scen, cond)
@@ -4850,6 +4999,8 @@ def main() -> int:
     ap.add_argument("--k1-backward-split", action="store_true")
     # only the device, build, dataset and f32 graphed-step phases
     ap.add_argument("--f32-step", action="store_true")
+    # only the device, build and K1 f32 forward phases
+    ap.add_argument("--k1-forward", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -4880,6 +5031,9 @@ def main() -> int:
         return 1
     if args.k1_backward_split:
         phase_k1_backward_split(args.seed)
+        return 0
+    if args.k1_forward:
+        phase_k1_forward(args.seed)
         return 0
     if args.f32_step:
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:

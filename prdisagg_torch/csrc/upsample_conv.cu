@@ -34,7 +34,7 @@
 // 16 bytes wide and keeps the 8 phases of an M tile adjacent in the grid,
 // so that the re-reads come from L2 and not from HBM.
 //
-// Three kernels, chosen by shape in Python (k1_plan in ops/upsample_conv.py):
+// Four kernels, chosen by shape in Python (k1_plan in ops/upsample_conv.py):
 //
 // * k1_bf16_wgmma (bf16, Cin % 64 == 0, Cout % 64 == 0): per CTA a BM x BN
 //   tile (128 x 128, 128 x 64 or 64 x 64; one warpgroup per 64 rows) of one
@@ -50,7 +50,28 @@
 //   adds the bias in f32, rounds once to bf16 and stores bf16 pairs (the
 //   widest unit of the accumulator layout) straight into the interleaved
 //   (B, 2D, 2H, 2W, Cout) output.
-// * k1_f32_fma (f32, Cin % 32 == 0, Cout % 64 == 0): exact f32 FMA (no TF32).
+// * k1_f32_halo (f32, Cin % 64 == 0, Cout % 64 == 0; the tf namespace, in
+//   the backward section below, beside the f32 backward whose walk it
+//   shares): the same TPU kernel's f32 path on the TF32 tensor cores.
+//   What bounds f32 here: exact FMA runs at 67 TFLOP/s, so the three
+//   flagship stages at B 1000 (1.309e12 FLOPs) take at least 19.5 ms; a
+//   value split into TF32 hi + lo, three TF32 products (lo*hi + hi*lo +
+//   hi*hi) keep f32 accuracy at 495 TFLOP/s, 7.9 ms.  Reaching that needs
+//   wgmma, and wgmma reads A in 1024-byte swizzled atoms that a tap's
+//   shifted rows break, so the im2col gather above would copy each input
+//   row 64 times.  Instead a CTA copies the block's input sub-box of a
+//   phase once, one TMA box (zero fill is SAME padding and ragged edges),
+//   and reads every tap as a shifted window of it by ldmatrix into the
+//   register form of wgmma, splitting A into hi and lo in registers; the
+//   weights come split and swizzled by k1_pack_fwd_tf32 (one launch a
+//   call), a unit's 32 KB as one bulk copy.  The tensor cores round their
+//   f32 sums toward zero, so each unit of 8 input channels (24 wgmmas)
+//   starts a fresh accumulator, added to f32 sums in registers.  The plan
+//   takes its tile of 128, 192 or 256 positions (2 to 4 warpgroups) by the
+//   waves of work items it makes; it ran faster than k1_f32_fma at every
+//   f32 shape measured on an H100, from B 3 up.
+// * k1_f32_fma (f32, Cin % 32 == 0, Cout % 64 == 0, where k1_f32_halo does
+//   not take the shape): exact f32 FMA (no TF32).
 //   The same cp.async ring (3 stages of BK = 32) with rows padded to 36
 //   floats, so the float4 reads of 4 rows (A) or 8 rows (B) by a warp fall on
 //   distinct banks.  Each thread holds an 8 x 8 tile: per 4 reduction steps
@@ -60,15 +81,18 @@
 //   32-deep slices loaded synchronously, f32 FMA) for widths the two fast
 //   kernels do not take, such as the smoke-test models' 8 channels.
 //
-// Both fast kernels put the phase on the fastest grid axis (block id =
-// 8 * tile + phase), so the 8 phases of one M tile, which read the same input
-// rows, run together while those rows are in L2.  The tile is chosen so
-// that the grid fills the 132 SMs at the training batch.
+// The fast kernels put the phase on the fastest grid axis (block id =
+// 8 * tile + phase; k1_f32_halo its work items likewise), so the 8 phases
+// of one M tile, which read the same input rows, run together while those
+// rows are in L2.  The tile is chosen so that the grid fills the 132 SMs at
+// the training batch.
 //
 // Launch contract: runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() of the launch.  A fast kernel's
 // shared-memory limit is raised once per device, at its first launch there,
-// so a launch inside a CUDA graph capture is the launch alone.
+// so a launch inside a CUDA graph capture is the launch alone; the TMA
+// descriptors of the halo kernels are kernel parameters, encoded at each
+// launch from the operands' (in a graph, stable) addresses.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
 #include <cuda_bf16.h>
@@ -2122,6 +2146,255 @@ k1_pack_tf32(const float* __restrict__ kp, float* __restrict__ wt, int Cin,
   }
 }
 
+// ------------------ forward, f32: halo boxes, 3xTF32 wgmma (k1_f32_halo)
+
+// The forward's limits: a phase's sub-box rows (32 bytes each), ring
+// stages, output channels a work item, and a unit's weights in bytes (8
+// taps x (hi, lo) x 64 rows of 8 floats)
+constexpr int HF_FW_RMAX = 768;
+constexpr int HF_FW_STAGES = 4;
+constexpr int HF_FW_BN = 64;
+constexpr int HF_FW_B = 16 * HF_FW_BN * 32;
+
+__host__ __device__ constexpr int f32_fw_slot() {
+  return HF_FW_RMAX * 32 + HF_FW_B;
+}
+
+__host__ __device__ constexpr int f32_fw_smem_bytes() {
+  return HF_FW_STAGES * f32_fw_slot() + HF_FW_STAGES * 16 + 1024;
+}
+
+// a contiguous copy of `bytes` from device memory into shared memory,
+// counted on an mbarrier like a TMA box
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// K1's forward in f32: the halo walk of k1_dx_f32_halo with the roles of
+// the operands swapped.  A work item is one phase (a, b, c), one block of
+// at most BM = 64 * NWG positions (tn, td, th, tw) and 64 output
+// channels co0..; items are ordered phase fastest, then block, then the
+// channel tile, so that the 8 phases of a block, which read the same input
+// rows, run together, and the CTAs at work share one tile's weights.  The
+// kernel is persistent: a CTA an SM walks the items gridDim.x apart, and
+// its producer warp runs on into the next item while the consumers store
+// the last one.  An item's reduction runs over units of 8 input channels
+// c0..: per unit the phase's input sub-box of those channels (x at (d0 + a
+// - 1 + ld, ...), R rows of 32 bytes, zero outside the input: one TMA box,
+// 32-byte swizzle) and the unit's weights, 8 taps x (hi, lo) tiles of 64
+// rows (co) by 8 floats (k), K-major as TF32's wgmma needs B, laid out and
+// swizzled by k1_pack_fwd_tf32 so that they are one bulk copy.  Tap (p, q,
+// r) of position (in, id, ih, iw) reads sub-box row (in, id+p, ih+q, iw+r)
+// by ldmatrix, which on f32 rows gives the tf32 A fragment of a k8 step;
+// A is split into hi and lo in registers, and each product taken as three
+// TF32 wgmmas.  Consumer warpgroup w holds rows 64w.. of the tile (two
+// tiles a warpgroup would need 168 registers, and spilled).  Each unit's
+// products start a fresh accumulator, added at the unit's end to the
+// thread's f32 sums (the tensor cores round their sums toward zero); the
+// epilogue adds the bias and stores straight into the interleaved output.
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+k1_f32_halo(const __grid_constant__ CUtensorMap map_x,
+            const float* __restrict__ wf, const float* __restrict__ bias,
+            float* __restrict__ out, int B, int D, int H, int W, int Cin,
+            int Cout, Blocks bl) {
+  constexpr int CONSUMERS = NWG * 128;
+  constexpr int A_BYTES = HF_FW_RMAX * 32;
+  constexpr int SLOT = f32_fw_slot();
+  constexpr int STAGES = HF_FW_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t full = base + STAGES * SLOT, empty = full + 8 * STAGES;
+
+  const int SD = bl.td + 1, SH = bl.th + 1, SW = bl.tw + 1;
+  const int R = bl.tn * SD * SH * SW;
+  const int P = bl.tn * bl.td * bl.th * bl.tw;
+  const int nblk = ((B + bl.tn - 1) / bl.tn) * bl.nbd * bl.nbh * bl.nbw;
+  const int items = 8 * nblk * (Cout / HF_FW_BN);
+  const int U = Cin / 8;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      tc::mbar_init(full + 8 * i, 1);
+      tc::mbar_init(empty + 8 * i, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp_id = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (warp_id == CONSUMERS / 32) {
+    // the producer: the k-th unit of this CTA into slot k % STAGES once
+    // the consumers have released the unit STAGES back
+    if (lane == 0) {
+      int k = 0;
+      for (int wi = blockIdx.x; wi < items; wi += gridDim.x) {
+        const int phase = wi & 7, rest = wi >> 3;
+        int n0, d0, h0, w0;
+        bl.origin(rest % nblk, n0, d0, h0, w0);
+        const int a = phase >> 2, b = (phase >> 1) & 1, c = phase & 1;
+        const float* wu =
+            wf + (size_t)((rest / nblk) * 8 + phase) * U * (HF_FW_B / 4);
+        for (int u = 0; u < U; ++u, ++k) {
+          const int slot = k % STAGES;
+          if (k >= STAGES)
+            tc::mbar_wait(empty + 8 * slot, (k / STAGES - 1) & 1);
+          const uint32_t dst = base + slot * SLOT, bar = full + 8 * slot;
+          tc::mbar_expect(bar, R * 32 + HF_FW_B);
+          tc::tma_load_5d(dst, &map_x, bar, 8 * u, w0 + c - 1, h0 + b - 1,
+                          d0 + a - 1, n0);
+          bulk_load(dst + A_BYTES, wu + (size_t)u * (HF_FW_B / 4), HF_FW_B,
+                    bar);
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // the consumers: this lane's ldmatrix row (position m of the warp's 16)
+  // at tap (0, 0, 0), and its 16-byte chunk kc
+  const int wg = warp_id >> 2, warp = warp_id & 3;
+  const int kc = lane >> 4;
+  int rho0;
+  {
+    const int m = wg * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    int q = m < P ? m : 0;  // rows past the block read a real row, unstored
+    const int iw = q % bl.tw;
+    q /= bl.tw;
+    const int ih = q % bl.th;
+    q /= bl.th;
+    const int id = q % bl.td;
+    rho0 = (((q / bl.td) * SD + id) * SH + ih) * SW + iw;
+  }
+
+  float acc[32], sum[32];
+  uint32_t alo[2][1][4], ahi[2][1][4];
+  int k = 0;
+  for (int wi = blockIdx.x; wi < items; wi += gridDim.x) {
+    const int phase = wi & 7, rest = wi >> 3;
+    const int co0 = (rest / nblk) * HF_FW_BN;
+    int n0, d0, h0, w0;
+    bl.origin(rest % nblk, n0, d0, h0, w0);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = sum[e] = 0.0f;
+
+    for (int u = 0; u < U; ++u, ++k) {
+      const int slot = k % STAGES;
+      tc::mbar_wait(full + 8 * slot, (k / STAGES) & 1);
+      const uint32_t a_sub = base + slot * SLOT;
+      const uint32_t b_sub = a_sub + A_BYTES;
+      // a tap's wgmmas are one group, on A registers of the tap's parity:
+      // at most one group stays in flight, so the registers an ldmatrix
+      // refills were last read two groups back
+#pragma unroll
+      for (int tap = 0; tap < 8; ++tap) {
+        const int par = tap & 1;
+        const int shift =
+            (tap >> 2) * SH * SW + ((tap >> 1) & 1) * SW + (tap & 1);
+        const int rho = rho0 + shift;
+        tc::ldsm_x4(alo[par][0],
+                    a_sub + rho * 32 + ((kc ^ ((rho >> 2) & 1)) << 4));
+        split_regs<true>(alo[par], ahi[par]);
+        tc::fence_regs(alo[par]);
+        tc::fence_regs(ahi[par]);
+        tc::fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const uint32_t bt = b_sub + 2 * tap * 2048;
+#pragma unroll
+        for (int prod = 0; prod < 3; ++prod)
+          wgmma_part(acc, ahi[par][0], alo[par][0], desc_b32(bt),
+                     desc_b32(bt + 2048), prod, tap > 0 || prod > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        tc::fence_acc(acc);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      tc::fence_acc(acc);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sum[e] += acc[e];
+      tc::mbar_arrive(empty + 8 * slot);  // the unit's slot is read
+    }
+
+    // epilogue: register 4j + 2h + e of (warp, lane) holds row warp*16 +
+    // lane/4 + 8h, column 8j + 2*(lane%4) + e of the tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int q = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      if (q >= P) continue;
+      const int iw = w0 + q % bl.tw;
+      q /= bl.tw;
+      const int ih = h0 + q % bl.th;
+      q /= bl.th;
+      const int id = d0 + q % bl.td;
+      const int in = n0 + q / bl.td;
+      if (in >= B || id >= D || ih >= H || iw >= W) continue;
+      float* dst = out +
+                   out_row(make_int4(in, id, ih, iw), phase, D, H, W, Cout) +
+                   co0 + 2 * (lane & 3);
+      const float* bb = bias + co0 + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bv = *reinterpret_cast<const float2*>(bb + 8 * j);
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(sum[4 * j + 2 * h] + bv.x,
+                        sum[4 * j + 2 * h + 1] + bv.y);
+      }
+    }
+  }
+}
+
+// The forward halo kernel's weights in one pass: for each (channel tile,
+// phase, unit of 8 input channels, tap), the tap's TF32 hi then lo tile of
+// kp[phase][co0 + r][tap*Cin + 8u + k], r < 64, k < 8, each 64 rows of 32
+// bytes in the 32-byte swizzle (16-byte chunk kc of row r at kc ^ (r/4 %
+// 2)), so that a unit's 32 KB are one contiguous copy
+// (pack_phase_kernels_tf32() in ops/upsample_conv.py is the plain
+// version).  A thread takes 8 input channels of one (phase, co, tap): its
+// reads are 32 contiguous bytes, next to its neighbours'.
+__global__ void __launch_bounds__(256)
+k1_pack_fwd_tf32(const float* __restrict__ kp, float* __restrict__ wf,
+                 int Cin, int Cout) {
+  const int U = Cin / 8;
+  const long long n = 64LL * Cout * U;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int u = (int)(i % U);
+    long long t = i / U;
+    const int tap = (int)(t & 7);
+    t >>= 3;
+    const int co = (int)(t % Cout), phase = (int)(t / Cout);
+    const float4* src = reinterpret_cast<const float4*>(
+        kp + ((size_t)phase * Cout + co) * 8 * Cin + (size_t)tap * Cin +
+        8 * u);
+    uint32_t v[8], hi[8], lo[8];
+    const float4 v0 = src[0], v1 = src[1];
+    v[0] = __float_as_uint(v0.x), v[1] = __float_as_uint(v0.y);
+    v[2] = __float_as_uint(v0.z), v[3] = __float_as_uint(v0.w);
+    v[4] = __float_as_uint(v1.x), v[5] = __float_as_uint(v1.y);
+    v[6] = __float_as_uint(v1.z), v[7] = __float_as_uint(v1.w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split_tf32<false>(v[e], hi[e], lo[e]);
+    const int r = co & 63, sw = (r >> 2) & 1;
+    uint4* tile = reinterpret_cast<uint4*>(
+        wf + ((((size_t)((co >> 6) * 8 + phase) * U + u) * 8 + tap) * 2) *
+                 512 +
+        r * 8);
+    tile[sw] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    tile[sw ^ 1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    tile[128 + sw] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    tile[128 + (sw ^ 1)] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+  }
+}
+
 }  // namespace tf
 
 // ----------------------- backward, FMA: any width, misaligned operands
@@ -2627,6 +2900,43 @@ int launch_dk_f32_halo(const void* x, const void* g, void* dk2, void* dbp,
   return (int)cudaGetLastError();
 }
 
+template <int NWG>
+int launch_f32_halo(const void* x, const void* wf, const void* bias,
+                    void* out, int B, int D, int H, int W, int Cin, int Cout,
+                    const tc::Blocks& bl, long long blocks,
+                    cudaStream_t stream) {
+  // the input (Cin, W, H, D, B), a phase's sub-box a box of 8 channels
+  cudaError_t err = bind_context();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_x;
+  const cuuint64_t xdims[5] = {(cuuint64_t)Cin, (cuuint64_t)W,
+                               (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint32_t xbox[5] = {8, (cuuint32_t)bl.tw + 1,
+                              (cuuint32_t)bl.th + 1, (cuuint32_t)bl.td + 1,
+                              (cuuint32_t)bl.tn};
+  const cuuint32_t xsteps[5] = {1, 1, 1, 1, 1};
+  if (!tensor_map(&map_x, true, x, 5, xdims, xbox, xsteps,
+                  CU_TENSOR_MAP_SWIZZLE_32B))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = tf::f32_fw_smem_bytes();
+  static SmemLimit limit;
+  err = limit.ensure(tf::k1_f32_halo<NWG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  // persistent: one CTA an SM, or one an item if there are fewer
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long items = 8 * blocks * (Cout / tf::HF_FW_BN);
+  tf::k1_f32_halo<NWG>
+      <<<(unsigned)(items < sms ? items : sms), NWG * 128 + 32, smem,
+         stream>>>(map_x, static_cast<const float*>(wf),
+                   static_cast<const float*>(bias), static_cast<float*>(out),
+                   B, D, H, W, Cin, Cout, bl);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_dx_fma(const void* g, const void* wb, void* dx, void* part, int B,
                   int D, int H, int W, int Cin, int Cout, int bm, int bn,
@@ -2668,6 +2978,15 @@ unsigned pass_grid(long long n) {
   return (unsigned)(blocks < 132 * 8 ? (blocks > 0 ? blocks : 1) : 132 * 8);
 }
 
+// the f32 halo forward's weight split: kp into wf
+int launch_pack_fwd(const void* kp, void* wf, int Cin, int Cout,
+                    cudaStream_t stream) {
+  tf::k1_pack_fwd_tf32<<<pass_grid(64LL * Cout * (Cin / 8)), 256, 0,
+                         stream>>>(static_cast<const float*>(kp),
+                                   static_cast<float*>(wf), Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_dx_reduce(const void* part, void* dx, long long n, int splits,
                      void* stream) {
@@ -2700,6 +3019,47 @@ int prdisagg_upsample2_conv3_fast_f32(const void* x, const void* kp,
                                       int bm, int bn, void* stream) {
   return launch_fast(false, x, kp, bias, out, B, D, H, W, Cin, Cout, bm, bn,
                      stream);
+}
+
+// The f32 halo forward, two launches: kp's TF32 parts into the workspace
+// wf (2 * 8 * Cout * 8 * Cin floats) by k1_pack_fwd_tf32, then the
+// kernel.  x, kp, bias and out as above, f32, all contiguous on the
+// current device and 16-byte aligned, Cin % 8 == 0, Cout % 64 == 0.  The
+// tile bm (256, 192 or 128 positions) and the block (tn, td, th, tw) of at
+// most bm positions come from k1_plan().
+int prdisagg_upsample2_conv3_halo_f32(const void* x, const void* kp,
+                                      void* wf, const void* bias, void* out,
+                                      int B, int D, int H, int W, int Cin,
+                                      int Cout, int bm, int tn, int td,
+                                      int th, int tw, void* stream) {
+  tc::Blocks bl;
+  long long blocks;
+  if (Cin % 8 != 0 || Cout % tf::HF_FW_BN != 0 ||
+      (bm != 256 && bm != 192 && bm != 128) ||
+      !halo_blocks(B, D, H, W, tn, td, th, tw, bm, tf::HF_FW_RMAX, bl,
+                   blocks))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_pack_fwd(kp, wf, Cin, Cout, st);
+  if (err != 0) return err;
+  if (bm == 256)
+    return launch_f32_halo<4>(x, wf, bias, out, B, D, H, W, Cin, Cout, bl,
+                              blocks, st);
+  if (bm == 192)
+    return launch_f32_halo<3>(x, wf, bias, out, B, D, H, W, Cin, Cout, bl,
+                              blocks, st);
+  return launch_f32_halo<2>(x, wf, bias, out, B, D, H, W, Cin, Cout, bl,
+                            blocks, st);
+}
+
+// wf for prdisagg_upsample2_conv3_halo_f32 from kp (8 phases, Cout, 8*Cin)
+// f32: (Cout/64, 8, Cin/8, 8, 2, 64, 8) f32, 2 * 8 * Cout * 8 * Cin floats.
+// Cin % 8 == 0, Cout % 64 == 0, kp 16-byte aligned.
+int prdisagg_k1_pack_fwd_tf32(const void* kp, void* wf, int Cin, int Cout,
+                              void* stream) {
+  if (Cin % 8 != 0 || Cout % tf::HF_FW_BN != 0 || Cin < 8)
+    return (int)cudaErrorInvalidValue;
+  return launch_pack_fwd(kp, wf, Cin, Cout, (cudaStream_t)stream);
 }
 
 int prdisagg_upsample2_conv3_general_f32(const void* x, const void* kp,

@@ -19,9 +19,12 @@ Three implementations of one function:
   kernel's correctness on the card.
 * the CUDA kernels in ``csrc/upsample_conv.cu`` (one implicit GEMM per
   phase, stored straight into the interleaved layout): a fast kernel per
-  dtype (bf16 on wgmma tensor cores, f32 on a pipelined FMA loop) and a
-  general one for other widths, chosen by shape in :func:`k1_plan`, on the
-  folded weights packed K-major by :func:`pack_phase_kernels`.
+  dtype (bf16 on wgmma tensor cores; f32 on 3xTF32 wgmma over halo boxes
+  of input rows where Cin and Cout are multiples of 64, on a pipelined FMA
+  loop otherwise) and a general one for other widths, chosen by shape in
+  :func:`k1_plan`, on the folded weights packed K-major by
+  :func:`pack_phase_kernels` (for the f32 halo forward, split into TF32
+  parts and laid out by :func:`pack_fwd_tf32_cuda`).
 * :func:`upsample2_conv3`, the dispatcher: a CPU tensor takes the plain
   version, a CUDA tensor the kernel, anything else raises.  It is an
   ``autograd.Function``, the counterpart of the Pallas op's custom_vjp
@@ -134,35 +137,84 @@ SMS = 132
 FAST_TILES = ((128, 128), (128, 64), (64, 64))
 #: reduction slice of the fast kernels: a slice must lie inside one tap
 FAST_BK = {torch.bfloat16: 64, torch.float32: 32}
-VARIANTS = ("fast", "general")
-#: launches of :func:`upsample2_conv3_cuda` by kernel variant
+#: the f32 halo forward (csrc/upsample_conv.cu, tf::k1_f32_halo): its tiles
+#: of positions (64 rows a warpgroup, 4, 3 or 2 of them), preferred first;
+#: 64 output channels a tile; a phase's sub-box rows at most
+HALO_F32_FW_TILES = (256, 192, 128)
+HALO_F32_FW_BN, HALO_F32_FW_RMAX = 64, 768
+#: halo_block's cost of a forward block beside its sub-box rows: every
+#: block does a whole tile's tensor-core work, whatever its positions, so
+#: the fewest blocks win and the rows only break ties
+HALO_F32_FW_WEIGHT = 1 << 20
+#: a work item's least time in rows of a tile's tensor-core work: each
+#: unit of 8 input channels streams 32 KB of weights from L2, which takes
+#: about as long as this many rows' products, whatever the tile
+HALO_F32_FW_COPY_ROWS = 160
+VARIANTS = ("fast", "general", "halo_f32")
+#: launches of :func:`upsample2_conv3_cuda` by kernel variant (a halo_f32
+#: launch is the weight split and the kernel)
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 class K1Plan(NamedTuple):
-    """Which kernel a shape takes, its tile and its grid's CTA count."""
+    """Which kernel a shape takes, its tile (BM positions by BN channels)
+    and its grid's CTA count (for halo_f32, its work items, and the block
+    of positions (tn, td, th, tw) a tile covers)."""
     variant: str
     bm: int
     bn: int
     ctas: int
+    block: tuple = ()
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _halo_forward_plan(b: int, d: int, h: int, w: int, cout: int,
+                       tiles: tuple = HALO_F32_FW_TILES) -> K1Plan:
+    """The f32 halo forward's tile and block: of `tiles`, the one whose
+    work items (8 phases x blocks x Cout/64) take the least time in waves
+    of SMS (one persistent CTA an SM), an item taking its tile's rows or
+    HALO_F32_FW_COPY_ROWS, whichever is more; a smaller tile only where
+    it saves more than 1%, since it streams the weights more times."""
+    best = None
+    for bm in tiles:
+        block, grid, _ = halo_block(b, d, h, w, bm, HALO_F32_FW_RMAX,
+                                    HALO_F32_FW_WEIGHT)
+        items = 8 * grid[0] * grid[1] * grid[2] * grid[3] * (
+            cout // HALO_F32_FW_BN)
+        cost = _ceil(items, SMS) * max(bm, HALO_F32_FW_COPY_ROWS)
+        if best is None or cost < 0.99 * best[0]:
+            best = (cost, K1Plan("halo_f32", bm, HALO_F32_FW_BN, items,
+                                 block))
+    return best[1]
+
+
 def k1_plan(dtype: torch.dtype, b: int, d: int, h: int, w: int, cin: int,
             cout: int) -> K1Plan:
     """The kernel and tile for x (b, d, h, w, cin) -> cout channels.
 
-    The fast kernels (bf16 wgmma, f32 pipelined FMA) need Cin to be a
-    multiple of their reduction slice (64 bf16, 32 f32) and Cout of 64;
-    other widths take the general kernel.  Among the fast tiles, the largest
-    whose grid (8 phases x M tiles x N tiles) fills the card's SMS SMs; if
-    none does, the smallest."""
-    m = b * d * h * w
+    f32 with Cin and Cout multiples of 64 takes the halo forward on 3xTF32
+    tensor cores (:func:`_halo_forward_plan`).  The other fast kernels
+    (bf16 wgmma, f32 pipelined FMA) need Cin to be a multiple of their
+    reduction slice (64 bf16, 32 f32) and Cout of 64; other widths take the
+    general kernel.  Among the fast tiles, the largest whose grid (8 phases
+    x M tiles x N tiles) fills the card's SMS SMs; if none does, the
+    smallest."""
     if cin % FAST_BK[dtype] or cout % 64:
+        m = b * d * h * w
         return K1Plan("general", 128, 64, 8 * _ceil(m, 128) * _ceil(cout, 64))
+    if dtype == torch.float32 and cin % 64 == 0:
+        return _halo_forward_plan(b, d, h, w, cout)
+    return fast_plan(b, d, h, w, cout)
+
+
+def fast_plan(b: int, d: int, h: int, w: int, cout: int) -> K1Plan:
+    """The fast kernels' tile (bf16 wgmma, f32 FMA) for Cout a multiple of
+    64: the largest of FAST_TILES whose grid fills the card, else the
+    smallest."""
+    m = b * d * h * w
     plan = None
     for bm, bn in FAST_TILES:
         if cout % bn:
@@ -185,13 +237,34 @@ def pack_phase_kernels(kernel: torch.Tensor, dtype: torch.dtype
 _ENTRY_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def pack_phase_kernels_tf32(kp: torch.Tensor) -> torch.Tensor:
+    """The f32 halo forward's weights: float32 kp (8 phases, Cout, 8*Cin)
+    split by :func:`split_tf32` and laid out as the kernel copies them,
+    (Cout/64, 8 phases, Cin/8 units, 8 taps, 2 parts (hi, lo), 64 rows co,
+    8 floats k), a unit's 32 KB contiguous, each 64 x 8 tile in the 32-byte
+    swizzle (16-byte chunk kc of row r at kc ^ (r // 4 % 2)).  The plain
+    version of the card's ``k1_pack_fwd_tf32`` (:func:`pack_fwd_tf32_cuda`)."""
+    cout, cin = kp.shape[1], kp.shape[2] // 8
+    parts = torch.stack(split_tf32(kp))  # (part, phase, co, tap * Cin + ci)
+    t = parts.view(2, 8, cout // 64, 64, 8, cin // 8, 2, 4)
+    # -> (tile, phase, unit, tap, part, r, kc, 4)
+    t = t.permute(2, 1, 5, 4, 0, 3, 6, 7)
+    swap = ((torch.arange(64, device=kp.device) >> 2) & 1).bool()
+    return torch.where(swap.view(64, 1, 1), t.flip(-2), t).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(variant: str, dtype: torch.dtype):
     lib = _build.load("upsample_conv")
-    fn = getattr(lib, f"prdisagg_upsample2_conv3_{variant}_"
-                      f"{_ENTRY_DTYPES[dtype]}")
-    tile = [ctypes.c_int] * 2 if variant == "fast" else []
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + tile
+    ptrs, tile = 4, []
+    if variant == "halo_f32":  # kp and its parts' workspace; bm, the block
+        fn = lib.prdisagg_upsample2_conv3_halo_f32
+        ptrs, tile = 5, [ctypes.c_int] * 5
+    else:
+        fn = getattr(lib, f"prdisagg_upsample2_conv3_{variant}_"
+                          f"{_ENTRY_DTYPES[dtype]}")
+        tile = [ctypes.c_int] * 2 if variant == "fast" else []
+    fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 6 + tile
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.prdisagg_cuda_error_string.argtypes = [ctypes.c_int]
@@ -199,14 +272,52 @@ def _kernel_fn(variant: str, dtype: torch.dtype):
     return fn, lib.prdisagg_cuda_error_string
 
 
+@functools.lru_cache(maxsize=None)
+def _pack_fwd_fn():
+    fn = _build.load("upsample_conv").prdisagg_k1_pack_fwd_tf32
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_fwd_tf32_cuda(kp: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_phase_kernels_tf32` on the card in one pass (the kernel
+    ``k1_pack_fwd_tf32``): kp (8, Cout, 8*Cin) float32, contiguous and
+    16-byte aligned, Cin a multiple of 8 and Cout of 64, on a CUDA device.
+    Returns the parts as the f32 halo forward reads them, on the current
+    stream."""
+    if kp.device.type != "cuda" or kp.dtype != torch.float32 \
+            or not kp.is_contiguous() or kp.dim() != 3 or kp.shape[0] != 8 \
+            or kp.data_ptr() % 16:
+        raise ValueError(f"kp must be a contiguous, 16-byte aligned (8, "
+                         f"Cout, 8*Cin) float32 CUDA tensor, got "
+                         f"{tuple(kp.shape)} {kp.dtype} on {kp.device}")
+    cout, cin = kp.shape[1], kp.shape[2] // 8
+    wf = torch.empty((cout // 64, 8, cin // 8, 8, 2, 64, 2, 4),
+                     dtype=torch.float32, device=kp.device)
+    with torch.cuda.device(kp.device):
+        err = _pack_fwd_fn()(kp.data_ptr(), wf.data_ptr(), cin, cout,
+                             torch.cuda.current_stream(kp.device).cuda_stream)
+    if err != 0:
+        err_str = _kernel_fn("general", torch.float32)[1]
+        raise RuntimeError(f"upsample2_conv3 k1_pack_fwd_tf32 launch failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    return wf
+
+
 def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
-                         bias: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel that :func:`k1_plan` picks for x's shape.
+                         bias: torch.Tensor, plan: K1Plan = None
+                         ) -> torch.Tensor:
+    """Launch the CUDA kernel that :func:`k1_plan` picks for x's shape (or
+    `plan`, one of k1_plan's for this shape and dtype, to measure or test
+    another kernel).
 
     x: (B, D, H, W, Cin) f32 or bf16; kp: (8, Cout, 8*Cin) of x's dtype, from
     :func:`pack_phase_kernels`; bias: (Cout,) f32.  All contiguous on one
     CUDA device.  Returns (B, 2D, 2H, 2W, Cout) in x's dtype, on the current
-    stream."""
+    stream.  The halo forward first splits kp into its TF32 parts, one
+    launch of :func:`pack_fwd_tf32_cuda`'s kernel into a workspace."""
     global launches
     for name, t in (("x", x), ("kp", kp), ("bias", bias)):
         if t.device != x.device or t.device.type != "cuda":
@@ -233,16 +344,22 @@ def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
                       device=x.device)
     if out.numel() == 0:
         return out
-    plan = k1_plan(x.dtype, b, d, h, w, cin, cout)
-    if plan.variant == "fast" and any(
+    if plan is None:
+        plan = k1_plan(x.dtype, b, d, h, w, cin, cout)
+    if plan.variant != "general" and any(
             t.data_ptr() % 16 for t in (x, kp, bias)):
         plan = plan._replace(variant="general")  # 16-byte copies need it
     fn, err_str = _kernel_fn(plan.variant, x.dtype)
-    tile = (plan.bm, plan.bn) if plan.variant == "fast" else ()
+    ptrs, tile = (x.data_ptr(), kp.data_ptr()), ()
+    if plan.variant == "fast":
+        tile = (plan.bm, plan.bn)
+    elif plan.variant == "halo_f32":
+        wf = torch.empty(2 * kp.numel(), dtype=torch.float32, device=x.device)
+        ptrs, tile = ptrs + (wf.data_ptr(),), (plan.bm, *plan.block)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), kp.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 b, d, h, w, cin, cout, *tile, stream)
+        err = fn(*ptrs, bias.data_ptr(), out.data_ptr(), b, d, h, w, cin,
+                 cout, *tile, stream)
     if err != 0:
         raise RuntimeError(f"upsample2_conv3 {plan.variant} kernel launch "
                            f"failed: {err_str(err).decode()} "

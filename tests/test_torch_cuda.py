@@ -56,25 +56,49 @@ FAST_EDGES = [
     ((33, 6, 4, 4, 256, 128), (128, 128)),  # rows end mid-tile
 ]
 DTYPE_TOLS = [("float32", 1e-4, 1e-5), ("bfloat16", 2e-2, 2e-2)]
+# the serving path's K1 calls: the flagship stages at B 1000, the 64x64
+# last stage at B 512 and 488
+SERVING = [(1000, 3, 2, 2, 256, 256), (1000, 6, 4, 4, 256, 128),
+           (1000, 12, 8, 8, 128, 64), (512, 12, 32, 32, 128, 64),
+           (488, 12, 32, 32, 128, 64)]
+# shapes the f32 FMA kernel keeps: Cin 32 (and others off 64)
+FMA_SHAPES = [(64, 6, 4, 4, 32, 64), (7, 5, 3, 9, 96, 128),
+              (1000, 6, 4, 4, 32, 64)]
 
 
-def _check_forward(cuda, shape, dtype, rtol, atol):
+def _main_variant(dtype):
+    """The kernel of the main path's widths (Cin and Cout multiples of 64):
+    the halo forward on 3xTF32 tensor cores in f32, wgmma in bf16."""
+    return "halo_f32" if dtype == "float32" else "fast"
+
+
+def _check_forward(cuda, shape, dtype, rtol, atol, plan=None, positive=False):
     """One launch of the kernel against the plain version; returns the
-    variant that ran."""
+    variant that ran.  `plan` forces one of k1_plan's kernels (through
+    upsample2_conv3_cuda); `positive` draws inputs and weights in [0, 1)
+    and [0, 0.01), whose sums only grow."""
     from prdisagg_torch.ops import upsample_conv
     from prdisagg_torch.ops.core import full_f32
 
     b, d, h, w, cin, cout = shape
     rng = np.random.RandomState(sum(shape))
     dt = getattr(torch, dtype)
-    x = torch.tensor(rng.randn(b, d, h, w, cin).astype("f4"), device=cuda)
-    k = torch.tensor(0.1 * rng.randn(3, 3, 3, cin, cout).astype("f4"),
-                     device=cuda)
+    if positive:
+        xs, ks = rng.rand(b, d, h, w, cin), 0.01 * rng.rand(3, 3, 3, cin, cout)
+    else:
+        xs, ks = rng.randn(b, d, h, w, cin), 0.1 * rng.randn(3, 3, 3, cin,
+                                                              cout)
+    x = torch.tensor(xs.astype("f4"), device=cuda)
+    k = torch.tensor(ks.astype("f4"), device=cuda)
     bias = torch.tensor(rng.randn(cout).astype("f4"), device=cuda)
     before = upsample_conv.launches
     by_variant = dict(upsample_conv.launches_by_variant)
     with torch.inference_mode(), full_f32():
-        got = upsample_conv.upsample2_conv3(x.to(dt), k, bias)
+        if plan is None:
+            got = upsample_conv.upsample2_conv3(x.to(dt), k, bias)
+        else:
+            got = upsample_conv.upsample2_conv3_cuda(
+                x.to(dt), upsample_conv.pack_phase_kernels(k, dt), bias, plan)
         want = upsample_conv.upsample2_conv3_reference(x.to(dt), k, bias)
     torch.cuda.synchronize()
     assert upsample_conv.launches == before + 1
@@ -83,9 +107,10 @@ def _check_forward(cuda, shape, dtype, rtol, atol):
     assert len(ran) == 1
     assert got.shape == (b, 2 * d, 2 * h, 2 * w, cout) and got.dtype == dt
     scale = want.float().abs().max().item()
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(),
-                               rtol=rtol, atol=atol * scale)
+    for i in range(0, b, 64):  # a batch slice at a time: the serving shapes
+        np.testing.assert_allclose(got[i:i + 64].float().cpu().numpy(),
+                                   want[i:i + 64].float().cpu().numpy(),
+                                   rtol=rtol, atol=atol * scale)
     return ran[0]
 
 
@@ -94,8 +119,8 @@ def _check_forward(cuda, shape, dtype, rtol, atol):
 def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
     from prdisagg_torch.ops import upsample_conv
 
-    # the odd widths take the general kernel, flagship widths the fast one
-    want = "fast" if shape[-2:] == (256, 128) else "general"
+    # the odd widths take the general kernel, flagship widths the main one
+    want = _main_variant(dtype) if shape[-2:] == (256, 128) else "general"
     assert upsample_conv.k1_plan(getattr(torch, dtype), *shape).variant == want
     assert _check_forward(cuda, shape, dtype, rtol, atol) == want
 
@@ -104,8 +129,9 @@ def test_upsample2_conv3_kernel_matches_plain(cuda, shape, dtype, rtol, atol):
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
 def test_upsample2_conv3_large_domain_stages_match_plain(cuda, shape, dtype,
                                                          rtol, atol):
-    """The 64x64 generator's three stages take the fast kernel."""
-    assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
+    """The 64x64 generator's three stages take the main kernel."""
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == \
+        _main_variant(dtype)
 
 
 @pytest.mark.parametrize("shape", SPATIAL_SLABS + FUSED)
@@ -113,19 +139,130 @@ def test_upsample2_conv3_large_domain_stages_match_plain(cuda, shape, dtype,
 def test_upsample2_conv3_spatial_and_fused_shapes_match_plain(
         cuda, shape, dtype, rtol, atol):
     """A spatial rank's slabs (y != x) and the fused step's batch take the
-    fast kernel."""
-    assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
+    main kernel."""
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == \
+        _main_variant(dtype)
 
 
 @pytest.mark.parametrize("shape,tile", FAST_EDGES)
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
 def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
                                                 rtol, atol):
+    """The edge cases take the main kernel; the fast kernel at the tile
+    given (f32: the FMA kernel, forced) holds too."""
     from prdisagg_torch.ops import upsample_conv
 
-    plan = upsample_conv.k1_plan(getattr(torch, dtype), *shape)
-    assert (plan.variant, plan.bm, plan.bn) == ("fast", *tile)
-    assert _check_forward(cuda, shape, dtype, rtol, atol) == "fast"
+    dt = getattr(torch, dtype)
+    plan = upsample_conv.k1_plan(dt, *shape)
+    assert plan.variant == _main_variant(dtype)
+    assert _check_forward(cuda, shape, dtype, rtol, atol) == plan.variant
+    b, d, h, w, _, cout = shape
+    fast = upsample_conv.fast_plan(b, d, h, w, cout)
+    assert (fast.variant, fast.bm, fast.bn) == ("fast", *tile)
+    assert _check_forward(cuda, shape, dtype, rtol, atol, plan=fast) == "fast"
+
+
+@pytest.mark.parametrize("shape", SERVING)
+def test_upsample2_conv3_serving_shapes_take_halo_f32(cuda, shape):
+    """Every K1 call of the f32 serving cells takes the halo forward and
+    holds float32's tolerance."""
+    from prdisagg_torch.ops import upsample_conv
+
+    assert upsample_conv.k1_plan(torch.float32, *shape).variant == "halo_f32"
+    assert _check_forward(cuda, shape, "float32", 1e-4, 1e-5) == "halo_f32"
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 2, 2, 256, 256),
+                                   (2, 6, 4, 4, 256, 128)])
+def test_upsample2_conv3_halo_f32_long_positive_reduction(cuda, shape):
+    """Cin 256, all-positive inputs and weights: 768 wgmmas a phase, whose
+    tensor-core sums round toward zero, stay within float32's tolerance
+    (each unit of 8 channels starts a fresh sum)."""
+    assert _check_forward(cuda, shape, "float32", 1e-4, 1e-5,
+                          positive=True) == "halo_f32"
+
+
+def test_upsample2_conv3_halo_f32_replays_in_a_cuda_graph(cuda):
+    """The halo forward and its weight split captured in a CUDA graph: a
+    replay on new inputs copied in place gives the eager call's bits."""
+    from prdisagg_torch.ops import upsample_conv
+
+    rng = np.random.RandomState(3)
+    shape = (40, 6, 4, 4, 256, 128)
+    b, d, h, w, cin, cout = shape
+    x, k, bias = (torch.tensor(a.astype("f4"), device=cuda) for a in (
+        rng.randn(b, d, h, w, cin), 0.1 * rng.randn(3, 3, 3, cin, cout),
+        rng.randn(cout)))
+    assert upsample_conv.k1_plan(torch.float32, *shape).variant == "halo_f32"
+    with torch.inference_mode():
+        upsample_conv.upsample2_conv3(x, k, bias)  # build and warm up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = upsample_conv.upsample2_conv3(x, k, bias)
+        x.copy_(torch.tensor(rng.randn(*x.shape).astype("f4"), device=cuda))
+        k.mul_(-0.5)
+        graph.replay()
+        want = upsample_conv.upsample2_conv3(x, k, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("shape", FMA_SHAPES)
+def test_upsample2_conv3_f32_fma_kernel_keeps_its_shapes(cuda, shape):
+    """Cin 32 and other widths off 64 keep the f32 FMA kernel."""
+    from prdisagg_torch.ops import upsample_conv
+
+    assert upsample_conv.k1_plan(torch.float32, *shape).variant == "fast"
+    assert _check_forward(cuda, shape, "float32", 1e-4, 1e-5) == "fast"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample2_conv3_misaligned_operands_take_general(cuda, dtype):
+    """An x off the 16-byte alignment that TMA and cp.async need takes the
+    general kernel, counted as such, and agrees with the plain version."""
+    from prdisagg_torch.ops import upsample_conv
+    from prdisagg_torch.ops.core import full_f32
+
+    dt = getattr(torch, dtype)
+    b, d, h, w, cin, cout = 2, 6, 4, 4, 256, 128
+    rng = np.random.RandomState(8)
+    buf = torch.tensor(rng.randn(b * d * h * w * cin + 1).astype("f4"),
+                       device=cuda).to(dt)
+    x = buf[1:].view(b, d, h, w, cin)
+    k = torch.tensor(0.1 * rng.randn(3, 3, 3, cin, cout).astype("f4"),
+                     device=cuda)
+    bias = torch.tensor(rng.randn(cout).astype("f4"), device=cuda)
+    assert x.data_ptr() % 16
+    before = dict(upsample_conv.launches_by_variant)
+    with torch.inference_mode(), full_f32():
+        got = upsample_conv.upsample2_conv3(x, k, bias)
+        want = upsample_conv.upsample2_conv3_reference(x, k, bias)
+    ran = {v: n - before[v] for v, n in
+           upsample_conv.launches_by_variant.items() if n != before[v]}
+    assert ran == {"general": 1}
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    scale = want.float().abs().max().item()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=(1e-5 if dtype == "float32" else tol)
+                               * scale)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 64), (256, 128),
+                                      (8, 192)])
+def test_pack_fwd_tf32_kernel_matches_its_plain_version(cuda, cin, cout):
+    """k1_pack_fwd_tf32 gives pack_phase_kernels_tf32's bits."""
+    from prdisagg_torch.ops import upsample_conv
+
+    rng = np.random.RandomState(cin + cout)
+    k = torch.tensor(rng.randn(3, 3, 3, cin, cout).astype("f4"), device=cuda)
+    kp = upsample_conv.pack_phase_kernels(k, torch.float32)
+    got = upsample_conv.pack_fwd_tf32_cuda(kp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, upsample_conv.pack_phase_kernels_tf32(kp))
+    with pytest.raises(ValueError, match="contiguous"):
+        upsample_conv.pack_fwd_tf32_cuda(kp.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 2, 2, 16, 4), (3, 5, 3, 7, 40, 70),
@@ -837,9 +974,9 @@ def _flagship_generator(device):
 
 
 def test_crps_gan_flagship_on_the_card(cuda):
-    """crps_gan at 1000 members through K1 (3 fast launches per 500-member
-    batch), independent of sample_chunk; one sample's row equals the CPU
-    path's on the same latents within 1e-5 relative."""
+    """crps_gan at 1000 members through K1 (3 halo_f32 launches per
+    500-member batch), independent of sample_chunk; one sample's row equals
+    the CPU path's on the same latents within 1e-5 relative."""
     from prdisagg_torch.eval import crps
     from prdisagg_torch.ops import upsample_conv
 
@@ -850,7 +987,7 @@ def test_crps_gan_flagship_on_the_card(cuda):
     out = crps.crps_gan(pg, reals, n_members=1000, sample_chunk=2)
     ran = {v: n - before[v] for v, n in
            upsample_conv.launches_by_variant.items()}
-    assert ran == {"fast": 3 * 2 * 3, "general": 0}
+    assert ran == {"fast": 0, "general": 0, "halo_f32": 3 * 2 * 3}
     assert out.shape == (3, 24) and np.isfinite(out).all()
     np.testing.assert_array_equal(
         out, crps.crps_gan(pg, reals, n_members=1000, sample_chunk=3))
