@@ -13,7 +13,11 @@ latents ~ N(0,1), fractions rescaled by cond * norm_scale back to mm/h.
 The forward runs on ``device`` ("cuda" by default) under
 ``torch.inference_mode()``; on a CUDA device the generator's three
 upsample-conv stages run through the hand-written kernel
-(ops/upsample_conv.py).  Asking for "cuda" without a card raises.
+(ops/upsample_conv.py).  Asking for "cuda" without a card raises.  A
+request's chunks are all queued before its response is copied out: the
+host touches the returned array's pages while the card computes, and each
+chunk leaves the card under the next chunk's forward, straight into
+those pages.  The returned arrays are ordinary numpy arrays.
 
 With a data-parallel ``mesh`` (parallel/mesh.py) every rank holds the same
 weights and draws a request's full latents from the same seeded stream;
@@ -24,6 +28,9 @@ collective: every rank makes them with the same arguments.
 
 from __future__ import annotations
 
+import contextlib
+import mmap
+import threading
 import time
 from typing import Dict, Optional
 
@@ -61,6 +68,15 @@ def default_max_batch(ndomain: int) -> int:
     """:data:`MAX_BATCH_16` scaled by the domain's activation footprint
     (~ndomain^2), at least 32."""
     return max(32, int(MAX_BATCH_16 * (16 / ndomain) ** 2))
+
+
+def _touch_pages(a: np.ndarray) -> None:
+    """Write a zero byte into every memory page of the C-contiguous array
+    `a`, so that a fresh allocation takes its page faults here rather than
+    inside the copy that fills it."""
+    b = a.reshape(-1).view(np.uint8)
+    b[::mmap.PAGESIZE] = 0
+    b[-1:] = 0
 
 
 def _bucket(n: int) -> int:
@@ -129,6 +145,11 @@ class PretrainedGenerator:
         self.max_batch = max_batch
         self._gen = self._build(params)
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self._held = threading.local()  # a request's weight snapshot
+        # on a card, responses leave on a stream of their own, under the
+        # forward of the request's next chunk
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
     def _build(self, params) -> Generator:
         with torch.device("meta"):
@@ -300,12 +321,16 @@ class PretrainedGenerator:
         """Raw generator output on the device: (B, nhours, nd, nd, 1)
         fractions.  Batches above `max_batch` run in chunks of `max_batch`,
         all with ONE weight snapshot: a concurrent hot reload swaps the
-        generator atomically, and a chunked request must not mix versions."""
+        generator atomically, and a chunked request must not mix versions.
+        Inside a ``generate_scenarios*`` call, every call on its thread
+        uses the snapshot that the request took at its start."""
         latent = torch.as_tensor(latent, dtype=torch.float32,
                                  device=self.device)
         cond_batch = torch.as_tensor(cond_batch, dtype=torch.float32,
                                      device=self.device)
-        gen = self._gen
+        gen = getattr(self._held, "gen", None)
+        if gen is None:
+            gen = self._gen
         n, mb = latent.shape[0], self.max_batch
         if n <= mb:
             return self._device_forward(latent, cond_batch, gen)
@@ -314,23 +339,98 @@ class PretrainedGenerator:
                                  gen)
             for i0 in range(0, n, mb)])
 
-    @staticmethod
-    def _fetch(t: torch.Tensor) -> torch.Tensor:
-        """The device->host copy of a response."""
-        with span("prdisagg.fetch"):
-            return t.cpu()
+    @contextlib.contextmanager
+    def _snapshot(self):
+        """Hold this thread's `predict_fractions` calls to the generator
+        served now, so that the chunks of one request never mix weight
+        versions whatever a hot reload swaps in meanwhile."""
+        self._held.gen = self._gen
+        try:
+            yield
+        finally:
+            self._held.gen = None
 
-    def _to_mm(self, fractions: torch.Tensor, cond0: np.ndarray) -> np.ndarray:
-        """fractions (..., nhours, nd, nd) times the unnormalized daily sum
-        cond0 (..., nd, nd), broadcast over the hour axis: on the device,
-        or with a float16 wire on the host after the copy, in float32."""
-        if self.wire_dtype is None:
-            c = torch.as_tensor(cond0, device=fractions.device)
-            return self._fetch(
-                fractions * c.unsqueeze(-3) * self.norm_scale).numpy()
-        frac = self._fetch(fractions.to(torch.float16)).float()
-        return (frac * torch.as_tensor(cond0).unsqueeze(-3)
-                * self.norm_scale).numpy()
+    def _fetch(self, t: torch.Tensor, dst: torch.Tensor, ready,
+               c: Optional[torch.Tensor] = None) -> None:
+        """The device chunk `t` into the host slice `dst`, returning once it
+        has landed; with `c`, `t` holds float16 fractions and `dst` gets
+        them times `c` times `norm_scale`, in float32 on the host.
+
+        On a card the chunk is copied on the copy stream once its event
+        `ready` has passed, beside whatever the compute stream runs next,
+        straight into `dst` (or into a host float16 tensor); `t`'s memory
+        is not reused before the copy ends."""
+        stream = self._copy_stream
+        with span("prdisagg.fetch"):
+            src = t
+            if stream is not None:
+                src = dst if c is None else torch.empty(t.shape,
+                                                        dtype=t.dtype)
+                with torch.cuda.stream(stream):
+                    stream.wait_event(ready)
+                    t.record_stream(stream)
+                    src.copy_(t)  # a blocking copy waits for its stream
+            if c is not None:
+                torch.mul(src.float() * c, self.norm_scale, out=dst)
+            elif src is not dst:
+                dst.copy_(src)
+
+    def _serve(self, latent, cond_batch, cond0: np.ndarray, per: int,
+               rows: int) -> np.ndarray:
+        """A request's response: the first `rows` rows of the batch's
+        scenarios in mm, (rows, nhours, nd, nd), as one host float32 array
+        that the caller owns.
+
+        The batch runs through `predict_fractions` in chunks of at most
+        `max_batch` rows, all queued before any copy and all on one weight
+        snapshot.  Each chunk's fractions are scaled by their daily sums on
+        the device (with a float16 wire, on the host after the copy), as
+        element-wise products, so any chunking gives the same bits.  The
+        host touches the array's pages while the device computes; then each
+        chunk's copy waits for that chunk alone, so it runs under the next
+        chunk's forward.
+
+        `cond_batch` is the normalized condition of every row; `cond0`
+        holds the normalized daily sums (channel 0) on the host, one map
+        for every `per` rows, for the float16 wire's host scaling."""
+        latent = torch.as_tensor(latent, dtype=torch.float32,
+                                 device=self.device)
+        cond_batch = torch.as_tensor(cond_batch, dtype=torch.float32,
+                                     device=self.device)
+        if latent.shape[0] != cond_batch.shape[0]:
+            raise ValueError(f"{latent.shape[0]} latents for "
+                             f"{cond_batch.shape[0]} conditions")
+        mb, chunks = self.max_batch, []
+        with self._snapshot():
+            for i0 in range(0, rows, mb):
+                m = min(mb, rows - i0)
+                frac = self.predict_fractions(
+                    latent[i0:i0 + mb], cond_batch[i0:i0 + mb])[:m]
+                frac = frac.squeeze(-1)
+                if self.wire_dtype is None:
+                    c = cond_batch[i0:i0 + m, ..., 0]
+                    wire = frac * c.unsqueeze(-3) * self.norm_scale
+                else:
+                    wire = frac.to(torch.float16)
+                ready = None
+                if self._copy_stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
+                chunks.append((i0, wire, ready))
+        nd = self.cfg.ndomain
+        # torch's CPU allocator, as `.cpu()` used
+        host = torch.empty((rows, self.cfg.nhours, nd, nd),
+                           dtype=torch.float32)
+        out = host.numpy()
+        with span("prdisagg.fetch.touch"):
+            _touch_pages(out)
+        for i0, wire, ready in chunks:
+            c = None
+            if self.wire_dtype is not None:
+                c = torch.as_tensor(
+                    cond0[np.arange(i0, i0 + len(wire)) // per]).unsqueeze(-3)
+            self._fetch(wire, host[i0:i0 + len(wire)], ready, c)
+        return out
 
     def generate_scenarios(
         self, cond: np.ndarray, n_scenarios: int,
@@ -350,8 +450,8 @@ class PretrainedGenerator:
                 latent = self._latent(n_scenarios)
             cond_batch = torch.as_tensor(cond_norm, device=self.device)[None]
             cond_batch = cond_batch.expand(n_scenarios, *cond_norm.shape)
-            fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
-            return self._to_mm(fractions, cond_norm[..., 0])
+            return self._serve(latent, cond_batch, cond_norm[None, ..., 0],
+                               n_scenarios, n_scenarios)
 
     def generate_scenarios_batch(
         self, conds: np.ndarray, n_scenarios: int,
@@ -372,10 +472,9 @@ class PretrainedGenerator:
                 latent = self._latent(k * n_scenarios)
             cond_batch = torch.as_tensor(cond_norm, device=self.device)
             cond_batch = cond_batch.repeat_interleave(n_scenarios, dim=0)
-            fractions = self.predict_fractions(latent, cond_batch).squeeze(-1)
-            fractions = fractions.reshape(k, n_scenarios,
-                                          *fractions.shape[1:])
-            return self._to_mm(fractions, cond_norm[:, None, ..., 0])
+            out = self._serve(latent, cond_batch, cond_norm[..., 0],
+                              n_scenarios, k * n_scenarios)
+            return out.reshape(k, n_scenarios, *out.shape[1:])
 
     def generate_scenarios_multi(
         self, conds: list, n_list: list,
@@ -412,9 +511,8 @@ class PretrainedGenerator:
                     [cond_batch, np.zeros((target - total,
                                            *cond_batch.shape[1:]),
                                           cond_batch.dtype)])
-            fractions = self.predict_fractions(latent, cond_batch)[:total]
-            fractions = fractions.squeeze(-1)
-            scenarios = self._to_mm(fractions, cond_batch[:total, ..., 0])
+            scenarios = self._serve(latent, cond_batch, cond_batch[..., 0],
+                                    1, total)
             return list(np.split(scenarios, np.cumsum(counts)[:-1]))
 
     def plot_scenarios(self, scenarios: np.ndarray,

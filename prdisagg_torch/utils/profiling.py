@@ -8,8 +8,9 @@
   no-op context that costs one check of a flag.  The serving path opens
   ``prdisagg.request`` (a ``generate_scenarios*`` call),
   ``prdisagg.forward`` (one chunk's forward), ``prdisagg.k1`` (one
-  upsample-conv call), ``prdisagg.k1.pack`` (its weight pack, on the card)
-  and ``prdisagg.fetch`` (the response's device->host copy).
+  upsample-conv call), ``prdisagg.k1.pack`` (its weight pack, on the card),
+  ``prdisagg.fetch.touch`` (the touch of the response's host pages) and
+  ``prdisagg.fetch`` (one chunk's device->host copy and its wait).
 * `StepTimer`: steps/s of a chain of device steps.  Launches return before
   the device finishes, so the timer syncs by fetching a caller-provided
   scalar that depends on the computation, or with

@@ -1121,17 +1121,78 @@ def test_wire_float16_halves_the_copied_bytes(cuda):
     for wire in ("float32", "float16"):
         gen = PretrainedGenerator(params, cfg, device=cuda, wire_dtype=wire)
         fetch = gen._fetch
+        copied[wire] = 0
 
-        def counting(t, wire=wire, fetch=fetch):
+        def counting(t, *args, wire=wire, fetch=fetch):
             assert t.is_cuda
-            copied[wire] = t.numel() * t.element_size()
-            return fetch(t)
+            copied[wire] += t.numel() * t.element_size()
+            return fetch(t, *args)
 
         gen._fetch = counting
         out[wire] = gen.generate_scenarios(cond, 64, latent=lat)
     assert copied["float16"] * 2 == copied["float32"] == 64 * 24 * 256 * 4
     np.testing.assert_allclose(out["float16"], out["float32"], rtol=0,
                                atol=1e-3 * cond.max())
+
+
+def test_chunks_copy_under_the_next_forward_in_order(cuda, monkeypatch):
+    """At 64x64 f32, a request served as three chunks (8, 8 and a ragged
+    4) lands, bit for bit, the whole-batch reference (`predict_fractions`
+    on every row, scaled on the card, one copy) and the array served with
+    `max_batch` >= n, in memory that is not page-locked.  The copy
+    stream's events order every chunk: with the compute stream held back
+    by a spin before each chunk's forward, a new request's bits equal
+    those of a run that synchronises after each chunk."""
+    from prdisagg_torch.api.pretrained import PretrainedGenerator
+    from prdisagg_torch.core.config import ModelConfig
+    from prdisagg_torch.models.generator import Generator
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(ndomain=64, compute_dtype="float32")
+    params = Generator(cfg).state_dict()
+    cond = np.random.RandomState(7).gamma(0.6, 12.0, (64, 64)).astype("f4")
+    n = 20
+    lat_a, lat_b = (np.random.RandomState(s).randn(n, cfg.latent_dim)
+                    .astype("f4") for s in (8, 9))
+    whole = PretrainedGenerator(params, cfg, device=cuda, max_batch=n)
+    gen = PretrainedGenerator(params, cfg, device=cuda, max_batch=8)
+    want = {k: whole.generate_scenarios(cond, n, latent=lat)
+            for k, lat in (("a", lat_a), ("b", lat_b))}
+
+    got = gen.generate_scenarios(cond, n, latent=lat_a)
+    assert got.dtype == np.float32 and got.flags.c_contiguous
+    assert got.flags.writeable and not torch.from_numpy(got).is_pinned()
+    c = torch.as_tensor(gen._normalize_cond(cond)[..., 0], device=cuda)
+    frac = gen.predict_fractions(
+        lat_a, np.repeat(gen._normalize_cond(cond)[None], n, axis=0))
+    ref = (frac.squeeze(-1) * c.unsqueeze(-3) * gen.norm_scale).cpu().numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, want["a"])
+
+    real = PretrainedGenerator.predict_fractions
+    calls = []
+
+    def synced(self, latent, cond_batch):
+        out = real(self, latent, cond_batch)
+        torch.cuda.synchronize()
+        calls.append(len(latent))
+        return out
+
+    def held_back(self, latent, cond_batch):
+        torch.cuda._sleep(50_000_000)  # some 30 ms of the compute stream
+        calls.append(len(latent))
+        return real(self, latent, cond_batch)
+
+    served = {}
+    for name, fn, lat in (("synced_a", synced, lat_a),
+                          ("held_back_b", held_back, lat_b),
+                          ("synced_b", synced, lat_b)):
+        monkeypatch.setattr(PretrainedGenerator, "predict_fractions", fn)
+        served[name] = gen.generate_scenarios(cond, n, latent=lat)
+    assert calls == [8, 8, 4] * 3
+    np.testing.assert_array_equal(served["synced_a"], want["a"])
+    np.testing.assert_array_equal(served["held_back_b"], served["synced_b"])
+    np.testing.assert_array_equal(served["synced_b"], want["b"])
 
 
 # --------------------------------------------------------------------------

@@ -114,17 +114,126 @@ def test_flagship_from_npz_infers_config_and_matches_jax(tmp_path):
                                want, rtol=0, atol=1e-5 * cond.max())
 
 
-def test_chunked_equals_unchunked(weights):
+# (entry point, rows, max_batch): three chunks, the last one ragged; and
+# multi's bucket padding (5 rows served from a forward of 6)
+CALLS = [("single", 8, 3), ("batch", 8, 3), ("multi", 8, 3),
+         ("multi-padded", 5, 8)]
+
+
+def _owned(a):
+    """`a` is an ordinary host array the caller owns: float32,
+    C-contiguous, writable, not page-locked."""
+    assert a.dtype == np.float32 and a.flags.c_contiguous
+    assert a.flags.writeable
+    assert not torch.from_numpy(a).is_pinned()
+
+
+def _request(gen, call, rows, seed=5):
+    """Serve `rows` scenarios through `call`; returns the served array
+    (multi's parts joined), the whole-batch reference and the request's
+    largest daily sum.  The reference is `predict_fractions` on all rows
+    at once, then the scale by the daily sums and the copy to the host as
+    they were before the chunks' copies overlapped: on the device in
+    float32; with a float16 wire, on the host after the copy."""
+    tc, nd = gen.cfg, gen.cfg.ndomain
+    rng = np.random.RandomState(seed)
+    if call == "single":
+        cond = _cond(seed=seed)
+        lat = rng.randn(rows, tc.latent_dim).astype("f4")
+        got = gen.generate_scenarios(cond, rows, latent=lat)
+        _owned(got)
+        norm = gen._normalize_cond(cond)
+        cond_batch = np.repeat(norm[None], rows, axis=0)
+        cond0 = norm[..., 0]
+    elif call == "batch":
+        conds = _cond(k=2, seed=seed)
+        lat = rng.randn(rows, tc.latent_dim).astype("f4")
+        got = gen.generate_scenarios_batch(conds, rows // 2, latent=lat)
+        _owned(got)
+        assert got.shape[:2] == (2, rows // 2)
+        got = got.reshape(rows, *got.shape[2:])
+        norm = gen._normalize_cond(conds)
+        cond_batch = np.repeat(norm, rows // 2, axis=0)
+        cond0 = cond_batch[..., 0]
+    else:
+        conds = list(_cond(k=3, seed=seed))
+        counts = [rows - 4, 2, 2]
+        twin = tpre.PretrainedGenerator(gen.params, tc, device="cpu",
+                                        seed=11, max_batch=gen.max_batch,
+                                        wire_dtype=gen.wire_dtype)
+        gen._rng.manual_seed(11)
+        parts = gen.generate_scenarios_multi(conds, counts)
+        assert [len(p) for p in parts] == counts
+        for p in parts:
+            _owned(p)
+        got = np.concatenate(parts)
+        target = max(min(tpre._bucket(rows), gen.max_batch), rows)
+        lat = twin._latent(target)
+        norm = np.repeat(np.stack([gen._normalize_cond(c) for c in conds]),
+                         counts, axis=0)
+        cond_batch = np.concatenate(
+            [norm, np.zeros((target - rows, *norm.shape[1:]), "f4")])
+        cond0 = norm[..., 0]
+    frac = gen.predict_fractions(lat, cond_batch)[:rows].squeeze(-1)
+    c = torch.as_tensor(cond0).unsqueeze(-3)
+    if gen.wire_dtype is None:
+        want = (frac * c * gen.norm_scale).cpu().numpy()
+    else:
+        want = (frac.to(torch.float16).cpu().float() * c
+                * gen.norm_scale).numpy()
+    assert got.shape == want.shape == (rows, tc.nhours, nd, nd)
+    return got, want, cond0.max()
+
+
+@pytest.mark.parametrize("wire", [None, "float16"])
+@pytest.mark.parametrize("call,rows,max_batch", CALLS,
+                         ids=[c[0] for c in CALLS])
+def test_chunked_equals_unchunked(weights, call, rows, max_batch, wire):
+    """Every entry point, on either wire, serves the whole-batch
+    reference's bits into an ordinary host array the caller owns, and
+    agrees with an unchunked generator to float32 rounding."""
     tc = weights["tc"]
     whole = tpre.PretrainedGenerator.from_npz(weights["npz"], cfg=tc,
-                                              device="cpu")
-    chunked = tpre.PretrainedGenerator.from_npz(weights["npz"], cfg=tc,
-                                                device="cpu", max_batch=3)
-    lat = np.random.RandomState(5).randn(8, tc.latent_dim).astype("f4")
-    cond = _cond()
-    np.testing.assert_allclose(chunked.generate_scenarios(cond, 8, latent=lat),
-                               whole.generate_scenarios(cond, 8, latent=lat),
-                               rtol=0, atol=1e-6 * cond.max())
+                                              device="cpu", wire_dtype=wire)
+    chunked = tpre.PretrainedGenerator.from_npz(
+        weights["npz"], cfg=tc, device="cpu", max_batch=max_batch,
+        wire_dtype=wire)
+    got, want, scale = _request(chunked, call, rows)
+    np.testing.assert_array_equal(got, want)
+    unchunked = _request(whole, call, rows)[0]
+    np.testing.assert_allclose(got, unchunked, rtol=0,
+                               atol=1e-6 * scale * chunked.norm_scale)
+
+
+@pytest.mark.parametrize("call", ["single", "batch", "multi"])
+def test_a_reload_mid_request_never_mixes_weights(weights, monkeypatch,
+                                                  call):
+    """A hot reload that lands between a request's chunks (here: right
+    after its first chunk's forward) leaves that request on the weights it
+    started with; the next request serves the new weights."""
+    tc = weights["tc"]
+    gen = tpre.PretrainedGenerator.from_npz(weights["npz"], cfg=tc,
+                                            device="cpu", max_batch=3)
+    old = {k: v.clone() for k, v in gen.params.items()}
+    new = {k: v + 0.05 for k, v in old.items()}
+    real = tpre.PretrainedGenerator.predict_fractions
+    calls = []
+
+    def reloading(self, latent, cond):
+        out = real(self, latent, cond)
+        calls.append(len(latent))
+        if len(calls) == 1:
+            self.reload_params(new)
+        return out
+
+    monkeypatch.setattr(tpre.PretrainedGenerator, "predict_fractions",
+                        reloading)
+    got = _request(gen, call, 8)[0]
+    assert calls[:3] == [3, 3, 2]  # every chunk went through the seam
+    monkeypatch.setattr(tpre.PretrainedGenerator, "predict_fractions", real)
+    for params, served in ((old, got), (new, _request(gen, call, 8)[0])):
+        ref = tpre.PretrainedGenerator(params, tc, device="cpu", max_batch=3)
+        np.testing.assert_array_equal(served, _request(ref, call, 8)[0])
 
 
 def test_seeded_latents_and_multi(weights):

@@ -1,8 +1,10 @@
 """The port's spans (utils/profiling.py ``span``) on the serving path, on the
 CPU: off, they never reach ``record_function``; under a profiler, one
 request nests its chunks' forwards, each forward its upsample-conv calls,
-and the response's copy, on the calling thread."""
+then the touch of the response's pages and each chunk's copy, on the
+calling thread."""
 
+import contextlib
 import json
 import pathlib
 
@@ -18,7 +20,7 @@ from prdisagg_torch.models.generator import Generator  # noqa: E402
 from prdisagg_torch.utils import profiling  # noqa: E402
 
 SPANS = ("prdisagg.request", "prdisagg.forward", "prdisagg.k1",
-         "prdisagg.k1.pack", "prdisagg.fetch")
+         "prdisagg.k1.pack", "prdisagg.fetch", "prdisagg.fetch.touch")
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +59,10 @@ def test_span_off_never_calls_record_function(generator, monkeypatch):
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     with profiling.span("prdisagg.request"):
         pass
-    assert profiling.span("a") is profiling.span("b")  # one shared no-op
+    # one shared no-op
+    off = profiling.span("prdisagg.fetch.touch")
+    assert off is profiling.span("a") is profiling.span("b")
+    assert isinstance(off, contextlib.nullcontext)
     out = generator.generate_scenarios(_cond(), 8)
     assert out.shape == (8, 24, 16, 16)
 
@@ -75,8 +80,19 @@ def test_a_request_nests_its_forwards_k1_calls_and_fetch(generator):
     assert len(by["prdisagg.k1"]) == 6
     for fwd in by["prdisagg.forward"]:
         assert sum(_parent_span(k) is fwd for k in by["prdisagg.k1"]) == 3
-    assert len(by["prdisagg.fetch"]) == 1
-    assert _parent_span(by["prdisagg.fetch"][0]) is req
+    # the page touch, then one copy a chunk, after every forward was queued
+    (touch,) = by["prdisagg.fetch.touch"]
+    fetches = by["prdisagg.fetch"]
+    assert len(fetches) == 2
+    for e in (touch, *fetches):
+        assert _parent_span(e) is req
+    order = sorted(by["prdisagg.forward"] + [touch] + fetches,
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in order] == [
+        "prdisagg.forward", "prdisagg.forward", "prdisagg.fetch.touch",
+        "prdisagg.fetch", "prdisagg.fetch"]
+    for a, b in zip(order, order[1:]):  # one after another, none nested
+        assert a.time_range.end <= b.time_range.start
     assert by["prdisagg.k1.pack"] == []  # the CPU runs the plain version
 
 
@@ -106,5 +122,5 @@ def test_trace_file_holds_the_span_names(generator, tmp_path):
     names = {e.get("name") for e in
              json.loads(files[0].read_text())["traceEvents"]}
     for name in ("prdisagg.request", "prdisagg.forward", "prdisagg.k1",
-                 "prdisagg.fetch"):
+                 "prdisagg.fetch", "prdisagg.fetch.touch"):
         assert name in names
