@@ -34,7 +34,10 @@ Run from the repository root.  Phases:
    then K1's backward node split by kernel and stage at the 16x16, 64x64
    and fused steps' shapes in bf16 and the 16x16 and 64x64 f32 steps'
    (profiled, in a process of its own; [k1_split] lines; alone with
-   --k1-backward-split);
+   --k1-backward-split); then the fused pixel-norm and leaky ReLU kernel
+   against the plain chain at the flagship stages' outputs (B 1000) and
+   the 64x64 last stage's (B 512), with its time, the plain chain's and
+   the bound ([kernel] lines; alone with --pixel-norm);
 4. dataset: a synthetic radar tensor of 448 days x 24 h x 256 x 256 (2.8 GB
    of float32, a multi-year store) made on the card from --seed with the
    synthetic-data recipe, and its valid patch indices;
@@ -48,7 +51,8 @@ Run from the repository root.  Phases:
 6. slice: a flagship float32 PretrainedGenerator built from seeded random
    weights, written to .npz and loaded back, generates 1000 scenarios; the
    kernel's launch count (3, all of the fast variant), shapes, finiteness
-   and conservation of the daily sum are checked, the result is held
+   and conservation of the daily sum are checked, as are the pixel-norm
+   kernel's 3 launches; the result is held
    against the CPU path on a few samples, and scenarios/s and peak memory
    per scenario are measured;
 7. serve: a ScenarioServer answers ping, info, a b64 map request, a stack
@@ -455,6 +459,8 @@ def train_per_step(dtype: str = "bfloat16", batch: int = TRAIN_BATCH,
                                               h, w, cin, cout)
         for k in _backward_expected(plan):
             per[f"upsample2_conv3_backward_{k}"] += 1
+    # one pixel-norm pass a stage's forward, the update's under grad too
+    per["pixel_norm_leaky"] = per["upsample2_conv3"]
     return per
 
 
@@ -487,9 +493,11 @@ def check(ok: bool, what) -> None:
 
 
 def reset_k1_counts() -> None:
-    """Zero K1's launch counters, in total and by kernel variant."""
-    from prdisagg_torch.ops import upsample_conv
+    """Zero K1's launch counters, in total and by kernel variant, and the
+    pixel-norm pass's (one a K1 forward: each stage's output)."""
+    from prdisagg_torch.ops import core, upsample_conv
 
+    core.pixel_norm_launches = 0
     upsample_conv.launches = upsample_conv.backward_calls = 0
     upsample_conv.launches_by_variant = dict.fromkeys(
         upsample_conv.VARIANTS, 0)
@@ -616,8 +624,9 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     # the bf16 K1 kernels must run on the tensor cores (wgmma is HGMMA in
-    # SASS); K2's copy on 16-byte loads and stores
-    wants = {"upsample_conv": ("HGMMA",), "gather": ("LDG.E.128", "STG.E.128")}
+    # SASS); K2's copy and the pixel-norm pass on 16-byte loads and stores
+    wants = {"upsample_conv": ("HGMMA",), "gather": ("LDG.E.128", "STG.E.128"),
+             "pixel_norm": ("LDG.E.128", "STG.E.128")}
     for name, ops in wants.items():
         sass = _sass(name)
         for op in ops:
@@ -1289,6 +1298,75 @@ def phase_gather_check(ds, seed: int) -> dict:
     return {"rows": rows}
 
 
+# pixel-norm and leaky ReLU after each stage of the main path: the 16x16
+# stages' outputs at the serving batch, and the 64x64 last stage's at
+# max_batch 512 (3.2e9 floats, past 32-bit offsets)
+PIXEL_NORM_CASES = [("pn_stage0", (SCENARIOS, 6, 4, 4, 256)),
+                    ("pn_stage1", (SCENARIOS, 12, 8, 8, 128)),
+                    ("pn_stage2", (SCENARIOS, 24, 16, 16, 64)),
+                    ("pn_large_stage2_b512", (512, 24, 64, 64, 64))]
+
+
+def phase_pixel_norm_check(seed: int) -> dict:
+    """The fused pixel-norm and leaky ReLU kernel against the plain chain
+    it replaces (square, mean, product, leaky ReLU) at PIXEL_NORM_CASES:
+    elementwise within the mean's summation order, device times of both
+    (:func:`queued_ms`) and of the library's nearest pair of calls
+    (``F.rms_norm``, then ``F.leaky_relu_``), the call's time with its
+    Python launch, and the bound, one read and one write over HBM's
+    rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from prdisagg_torch.ops import core
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows, ok = [], True
+
+    def plain(x):
+        return core.leaky_relu(core.pixel_norm(x), 0.2)
+
+    def library(x):
+        # PyTorch's fused RMS norm, then the leaky ReLU in place
+        return F.leaky_relu_(F.rms_norm(x, (x.shape[-1],), eps=1e-8), 0.2)
+
+    for name, shape in PIXEL_NORM_CASES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        before = core.pixel_norm_launches
+        got = core.pixel_norm_leaky(x, 0.2)
+        torch.cuda.synchronize()
+        launched = core.pixel_norm_launches - before
+        want = plain(x)
+        good, max_err, scale = _compare(got, want, 1e-5, 1e-7)
+        good &= launched == 1
+        lib_ok, lib_err, _ = _compare(library(x), want, 1e-5, 1e-7)
+        del got, want
+        nbytes = 2 * x.numel() * 4
+        reps = 10 if nbytes < 1e10 else 3
+        ms = queued_ms(lambda: core.pixel_norm_leaky(x, 0.2), reps)
+        row = dict(stage=name, dtype="float32", shape=list(shape), ok=good,
+                   launches=launched, max_abs_err=max_err, max_ref=scale,
+                   rtol=1e-5, ms=ms,
+                   call_ms=cuda_ms(lambda: core.pixel_norm_leaky(x, 0.2),
+                                   reps, warmup=1),
+                   plain_ms=queued_ms(lambda: plain(x), reps),
+                   library_ms=queued_ms(lambda: library(x), reps),
+                   library_ok=lib_ok, library_max_abs_err=lib_err,
+                   **_bound(0, nbytes, "float32"))
+        row["bound_share"] = row["bound_ms"] / ms
+        row["gb_per_s"] = nbytes / ms / 1e6
+        rows.append(row)
+        ok &= good
+        print("[kernel] " + json.dumps(row))
+        del x
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("pixel_norm_leaky kernel disagrees with the "
+                             "plain chain (see [kernel] lines)")
+    return {"rows": rows}
+
+
 def _plain_backward(x, k, g, need_dx=True, need_dk=True, kp=None,
                     need_db=False):
     """upsample2_conv3_backward_cuda's counterpart by the plain version, as
@@ -1428,7 +1506,7 @@ BY_NAME = ("k1_bf16_wgmma", "k1_f32_fma", "k1_general", "k2_gather",
            "k1_f32_halo", "k1_pack_fwd_tf32", "k1_dx_bf16_halo",
            "k1_dk_bf16_halo", "k1_dx_f32_halo", "k1_dk_f32_halo",
            "k1_pack_tf32", "k1_dx_fma", "k1_dk_fma", "k1_dx_reduce",
-           "k1_dk_fold")
+           "k1_dk_fold", "pixel_norm_leaky")
 # K1's backward kernels' counter names (BACKWARD_KERNELS) by profile name;
 # the FMA kernels also ran f32 as "dx_fast" and "dk_fast" before the f32
 # halo kernels, named here so that --f32-step can measure such a tree
@@ -1519,7 +1597,8 @@ def _fit_counted(trainer, steps: int, per_step: dict, tag: str) -> tuple:
                   for v in upsample_conv.VARIANTS},
               "upsample2_conv3_backward": executed["upsample2_conv3_backward"],
               "upsample2_conv3_backward_kernels": _backward_kernels(executed),
-              "gather_patches": executed["gather_patches"]}
+              "gather_patches": executed["gather_patches"],
+              "pixel_norm_leaky": executed["pixel_norm_leaky"]}
     import numpy as np
 
     vals = np.array([hist[k] for k in hist if k != "epoch"])
@@ -1557,8 +1636,8 @@ def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
     steps_per_call): device busy and idle share, and the hand-written
     kernels counted by name inside the replays (K1's forward and backward
     kernels as `per_step` says: 6 forwards a step, on wgmma in bf16 and on
-    the halo forward and its weight split in f32; K2 2 a step) with their
-    device ms a step.  CUPTI now and then
+    the halo forward and its weight split in f32; K2 2 a step; the
+    pixel-norm pass one a K1 forward) with their device ms a step.  CUPTI now and then
     drops events of a long trace, so a trace whose counts differ is taken
     again, up to DEVICE_TRACE_TRIES traces, before the check fails."""
     import torch
@@ -1567,7 +1646,8 @@ def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
     halo = per_step.get("upsample2_conv3_halo_f32", 0)
     want = {fast: per_step.get("upsample2_conv3_fast", 0),
             "k1_general": per_step.get("upsample2_conv3_general", 0),
-            "k1_f32_halo": halo, "k1_pack_fwd_tf32": halo, "k2_gather": 2}
+            "k1_f32_halo": halo, "k1_pack_fwd_tf32": halo, "k2_gather": 2,
+            "pixel_norm_leaky": per_step.get("pixel_norm_leaky", 0)}
     want.update({n: sum(per_step.get(f"upsample2_conv3_backward_{k}", 0)
                         for k in ks)
                  for n, ks in BACKWARD_BY_NAME.items()})
@@ -2324,7 +2404,7 @@ def phase_slice(seed: int, workdir: str) -> dict:
 
     from prdisagg_torch.api.pretrained import PretrainedGenerator
     from prdisagg_torch.core.config import ModelConfig
-    from prdisagg_torch.ops import upsample_conv
+    from prdisagg_torch.ops import core, upsample_conv
 
     cfg = ModelConfig(compute_dtype="float32")
     tree = _random_generator_tree(cfg, seed)
@@ -2338,9 +2418,15 @@ def phase_slice(seed: int, workdir: str) -> dict:
 
     torch.cuda.synchronize()
     reset_k1_counts()
+    pn_before = core.pixel_norm_launches
     scen = gen.generate_scenarios(cond, SCENARIOS)
     launches, by_variant = (upsample_conv.launches,
                             dict(upsample_conv.launches_by_variant))
+    pn_launches = core.pixel_norm_launches - pn_before
+    print(f"[slice] main path: pixel_norm_leaky launched {pn_launches} "
+          f"times")
+    check(pn_launches == 3, f"expected 3 pixel-norm kernel launches, got "
+          f"{pn_launches}")
     print(f"[slice] main path: generate_scenarios(cond, {SCENARIOS}) "
           f"launched the kernel {launches} times {by_variant} (max_batch "
           f"{gen.max_batch})")
@@ -2365,6 +2451,7 @@ def phase_slice(seed: int, workdir: str) -> dict:
     check(cpu_err <= 1e-5 * cond.max(), f"card vs CPU differ by {cpu_err}")
 
     result = {"launches": launches, "by_variant": by_variant,
+              "pixel_norm_launches": pn_launches,
               "conservation": cons, "cpu_err": cpu_err,
               "npz": npz, "gen": gen, "cond": cond}
     for n in (SCENARIOS, gen.max_batch):
@@ -2666,7 +2753,7 @@ def phase_eval(ds, sl: dict, seed: int, workdir: str) -> dict:
     from prdisagg_torch.eval import Evaluator, daily_cycle_correlation
     from prdisagg_torch.eval.crps import crps_gan, crps_random_baseline
     from prdisagg_torch.eval.lsd import run_lsd_evaluation, spectra_of_fields
-    from prdisagg_torch.ops import gather, upsample_conv
+    from prdisagg_torch.ops import core, gather, upsample_conv
     from prdisagg_torch.ops.stats import pairwise_lsd_summary
 
     check(importlib.util.find_spec("scipy") is not None,
@@ -2740,7 +2827,8 @@ def phase_eval(ds, sl: dict, seed: int, workdir: str) -> dict:
     counts = {"upsample2_conv3": upsample_conv.launches,
               "upsample2_conv3_by_variant": dict(
                   upsample_conv.launches_by_variant),
-              "gather_patches": gather.launches}
+              "gather_patches": gather.launches,
+              "pixel_norm_leaky": core.pixel_norm_launches}
 
     want = {"draw_reals": (0, 1),
             "crps_gan": (3 * EVAL_MEMBERS // EVAL_MEMBER_BATCH
@@ -2890,7 +2978,7 @@ def phase_rainfarm(ds, sl: dict, seed: int, workdir: str) -> dict:
     )
     from prdisagg_torch.core.config import RainFarmConfig
     from prdisagg_torch.eval.crps import run_crps_evaluation
-    from prdisagg_torch.ops import gather, upsample_conv
+    from prdisagg_torch.ops import core, gather, upsample_conv
 
     cfg = RainFarmConfig()
     calib_dir = os.path.join(workdir, "calibration")
@@ -2934,7 +3022,8 @@ def phase_rainfarm(ds, sl: dict, seed: int, workdir: str) -> dict:
     counts = {"upsample2_conv3": upsample_conv.launches,
               "upsample2_conv3_by_variant": dict(
                   upsample_conv.launches_by_variant),
-              "gather_patches": gather.launches}
+              "gather_patches": gather.launches,
+              "pixel_norm_leaky": core.pixel_norm_launches}
 
     want = {"calibrate": (0, cfg.n_repeat), "draw_reals": (0, 1),
             "crps_rainfarm": (0, 0), "generate_for_daily_sums": (0, 0),
@@ -3643,6 +3732,7 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
         scored = [EVAL_MEMBER_BATCH] * (half * EVAL_MEMBERS
                                         // EVAL_MEMBER_BATCH) + [SCENARIOS]
         want["upsample2_conv3"] += 3 * len(scored)
+        want["pixel_norm_leaky"] += 3 * len(scored)
         for v, n in k1_forward_expected("float32", scored).items():
             want[f"upsample2_conv3_{v}"] += n
         check(g["counts"] == want, f"gloo rank launches {g['counts']}, "
@@ -3684,7 +3774,8 @@ def phase_dp(sl: dict, train: dict, seed: int, workdir: str,
             for v in upsample_conv.VARIANTS},
         "upsample2_conv3_backward": counts["upsample2_conv3_backward"],
         "upsample2_conv3_backward_kernels": _backward_kernels(counts),
-        "gather_patches": counts["gather_patches"]},
+        "gather_patches": counts["gather_patches"],
+        "pixel_norm_leaky": counts["pixel_norm_leaky"]},
         "nccl": {k: v for k, v in nccl.items() if k != "log"},
         "gloo": gloo,
         "cli": {k: res[k]["seconds"] for k in ("cli_train", "cli_crps",
@@ -3744,7 +3835,7 @@ def phase_fused(ds, seed: int) -> dict:
             steps[name] = (fn, state)
         rates[name].append(_graphed_rate(*steps[name], ds))
     want = train_per_step("bfloat16", (N_DISC + 1) * TRAIN_BATCH)
-    want["upsample2_conv3"] = 3
+    want["upsample2_conv3"] = want["pixel_norm_leaky"] = 3
     want.update({f"upsample2_conv3_{v}": n for v, n in k1_forward_expected(
         "bfloat16", [(N_DISC + 1) * TRAIN_BATCH]).items()})
     check(counts["fused"]["per_replay"] == want,
@@ -3852,7 +3943,8 @@ def _path_counts(c: dict) -> dict:
                 for v in upsample_conv.VARIANTS},
             "upsample2_conv3_backward": c["upsample2_conv3_backward"],
             "upsample2_conv3_backward_kernels": _backward_kernels(c),
-            "gather_patches": c["gather_patches"]}
+            "gather_patches": c["gather_patches"],
+            "pixel_norm_leaky": c["pixel_norm_leaky"]}
 
 
 def _seconds(fn, reps: int) -> float:
@@ -4184,7 +4276,7 @@ def phase_data(seed: int, workdir: str) -> dict:
     from prdisagg_torch.data.ingest import convert_day, day_of_year
     from prdisagg_torch.data.native import extract_patch_store
     from prdisagg_torch.data.netcdf_io import convert_and_write_days
-    from prdisagg_torch.ops import gather, upsample_conv
+    from prdisagg_torch.ops import core, gather, upsample_conv
 
     os.makedirs(workdir, exist_ok=True)
     torch.cuda.empty_cache()
@@ -4349,7 +4441,8 @@ def phase_data(seed: int, workdir: str) -> dict:
     counts = {"upsample2_conv3": upsample_conv.launches,
               "upsample2_conv3_by_variant": dict(
                   upsample_conv.launches_by_variant),
-              "gather_patches": gather.launches}
+              "gather_patches": gather.launches,
+              "pixel_norm_leaky": core.pixel_norm_launches}
     check(counts["upsample2_conv3"] > 0 and counts["gather_patches"] > 0,
           f"the data path launched no kernel: {counts}")
     print("[data] " + json.dumps({"stages": stages, "rows": len(rows),
@@ -4480,7 +4573,7 @@ def phase_variants(ds, seed: int, workdir: str) -> dict:
     )
     from prdisagg_torch.data.indices import compute_valid_indices
     from prdisagg_torch.data.sampler import DeviceDataset
-    from prdisagg_torch.ops import upsample_conv
+    from prdisagg_torch.ops import core, upsample_conv
     from prdisagg_torch.train.loop import Trainer
     from prdisagg_torch.train.wgan_gp import make_train_step
 
@@ -4556,9 +4649,11 @@ def phase_variants(ds, seed: int, workdir: str) -> dict:
     first = time.perf_counter() - t0
     serve_counts = {"upsample2_conv3": upsample_conv.launches,
                     "upsample2_conv3_by_variant":
-                        dict(upsample_conv.launches_by_variant)}
+                        dict(upsample_conv.launches_by_variant),
+                    "pixel_norm_leaky": core.pixel_norm_launches}
     check(serve_counts["upsample2_conv3_by_variant"] == k1_forward_expected(
-        "float32", [n], [s[:1] + s[1:] for s in LARGE_STAGES]), serve_counts)
+        "float32", [n], [s[:1] + s[1:] for s in LARGE_STAGES])
+          and serve_counts["pixel_norm_leaky"] == 3, serve_counts)
     check(scen.shape == (n, 24, ND_LARGE, ND_LARGE)
           and np.isfinite(scen).all(), scen.shape)
     scen_cons = _conservation_err(scen, cond)
@@ -4807,7 +4902,8 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
                   slice_by_variant: dict, eval_counts: dict,
                   rf_counts: dict, dp_counts: dict,
                   data_counts: dict, var_counts: dict, fused_counts: dict,
-                  spatial_counts: dict, f32_counts: dict) -> list:
+                  spatial_counts: dict, f32_counts: dict, pn: dict,
+                  slice_pn_launches: int) -> list:
     paths = {"eval": eval_counts, "rainfarm": rf_counts, "dp": dp_counts,
              "data": data_counts, "variants": var_counts,
              "fused": fused_counts, "spatial": spatial_counts,
@@ -4833,6 +4929,16 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
            if "upsample2_conv3_backward_kernels" in c}
     f32_kernels = ("dx_halo_f32", "dk_halo_f32", "pack_tf32")
     k2 = {r["stage"]: r for r in gc["rows"]}
+    pn_16 = [r for r in pn["rows"] if r["stage"].startswith("pn_stage")]
+    # every stage's forward is followed by one pixel-norm pass, so a path
+    # that ran K1's forward n times launched the pass n times
+    pn_by_path = {"slice": slice_pn_launches,
+                  "train": counts["pixel_norm_leaky"],
+                  **{p: c["pixel_norm_leaky"] for p, c in paths.items()}}
+    k1_by_path = {"slice": slice_launches, "train": counts["upsample2_conv3"],
+                  **{p: c["upsample2_conv3"] for p, c in paths.items()}}
+    check(pn_by_path == k1_by_path, f"pixel-norm launches {pn_by_path} "
+          f"against K1 forward launches {k1_by_path}")
     real = k2[f"real_b{N_DISC * TRAIN_BATCH}"]
     cond = k2[f"cond_b{TRAIN_BATCH}"]
     return [{
@@ -4982,6 +5088,25 @@ def _kernel_lines(kc: dict, gc: dict, counts: dict, slice_launches: int,
         "library_ms": real["library_ms"] + cond["library_ms"],
         "call_ms": real["call_ms"] + cond["call_ms"],
         "host_us": real["host_us"] + cond["host_us"],
+    }, {
+        "name": "pixel_norm_leaky",
+        "route": "cuda",
+        "source": "prdisagg_torch/csrc/pixel_norm.cu",
+        # no TPU kernel: XLA fused the chain in the JAX package
+        "replaces": None,
+        # one a stage's forward on every path, with or without a gradient
+        # recorded (checked against K1's forward launches above)
+        "launches": sum(pn_by_path.values()),
+        "launches_by_path": pn_by_path,
+        # the three stages of one flagship f32 forward at B 1000 (the 64x64
+        # stage 2 at B 512 is in its [kernel] line)
+        "max_abs_err": max(r["max_abs_err"] for r in pn_16),
+        "ms": sum(r["ms"] for r in pn_16),
+        "call_ms": sum(r["call_ms"] for r in pn_16),
+        "plain_ms": sum(r["plain_ms"] for r in pn_16),
+        "bound_ms": sum(r["bound_ms"] for r in pn_16),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in pn_16),
     }]
 
 
@@ -5001,6 +5126,8 @@ def main() -> int:
     ap.add_argument("--f32-step", action="store_true")
     # only the device, build and K1 f32 forward phases
     ap.add_argument("--k1-forward", action="store_true")
+    # only the device, build and pixel-norm kernel check phases
+    ap.add_argument("--pixel-norm", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -5035,6 +5162,9 @@ def main() -> int:
     if args.k1_forward:
         phase_k1_forward(args.seed)
         return 0
+    if args.pixel_norm:
+        phase_pixel_norm_check(args.seed)
+        return 0
     if args.f32_step:
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
             phase_f32_train(phase_dataset(args.seed), args.seed, tmp)
@@ -5065,6 +5195,7 @@ def main() -> int:
                   f"beside the other subprocess phases)", flush=True)
 
     run("kernel_check", lambda: phase_kernel_check(args.seed))
+    run("pixel_norm_check", lambda: phase_pixel_norm_check(args.seed))
     run("k1_backward_split",
         lambda: phase_k1_backward_split_proc(args.seed))
     run("dataset", lambda: phase_dataset(args.seed))
@@ -5149,7 +5280,9 @@ def main() -> int:
                             out["rainfarm"]["counts"], out["dp"]["counts"],
                             out["data"]["counts"], out["variants"]["counts"],
                             out["fused"]["counts"], out["spatial"]["counts"],
-                            out["f32_train"]["counts"])
+                            out["f32_train"]["counts"],
+                            out["pixel_norm_check"],
+                            out["slice"]["pixel_norm_launches"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

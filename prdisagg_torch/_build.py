@@ -19,7 +19,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = {"upsample_conv": _PKG / "csrc" / "upsample_conv.cu",
-           "gather": _PKG / "csrc" / "gather.cu"}
+           "gather": _PKG / "csrc" / "gather.cu",
+           "pixel_norm": _PKG / "csrc" / "pixel_norm.cu"}
 BUILD_DIR = _PKG.parent / "build" / "prdisagg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -11,8 +11,9 @@ Activations stay channels-last (B, D, H, W, C) as in the JAX package, so the
 condition flatten and the dense reshape keep the channel-last order that
 reference and JAX weights expect.  Parameters are float32; conv and matmul
 inputs run in ``cfg.compute_dtype``; pixel-norm (when ``pixelnorm_f32``) and
-the softmax run in float32.  In float32 the latent projection and the head
-conv fix their order of summation (:func:`latent_projection`,
+the softmax run in float32; there, pixel-norm and leaky ReLU are one pass
+on the card (:func:`pixel_norm_leaky`).  In float32 the latent projection
+and the head conv fix their order of summation (:func:`latent_projection`,
 :func:`head_conv_f32`), so that the port is no farther from the exact
 result than the JAX package on any host.
 
@@ -41,7 +42,7 @@ from prdisagg_torch.ops.core import (
     full_f32,
     hour_softmax,
     leaky_relu,
-    pixel_norm,
+    pixel_norm_leaky,
     pixel_norm_mixed,
     upsample3d_nearest,
 )
@@ -204,24 +205,34 @@ class Generator(nn.Module):
             n = cfg.latent_grid[1]  # y rows, dim 2
             for i, stage in enumerate(self.stages()):
                 # the latent grid is replicated, every later input as split
-                x = self._stage(stage, x.to(cd), n, sp,
-                                i > 0 and spatial.is_sharded(n, sp))
+                x, rows = self._stage(stage, x.to(cd), n, sp,
+                                      i > 0 and spatial.is_sharded(n, sp))
+                # pixel-norm is a pass over each position, so it may run
+                # before a rank's rows are cut out of the contiguous output
+                x = self._activate(x)
+                if rows is not None:
+                    x = x.narrow(2, *rows)
                 n *= 2
-                if cfg.pixelnorm_f32:
-                    x = leaky_relu(pixel_norm(x.float()), cfg.leak).to(cd)
-                else:
-                    x = leaky_relu(pixel_norm_mixed(x), cfg.leak)
             x = self._head(x, n, sp)
         return hour_softmax(x.permute(0, 2, 3, 4, 1))
 
+    def _activate(self, y: torch.Tensor) -> torch.Tensor:
+        """Pixel-norm and leaky ReLU of a stage's output."""
+        cfg = self.cfg
+        if cfg.pixelnorm_f32:
+            return pixel_norm_leaky(y.float(), cfg.leak).to(
+                self.compute_dtype)
+        return leaky_relu(pixel_norm_mixed(y), cfg.leak)
+
     @staticmethod
     def _stage(stage: UpsampleConv, x: torch.Tensor, n: int, sp,
-               sharded: bool) -> torch.Tensor:
+               sharded: bool) -> tuple:
         """One upsample-conv stage on x's n rows (this rank's if `sharded`,
         else all): output row o reads input rows (o - 1) // 2 to
-        (o + 1) // 2."""
+        (o + 1) // 2.  Returns the output and, under a split, the (start,
+        length) of this rank's rows in it along dim 2 (else None)."""
         if not spatial.is_sharded(2 * n, sp):
-            return stage(spatial.gather_rows(x, n, sp, 2, sharded))
+            return stage(spatial.gather_rows(x, n, sp, 2, sharded)), None
 
         def need(r):
             c, d = spatial.row_bounds(2 * n, r, sp.size)
@@ -229,7 +240,7 @@ class Generator(nn.Module):
 
         c, d = spatial.own_rows(2 * n, sp)
         y = stage(spatial.fetch_rows(x, n, sp, need, 2, sharded))
-        return y.narrow(2, c - 2 * need(sp.rank)[0], d - c)
+        return y, (c - 2 * need(sp.rank)[0], d - c)
 
     def _head(self, x: torch.Tensor, n: int, sp) -> torch.Tensor:
         """The 64 -> 1 head conv (SAME), NCDHW out, on a one-row halo of

@@ -63,7 +63,7 @@ import torch
 
 from prdisagg_torch.core.config import ModelConfig, TrainConfig
 from prdisagg_torch.data.sampler import DeviceDataset
-from prdisagg_torch.ops import gather, upsample_conv
+from prdisagg_torch.ops import core, gather, upsample_conv
 from prdisagg_torch.ops.core import full_f32
 from prdisagg_torch.parallel import spatial
 from prdisagg_torch.parallel.mesh import Mesh2D, all_reduce_mean, shard_bounds
@@ -363,15 +363,16 @@ graph_launches = collections.Counter()
 
 def kernel_counts() -> dict:
     """The kernel wrappers' counters: K1's launches, by variant too, K1's
-    backward passes and its backward kernels' launches, and K2's
-    launches."""
+    backward passes and its backward kernels' launches, K2's launches and
+    the pixel-norm pass's."""
     return {"upsample2_conv3": upsample_conv.launches,
             **{f"upsample2_conv3_{v}": n
                for v, n in upsample_conv.launches_by_variant.items()},
             "upsample2_conv3_backward": upsample_conv.backward_calls,
             **{f"upsample2_conv3_backward_{k}": n for k, n in
                upsample_conv.backward_launches_by_variant.items()},
-            "gather_patches": gather.launches}
+            "gather_patches": gather.launches,
+            "pixel_norm_leaky": core.pixel_norm_launches}
 
 
 def _call_metrics(last: dict, flag: torch.Tensor) -> dict:

@@ -9,6 +9,7 @@
   ``prdisagg.request`` (a ``generate_scenarios*`` call),
   ``prdisagg.forward`` (one chunk's forward), ``prdisagg.k1`` (one
   upsample-conv call), ``prdisagg.k1.pack`` (its weight pack, on the card),
+  ``prdisagg.pixel_norm`` (one stage's pixel-norm and leaky ReLU),
   ``prdisagg.fetch.touch`` (the touch of the response's host pages) and
   ``prdisagg.fetch`` (one chunk's device->host copy and its wait).
 * `StepTimer`: steps/s of a chain of device steps.  Launches return before

@@ -1268,3 +1268,215 @@ def test_probe_backend_on_the_card(cuda):
     res = probe_backend("cuda", timeout_s=120)
     assert res["ok"], res
     assert res["latency_s"] is not None
+
+
+# pixel-norm and leaky ReLU in one pass (csrc/pixel_norm.cu): every stage
+# output of both configurations at small B (C 256, 128, 64), then widths
+# that leave lanes idle (C 4, 12, 40, 192) or meet the smoke model's C 8
+PIXEL_NORM_SHAPES = [(3, 6, 4, 4, 256), (3, 12, 8, 8, 128),
+                     (3, 24, 16, 16, 64), (2, 6, 16, 16, 256),
+                     (2, 12, 32, 32, 128), (2, 24, 64, 64, 64),
+                     (5, 3, 4), (7, 5, 12), (3, 11, 40), (9, 13, 192),
+                     (2, 6, 4, 4, 8)]
+# the kernel sums the C squares in another order than torch.mean: the mean
+# differs by up to ~C * 2^-24 of itself (1.5e-5 at C 256), its rsqrt by
+# half that, and each output by the same share of itself
+PIXEL_NORM_RTOL, PIXEL_NORM_ATOL = 1e-5, 1e-7
+
+
+def _pixel_norm_input(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = 3.0 * torch.randn(shape, generator=g, device=device)
+    x[..., ::7] = 0.0  # exact zeros, and positions with few nonzeros
+    return x
+
+
+def _plain_chain(x, leak=0.2):
+    from prdisagg_torch.ops.core import leaky_relu, pixel_norm
+
+    return leaky_relu(pixel_norm(x), leak)
+
+
+@pytest.mark.parametrize("shape", PIXEL_NORM_SHAPES)
+def test_pixel_norm_leaky_kernel_matches_plain(cuda, shape):
+    from prdisagg_torch.ops import core
+
+    x = _pixel_norm_input(shape, cuda, seed=len(shape) + shape[-1])
+    assert core.pixel_norm_plain_because(x) is None
+    before = core.pixel_norm_launches
+    got = core.pixel_norm_leaky(x, 0.2)
+    torch.cuda.synchronize()
+    assert core.pixel_norm_launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
+    torch.testing.assert_close(got, _plain_chain(x), rtol=PIXEL_NORM_RTOL,
+                               atol=PIXEL_NORM_ATOL)
+
+
+def test_pixel_norm_leaky_kernel_past_2_31_elements(cuda):
+    """64-bit offsets: 2^31 + 2^18 floats at C 64 (8.6 GB); positions at
+    the start, across element 2^31 and at the end match the plain chain."""
+    from prdisagg_torch.ops import core
+
+    c = 64
+    p = (2 ** 31 + 2 ** 18) // c
+    x = torch.empty((p, c), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for part in x.split(1 << 24):
+        part.normal_(generator=g)
+    got = core.pixel_norm_leaky(x, 0.2)
+    torch.cuda.synchronize()
+    edge = 2 ** 31 // c
+    for lo in (0, edge - 4096, p - 8192):
+        torch.testing.assert_close(
+            got[lo:lo + 8192], _plain_chain(x[lo:lo + 8192]),
+            rtol=PIXEL_NORM_RTOL, atol=PIXEL_NORM_ATOL)
+
+
+def test_pixel_norm_leaky_dispatch_at_the_kernels_limit(cuda):
+    """C at the kernel's limit launches it, and so do a view that is not
+    contiguous and a tensor that records a gradient; one step beyond the
+    limit, a C off the multiples of 4 and bf16 take the plain chain,
+    counted as not launched."""
+    from prdisagg_torch.ops import core
+
+    limit = core.PIXEL_NORM_MAX_CHANNELS
+    view = _pixel_norm_input((2, 6, 8, 8, 64), cuda).narrow(2, 1, 4)
+    grad = _pixel_norm_input((2, 6, 4, 4, 64), cuda).requires_grad_()
+    for x in (_pixel_norm_input((3, 5, limit), cuda), view, grad):
+        assert core.pixel_norm_plain_because(x) is None
+        before = core.pixel_norm_launches
+        got = core.pixel_norm_leaky(x, 0.2)
+        assert core.pixel_norm_launches == before + 1
+        assert got.is_contiguous()
+        torch.testing.assert_close(got, _plain_chain(x), rtol=PIXEL_NORM_RTOL,
+                                   atol=PIXEL_NORM_ATOL)
+    wide = _pixel_norm_input((3, 5, limit + 4), cuda)
+    cases = [(wide, "channels"), (_pixel_norm_input((4, 6), cuda), "channels"),
+             (_pixel_norm_input((2, 64), cuda).bfloat16(), "float32")]
+    for x, why in cases:
+        assert why in core.pixel_norm_plain_because(x)
+        before = core.pixel_norm_launches
+        got = core.pixel_norm_leaky(x, 0.2)
+        assert core.pixel_norm_launches == before
+        assert torch.equal(got, _plain_chain(x))
+
+
+def test_pixel_norm_leaky_gradient_on_the_card(cuda):
+    """Under a recorded gradient the kernel runs the forward and the
+    closed-form backward gives the plain chain's gradient, for a stage
+    output and for a narrowed view of one (a spatial mesh's rows); a
+    second derivative through it matches the plain chain's too.
+    Tolerance: the sums run in another order, some ulps of the largest
+    terms."""
+    from prdisagg_torch.ops import core
+
+    base = _pixel_norm_input((3, 12, 8, 8, 128), cuda, seed=7)
+    dy = _pixel_norm_input((3, 12, 8, 8, 128), cuda, seed=8)
+    for x, g in ((base, dy), (base.narrow(2, 1, 5), dy.narrow(2, 1, 5))):
+        leaf, ref = x.clone().requires_grad_(), x.clone().requires_grad_()
+        before = core.pixel_norm_launches
+        got = core.pixel_norm_leaky(leaf, 0.2)
+        assert core.pixel_norm_launches == before + 1
+        want = _plain_chain(ref)
+        (dx,) = torch.autograd.grad(got, leaf, g, create_graph=True)
+        (dx_ref,) = torch.autograd.grad(want, ref, g, create_graph=True)
+        assert core.pixel_norm_launches == before + 1
+        scale = dx_ref.abs().max().item()
+        torch.testing.assert_close(dx, dx_ref, rtol=1e-5, atol=1e-6 * scale)
+        (ddx,) = torch.autograd.grad(dx.square().sum(), leaf)
+        (ddx_ref,) = torch.autograd.grad(dx_ref.square().sum(), ref)
+        scale = ddx_ref.abs().max().item()
+        torch.testing.assert_close(ddx, ddx_ref, rtol=1e-4,
+                                   atol=1e-5 * scale)
+
+
+def test_pixel_norm_leaky_kernel_repeats_its_bits(cuda):
+    from prdisagg_torch.ops import core
+
+    x = _pixel_norm_input((64, 12, 8, 8, 128), cuda, seed=5)
+    first = core.pixel_norm_leaky(x, 0.2)
+    for _ in range(3):
+        assert torch.equal(core.pixel_norm_leaky(x, 0.2), first)
+
+
+def test_pixel_norm_leaky_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured, the kernel replays on new contents of its input as it
+    runs eagerly, bit for bit."""
+    from prdisagg_torch.ops import core
+
+    static = _pixel_norm_input((16, 24, 16, 16, 64), cuda, seed=1)
+    core.pixel_norm_leaky(static, 0.2)  # load the kernel before capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        core.pixel_norm_leaky(static, 0.2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = core.pixel_norm_leaky(static, 0.2)
+    for seed in (2, 3):
+        fresh = _pixel_norm_input(static.shape, cuda, seed=seed)
+        static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, core.pixel_norm_leaky(fresh, 0.2))
+
+
+def test_pixel_norm_launches_three_a_forward_without_gradients(cuda):
+    """A generator forward launches the kernel once a stage, under
+    inference_mode and when it records gradients alike; the backward
+    launches none, and its parameter gradients match those of the plain
+    chain."""
+    from prdisagg_torch.core.config import smoke_model_config
+    from prdisagg_torch.models import generator as gmod
+    from prdisagg_torch.ops import core
+
+    cfg = smoke_model_config(compute_dtype="float32")
+    torch.manual_seed(0)
+    gen = gmod.Generator(cfg).to(cuda)
+    lat = torch.randn(6, cfg.latent_dim, device=cuda)
+    cond = torch.rand(6, cfg.ndomain, cfg.ndomain, 1, device=cuda)
+    before = core.pixel_norm_launches
+    with torch.inference_mode():
+        served = gen(lat, cond)
+    assert core.pixel_norm_launches == before + 3
+    trained = gen(lat, cond)
+    assert core.pixel_norm_launches == before + 6
+    trained.square().sum().backward()
+    assert core.pixel_norm_launches == before + 6
+    torch.testing.assert_close(served, trained.detach(), rtol=1e-5,
+                               atol=1e-6)
+    got = [p.grad.clone() for p in gen.parameters()]
+    gen.zero_grad()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gmod, "pixel_norm_leaky", lambda x, leak: _plain_chain(
+            x, leak))
+        gen(lat, cond).square().sum().backward()
+    # against the largest gradient of all: the head's bias shifts every
+    # hour alike, which the softmax undoes, so its gradient is rounding
+    scale = max(p.grad.abs().max().item() for p in gen.parameters())
+    for g, p in zip(got, gen.parameters()):
+        torch.testing.assert_close(g, p.grad, rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_pixel_norm_leaky_raises_on_a_refused_launch(cuda):
+    """The C entry refuses a width beyond its limit and one off the
+    multiples of 4 (a transposed view, copied first); the launch raises
+    and counts nothing.  A misaligned tensor is copied, not refused."""
+    from prdisagg_torch.ops import core
+
+    before = core.pixel_norm_launches
+    wide = _pixel_norm_input((3, core.PIXEL_NORM_MAX_CHANNELS + 4), cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        core.pixel_norm_leaky_cuda(wide, 0.2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        core.pixel_norm_leaky_cuda(wide.t(), 0.2)
+    assert core.pixel_norm_launches == before
+    off = _pixel_norm_input((4 * 64 + 1,), cuda)[1:].view(4, 64)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    assert core.pixel_norm_plain_because(off) is None
+    got = core.pixel_norm_leaky(off, 0.2)
+    assert core.pixel_norm_launches == before + 1
+    torch.testing.assert_close(got, _plain_chain(off), rtol=PIXEL_NORM_RTOL,
+                               atol=PIXEL_NORM_ATOL)

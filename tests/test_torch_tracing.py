@@ -20,7 +20,8 @@ from prdisagg_torch.models.generator import Generator  # noqa: E402
 from prdisagg_torch.utils import profiling  # noqa: E402
 
 SPANS = ("prdisagg.request", "prdisagg.forward", "prdisagg.k1",
-         "prdisagg.k1.pack", "prdisagg.fetch", "prdisagg.fetch.touch")
+         "prdisagg.k1.pack", "prdisagg.pixel_norm", "prdisagg.fetch",
+         "prdisagg.fetch.touch")
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +95,15 @@ def test_a_request_nests_its_forwards_k1_calls_and_fetch(generator):
     for a, b in zip(order, order[1:]):  # one after another, none nested
         assert a.time_range.end <= b.time_range.start
     assert by["prdisagg.k1.pack"] == []  # the CPU runs the plain version
+
+
+def test_each_forward_nests_a_pixel_norm_span_a_stage(generator):
+    spans = _profiled(lambda: generator.generate_scenarios(_cond(), 8))
+    fwds = [e for e in spans if e.name == "prdisagg.forward"]
+    norms = [e for e in spans if e.name == "prdisagg.pixel_norm"]
+    assert len(fwds) == 2 and len(norms) == 6
+    for fwd in fwds:
+        assert sum(_parent_span(e) is fwd for e in norms) == 3
 
 
 @pytest.mark.parametrize("call", ["batch", "multi"])
