@@ -19,7 +19,8 @@ Run from the repository root.  Phases:
    paths' shapes (spatial_k1_cases), with its time beside the
    plain version's, one cuDNN convolution of the upsampled input (timed
    only) and the card's bound for the same work; every shape must take the
-   fast kernel (bf16 on wgmma, f32 on the pipelined FMA loop); at batch 32,
+   main path's kernel (bf16 on wgmma, f32 on the halo forward's 3xTF32
+   wgmma); at batch 32,
    at a gloo rank's 16, at the 64x64 f32 step's 4, at the spatial
    step's 2, and at the fused steps' 192 and 24 also its backward
    kernels (bf16: dx and dkernel on halo boxes, splits summed in a
@@ -950,7 +951,9 @@ K1_FORWARD_CASES = (
     + [("slab64_p4_stage2", 4, 12, 32 // 4 + 2, 32, 128, 64),
        ("small_b3_stage0", 3, 3, 2, 2, 256, 256),
        ("small_b5_stage1", 5, 6, 4, 4, 256, 128),
-       ("ragged_b33_stage1", 33, 6, 4, 4, 256, 128)])
+       ("ragged_b33_stage1", 33, 6, 4, 4, 256, 128),
+       ("cin32_b1000", 1000, 6, 4, 4, 32, 64),
+       ("cin96_b7", 7, 5, 3, 9, 96, 128)])
 
 
 def _ptxas_lines(name: str, kernels: tuple) -> list:
@@ -970,8 +973,8 @@ def _ptxas_lines(name: str, kernels: tuple) -> list:
 
 def phase_k1_forward(seed: int) -> dict:
     """K1's f32 forward by kernel at K1_FORWARD_CASES: the halo forward at
-    k1_plan's tile and at each of HALO_F32_FW_TILES, and the FMA kernel at
-    its tile, each against the plain version (TF32 off; rtol 1e-4, atol
+    k1_plan's tile and at each of HALO_F32_FW_TILES, and the general
+    kernel, each against the plain version (TF32 off; rtol 1e-4, atol
     1e-5 of the largest value) and timed in device ms (queued_ms), beside
     the plain version, the exact-FMA and 3xTF32 bounds; the weight split
     bit for bit against its plain version.  Prints [k1_forward] rows."""
@@ -1011,7 +1014,7 @@ def phase_k1_forward(seed: int) -> dict:
             p for p in (uc._halo_forward_plan(b, d, h, w, cout, (bm,))
                         for bm in uc.HALO_F32_FW_TILES)
             if p != chosen] + [
-            uc.fast_plan(b, d, h, w, cout)]
+            uc.general_plan(b, d, h, w, cout)]
         for plan in plans:
             got = uc.upsample2_conv3_cuda(x, kp, bias, plan)
             torch.cuda.synchronize()
@@ -1172,7 +1175,7 @@ def phase_kernel_check(seed: int) -> dict:
                 # what the CTAs copy from L2 into shared memory: every
                 # (phase, tap) re-reads the input rows, every M tile the
                 # weights; 128 bytes per tile row and reduction slice
-                bk = upsample_conv.FAST_BK[dtype]
+                bk = upsample_conv.FAST_BK
                 row["tile_load_bytes"] = (plan.ctas * (8 * cin // bk)
                                           * (plan.bm + plan.bn) * 128)
                 row["tile_load_tb_per_s"] = row["tile_load_bytes"] / ms / 1e9
@@ -1502,7 +1505,7 @@ def _k1_backward_ms(prof) -> float:
 
 
 # the hand-written kernels, by a part of their names in a profile
-BY_NAME = ("k1_bf16_wgmma", "k1_f32_fma", "k1_general", "k2_gather",
+BY_NAME = ("k1_bf16_wgmma", "k1_general", "k2_gather",
            "k1_f32_halo", "k1_pack_fwd_tf32", "k1_dx_bf16_halo",
            "k1_dk_bf16_halo", "k1_dx_f32_halo", "k1_dk_f32_halo",
            "k1_pack_tf32", "k1_dx_fma", "k1_dk_fma", "k1_dx_reduce",
@@ -1630,8 +1633,7 @@ def _step_peaks(step_fn, state, ds) -> list:
 
 
 def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
-                   tag: str, replays: int = PROFILE_REPLAYS,
-                   dtype: str = "bfloat16") -> dict:
+                   tag: str, replays: int = PROFILE_REPLAYS) -> dict:
     """A profile of one call of `replays` graphed steps (step_fn's
     steps_per_call): device busy and idle share, and the hand-written
     kernels counted by name inside the replays (K1's forward and backward
@@ -1642,9 +1644,8 @@ def _graph_kernels(step_fn, state, ds, per_step: dict, what: str,
     again, up to DEVICE_TRACE_TRIES traces, before the check fails."""
     import torch
 
-    fast = "k1_bf16_wgmma" if dtype == "bfloat16" else "k1_f32_fma"
     halo = per_step.get("upsample2_conv3_halo_f32", 0)
-    want = {fast: per_step.get("upsample2_conv3_fast", 0),
+    want = {"k1_bf16_wgmma": per_step.get("upsample2_conv3_fast", 0),
             "k1_general": per_step.get("upsample2_conv3_general", 0),
             "k1_f32_halo": halo, "k1_pack_fwd_tf32": halo, "k2_gather": 2,
             "pixel_norm_leaky": per_step.get("pixel_norm_leaky", 0)}
@@ -1941,7 +1942,7 @@ def phase_f32_train(ds, seed: int, workdir: str) -> dict:
     prof = _graph_kernels(
         step_fn, trainer.state, ds, per_step, f"one call of "
         f"{PROFILE_REPLAYS} graphed f32 steps, batch {TRAIN_BATCH}",
-        "f32_train", PROFILE_REPLAYS, "float32")
+        "f32_train", PROFILE_REPLAYS)
     bwd_ms = sum(ms for n, ms in prof["kernel_ms_per_step"].items()
                  if n in BACKWARD_BY_NAME)
     row = {"graphed_steps_per_s": graphed, "timed_steps":

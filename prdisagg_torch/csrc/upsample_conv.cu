@@ -18,8 +18,7 @@
 // k = tap*Cin + ci (pack_phase_kernels() in ops/upsample_conv.py).  Both GEMM
 // operands then have K contiguous: the A rows (Cin is innermost in NDHWC) and
 // the B rows.  One 16-byte cp.async chunk along K, one shared-memory layout
-// and one wgmma descriptor serve both operands, with no transpose flag, and
-// the f32 loop reads A and B the same way.
+// and one wgmma descriptor serve both operands, with no transpose flag.
 //
 // What bounds it on this card.  A stage does 2*64*B*D*H*W*Cin*Cout FLOPs on
 // B*D*H*W*Cin inputs and writes 8*B*D*H*W*Cout outputs: 64-128 FLOPs per
@@ -34,7 +33,7 @@
 // 16 bytes wide and keeps the 8 phases of an M tile adjacent in the grid,
 // so that the re-reads come from L2 and not from HBM.
 //
-// Four kernels, chosen by shape in Python (k1_plan in ops/upsample_conv.py):
+// Three forward kernels, one rule a dtype (k1_plan in ops/upsample_conv.py):
 //
 // * k1_bf16_wgmma (bf16, Cin % 64 == 0, Cout % 64 == 0): per CTA a BM x BN
 //   tile (128 x 128, 128 x 64 or 64 x 64; one warpgroup per 64 rows) of one
@@ -50,7 +49,7 @@
 //   adds the bias in f32, rounds once to bf16 and stores bf16 pairs (the
 //   widest unit of the accumulator layout) straight into the interleaved
 //   (B, 2D, 2H, 2W, Cout) output.
-// * k1_f32_halo (f32, Cin % 64 == 0, Cout % 64 == 0; the tf namespace, in
+// * k1_f32_halo (f32, Cin % 8 == 0, Cout % 64 == 0; the tf namespace, in
 //   the backward section below, beside the f32 backward whose walk it
 //   shares): the same TPU kernel's f32 path on the TF32 tensor cores.
 //   What bounds f32 here: exact FMA runs at 67 TFLOP/s, so the three
@@ -68,20 +67,13 @@
 //   f32 sums toward zero, so each unit of 8 input channels (24 wgmmas)
 //   starts a fresh accumulator, added to f32 sums in registers.  The plan
 //   takes its tile of 128, 192 or 256 positions (2 to 4 warpgroups) by the
-//   waves of work items it makes; it ran faster than k1_f32_fma at every
-//   f32 shape measured on an H100, from B 3 up.
-// * k1_f32_fma (f32, Cin % 32 == 0, Cout % 64 == 0, where k1_f32_halo does
-//   not take the shape): exact f32 FMA (no TF32).
-//   The same cp.async ring (3 stages of BK = 32) with rows padded to 36
-//   floats, so the float4 reads of 4 rows (A) or 8 rows (B) by a warp fall on
-//   distinct banks.  Each thread holds an 8 x 8 tile: per 4 reduction steps
-//   it reads 16 float4 and issues 256 FMAs, so the loop is bound by FMAs, not
-//   by shared-memory loads.
+//   waves of work items it makes.
 // * k1_general (either dtype, any widths): the simple kernel (128 x 64 tiles,
-//   32-deep slices loaded synchronously, f32 FMA) for widths the two fast
-//   kernels do not take, such as the smoke-test models' 8 channels.
+//   32-deep slices loaded synchronously, f32 FMA) for widths the two
+//   tensor-core kernels do not take, such as the smoke-test models' 8
+//   channels, and for operands off the 16-byte alignment.
 //
-// The fast kernels put the phase on the fastest grid axis (block id =
+// k1_bf16_wgmma puts the phase on the fastest grid axis (block id =
 // 8 * tile + phase; k1_f32_halo its work items likewise), so the 8 phases
 // of one M tile, which read the same input rows, run together while those
 // rows are in L2.  The tile is chosen so that the grid fills the 132 SMs at
@@ -391,130 +383,6 @@ k1_bf16_wgmma(const __nv_bfloat16* __restrict__ x,
 }
 
 }  // namespace tc
-
-// ------------------------------------------------------- f32: exact FMA
-
-namespace fp32 {
-
-constexpr int BK = 32;
-constexpr int PITCH = BK + 4;  // floats per smem row: 4 consecutive rows
-                               // start on distinct 16-byte bank groups
-constexpr int STAGES = 3;
-
-template <int BM, int BN>
-constexpr int smem_bytes() {
-  return STAGES * (BM + BN) * PITCH * 4 + BM * 16;
-}
-
-// the 256-thread 128 x 128 tile is held to 128 registers, so that two CTAs
-// (16 warps) share an SM
-template <int BM, int BN>
-__global__ void __launch_bounds__((BM / 8) * (BN / 8),
-                                  BM == 128 && BN == 128 ? 2 : 1)
-k1_f32_fma(const float* __restrict__ x, const float* __restrict__ kp,
-           const float* __restrict__ bias, float* __restrict__ out, int B,
-           int D, int H, int W, int Cin, int Cout) {
-  // thread (ty, tx) owns rows ty + TY*i and columns tx + TX*j, i, j < 8; a
-  // warp spans 4 consecutive ty and 8 consecutive tx
-  constexpr int TY = BM / 8, TX = BN / 8, THREADS = TY * TX, WX = TX / 8;
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + STAGES * BM * PITCH;
-  int4* rows = reinterpret_cast<int4*>(Bs + STAGES * BN * PITCH);
-
-  const int phase = blockIdx.x & 7;
-  const long long tile = blockIdx.x >> 3;
-  const int n_tiles = Cout / BN;
-  const int n0 = (int)(tile % n_tiles) * BN;
-  const long long m0 = (tile / n_tiles) * BM;
-  const long long M = (long long)B * D * H * W;
-  tile_rows(rows, BM, m0, M, D, H, W);
-  __syncthreads();
-
-  const int slices = Cin / BK;
-  const int KT = 8 * slices;
-  const size_t K8 = (size_t)8 * Cin;
-  const float* kb = kp + ((size_t)phase * Cout + n0) * K8;
-  const uint32_t a_ring = smem_addr(As), b_ring = smem_addr(Bs);
-
-  auto load = [&](int kt, int slot) {
-    const Slice s = slice_of(kt, slices, BK, phase, H, W);
-#pragma unroll
-    for (int it = 0; it < BM * 8 / THREADS; ++it) {
-      const int i = threadIdx.x + it * THREADS, r = i >> 3, c = i & 7;
-      const bool in = tap_inside(rows[r], s, D, H, W);
-      const float* src =
-          in ? x + (size_t)(m0 + r + s.shift) * Cin + s.c0 + c * 4 : x;
-      cp_async16(a_ring + ((slot * BM + r) * PITCH + c * 4) * 4, src,
-                 in ? 16 : 0);
-    }
-#pragma unroll
-    for (int it = 0; it < BN * 8 / THREADS; ++it) {
-      const int i = threadIdx.x + it * THREADS, n = i >> 3, c = i & 7;
-      cp_async16(b_ring + ((slot * BN + n) * PITCH + c * 4) * 4,
-                 kb + n * K8 + (size_t)kt * BK + c * 4, 16);
-    }
-  };
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty = (warp / WX) * 4 + (lane >> 3);
-  const int tx = (warp % WX) * 8 + (lane & 7);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt landed; everyone is done with slice kt-1
-    if (kt + STAGES - 1 < KT)
-      load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const int slot = kt % STAGES;
-    const float* a = As + (slot * BM + ty) * PITCH;
-    const float* b = Bs + (slot * BN + tx) * PITCH;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 av[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        av[i] = *reinterpret_cast<const float4*>(a + i * TY * PITCH + kk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 bv =
-            *reinterpret_cast<const float4*>(b + j * TX * PITCH + kk);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
-          acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
-          acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
-          acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float bj[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) bj[j] = bias[n0 + tx + TX * j];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + TY * i;
-    if (m0 + r >= M) continue;
-    float* dst = out + out_row(rows[r], phase, D, H, W, Cout) + n0 + tx;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[TX * j] = acc[i][j] + bj[j];
-  }
-}
-
-}  // namespace fp32
 
 // ------------------------------------- general: any widths, f32 FMA
 
@@ -2614,51 +2482,6 @@ int launch_bf16(const void* x, const void* kp, const void* bias, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int BM, int BN>
-int launch_f32(const void* x, const void* kp, const void* bias, void* out,
-               int B, int D, int H, int W, int Cin, int Cout,
-               cudaStream_t stream) {
-  constexpr int smem = fp32::smem_bytes<BM, BN>();
-  static SmemLimit limit;
-  cudaError_t err = limit.ensure(fp32::k1_f32_fma<BM, BN>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fp32::k1_f32_fma<BM, BN>
-      <<<fast_grid(B, D, H, W, Cout, BM, BN), (BM / 8) * (BN / 8), smem,
-         stream>>>(static_cast<const float*>(x), static_cast<const float*>(kp),
-                   static_cast<const float*>(bias), static_cast<float*>(out),
-                   B, D, H, W, Cin, Cout);
-  return (int)cudaGetLastError();
-}
-
-// one fast launch: the dtype's kernel at tile (bm, bn)
-template <int BM, int BN>
-int launch_tile(bool bf16, const void* x, const void* kp, const void* bias,
-                void* out, int B, int D, int H, int W, int Cin, int Cout,
-                cudaStream_t stream) {
-  return bf16 ? launch_bf16<BM, BN>(x, kp, bias, out, B, D, H, W, Cin, Cout,
-                                    stream)
-              : launch_f32<BM, BN>(x, kp, bias, out, B, D, H, W, Cin, Cout,
-                                   stream);
-}
-
-int launch_fast(bool bf16, const void* x, const void* kp, const void* bias,
-                void* out, int B, int D, int H, int W, int Cin, int Cout,
-                int bm, int bn, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (Cin % (bf16 ? tc::BK : fp32::BK) != 0 || Cout % bn != 0)
-    return (int)cudaErrorInvalidValue;
-  if (bm == 128 && bn == 128)
-    return launch_tile<128, 128>(bf16, x, kp, bias, out, B, D, H, W, Cin, Cout,
-                              st);
-  if (bm == 128 && bn == 64)
-    return launch_tile<128, 64>(bf16, x, kp, bias, out, B, D, H, W, Cin, Cout,
-                              st);
-  if (bm == 64 && bn == 64)
-    return launch_tile<64, 64>(bf16, x, kp, bias, out, B, D, H, W, Cin, Cout,
-                              st);
-  return (int)cudaErrorInvalidValue;
-}
-
 // ----------------------------------------------------- backward launchers
 
 // A split count must leave every split at least one slice.
@@ -3002,23 +2825,22 @@ extern "C" {
 
 // x (B, D, H, W, Cin); kp (8 phases, Cout, 8*Cin) of x's dtype, packed by
 // pack_phase_kernels(); bias (Cout,) f32; out (B, 2D, 2H, 2W, Cout).  All
-// contiguous on the current device.  The fast entries also need 16-byte
-// aligned x, kp and bias, Cin % 64 == 0 (bf16) or % 32 == 0 (f32), and take
-// the tile (bm, bn), one of 128 x 128, 128 x 64, 64 x 64, with Cout % bn == 0.
+// contiguous on the current device.  The fast entry takes bf16 only, with
+// 16-byte aligned x, kp and bias and Cin % 64 == 0, and the tile (bm, bn),
+// one of 128 x 128, 128 x 64, 64 x 64, with Cout % bn == 0.
 int prdisagg_upsample2_conv3_fast_bf16(const void* x, const void* kp,
                                        const void* bias, void* out, int B,
                                        int D, int H, int W, int Cin, int Cout,
                                        int bm, int bn, void* stream) {
-  return launch_fast(true, x, kp, bias, out, B, D, H, W, Cin, Cout, bm, bn,
-                     stream);
-}
-
-int prdisagg_upsample2_conv3_fast_f32(const void* x, const void* kp,
-                                      const void* bias, void* out, int B,
-                                      int D, int H, int W, int Cin, int Cout,
-                                      int bm, int bn, void* stream) {
-  return launch_fast(false, x, kp, bias, out, B, D, H, W, Cin, Cout, bm, bn,
-                     stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (Cin % tc::BK != 0 || Cout % bn != 0) return (int)cudaErrorInvalidValue;
+  if (bm == 128 && bn == 128)
+    return launch_bf16<128, 128>(x, kp, bias, out, B, D, H, W, Cin, Cout, st);
+  if (bm == 128 && bn == 64)
+    return launch_bf16<128, 64>(x, kp, bias, out, B, D, H, W, Cin, Cout, st);
+  if (bm == 64 && bn == 64)
+    return launch_bf16<64, 64>(x, kp, bias, out, B, D, H, W, Cin, Cout, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The f32 halo forward, two launches: kp's TF32 parts into the workspace

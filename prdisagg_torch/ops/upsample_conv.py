@@ -18,10 +18,9 @@ Three implementations of one function:
   the 1-padded input, interleaved).  The CPU path and the yardstick of the
   kernel's correctness on the card.
 * the CUDA kernels in ``csrc/upsample_conv.cu`` (one implicit GEMM per
-  phase, stored straight into the interleaved layout): a fast kernel per
-  dtype (bf16 on wgmma tensor cores; f32 on 3xTF32 wgmma over halo boxes
-  of input rows where Cin and Cout are multiples of 64, on a pipelined FMA
-  loop otherwise) and a general one for other widths, chosen by shape in
+  phase, stored straight into the interleaved layout): a tensor-core
+  kernel per dtype (bf16 on wgmma; f32 on 3xTF32 wgmma over halo boxes of
+  input rows) and a general one for other widths, chosen by shape in
   :func:`k1_plan`, on the folded weights packed K-major by
   :func:`pack_phase_kernels` (for the f32 halo forward, split into TF32
   parts and laid out by :func:`pack_fwd_tf32_cuda`).
@@ -135,8 +134,8 @@ SMS = 132
 #: fast-kernel tiles (BM rows, BN channels), preferred first; a 64 x 128
 #: tile would never be picked, since 128 x 64 makes at least as many CTAs
 FAST_TILES = ((128, 128), (128, 64), (64, 64))
-#: reduction slice of the fast kernels: a slice must lie inside one tap
-FAST_BK = {torch.bfloat16: 64, torch.float32: 32}
+#: reduction slice of the bf16 fast kernel: a slice must lie inside one tap
+FAST_BK = 64
 #: the f32 halo forward (csrc/upsample_conv.cu, tf::k1_f32_halo): its tiles
 #: of positions (64 rows a warpgroup, 4, 3 or 2 of them), preferred first;
 #: 64 output channels a tile; a phase's sub-box rows at most
@@ -193,27 +192,30 @@ def _halo_forward_plan(b: int, d: int, h: int, w: int, cout: int,
 
 def k1_plan(dtype: torch.dtype, b: int, d: int, h: int, w: int, cin: int,
             cout: int) -> K1Plan:
-    """The kernel and tile for x (b, d, h, w, cin) -> cout channels.
+    """The kernel and tile for x (b, d, h, w, cin) -> cout channels, one
+    rule a dtype, the kernel entry's own: f32 with Cin a multiple of 8 (a
+    unit of the halo walk) and Cout of 64 takes the halo forward on 3xTF32
+    tensor cores (:func:`_halo_forward_plan`); bf16 with Cin a multiple of
+    FAST_BK and Cout of 64 the wgmma kernel (:func:`fast_plan`); other
+    widths the general kernel (:func:`general_plan`)."""
+    if cout % 64 == 0:
+        if dtype == torch.float32 and cin % 8 == 0:
+            return _halo_forward_plan(b, d, h, w, cout)
+        if dtype == torch.bfloat16 and cin % FAST_BK == 0:
+            return fast_plan(b, d, h, w, cout)
+    return general_plan(b, d, h, w, cout)
 
-    f32 with Cin and Cout multiples of 64 takes the halo forward on 3xTF32
-    tensor cores (:func:`_halo_forward_plan`).  The other fast kernels
-    (bf16 wgmma, f32 pipelined FMA) need Cin to be a multiple of their
-    reduction slice (64 bf16, 32 f32) and Cout of 64; other widths take the
-    general kernel.  Among the fast tiles, the largest whose grid (8 phases
-    x M tiles x N tiles) fills the card's SMS SMs; if none does, the
-    smallest."""
-    if cin % FAST_BK[dtype] or cout % 64:
-        m = b * d * h * w
-        return K1Plan("general", 128, 64, 8 * _ceil(m, 128) * _ceil(cout, 64))
-    if dtype == torch.float32 and cin % 64 == 0:
-        return _halo_forward_plan(b, d, h, w, cout)
-    return fast_plan(b, d, h, w, cout)
+
+def general_plan(b: int, d: int, h: int, w: int, cout: int) -> K1Plan:
+    """The general kernel's grid: 128 positions by 64 channels a CTA."""
+    return K1Plan("general", 128, 64,
+                  8 * _ceil(b * d * h * w, 128) * _ceil(cout, 64))
 
 
 def fast_plan(b: int, d: int, h: int, w: int, cout: int) -> K1Plan:
-    """The fast kernels' tile (bf16 wgmma, f32 FMA) for Cout a multiple of
-    64: the largest of FAST_TILES whose grid fills the card, else the
-    smallest."""
+    """The bf16 wgmma kernel's tile for Cout a multiple of 64: the largest
+    of FAST_TILES whose grid (8 phases x M tiles x N tiles) fills the
+    card's SMS SMs, else the smallest."""
     m = b * d * h * w
     plan = None
     for bm, bn in FAST_TILES:
@@ -260,10 +262,12 @@ def _kernel_fn(variant: str, dtype: torch.dtype):
     if variant == "halo_f32":  # kp and its parts' workspace; bm, the block
         fn = lib.prdisagg_upsample2_conv3_halo_f32
         ptrs, tile = 5, [ctypes.c_int] * 5
+    elif variant == "fast":
+        fn = lib.prdisagg_upsample2_conv3_fast_bf16
+        tile = [ctypes.c_int] * 2
     else:
-        fn = getattr(lib, f"prdisagg_upsample2_conv3_{variant}_"
+        fn = getattr(lib, f"prdisagg_upsample2_conv3_general_"
                           f"{_ENTRY_DTYPES[dtype]}")
-        tile = [ctypes.c_int] * 2 if variant == "fast" else []
     fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 6 + tile
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -346,6 +350,9 @@ def upsample2_conv3_cuda(x: torch.Tensor, kp: torch.Tensor,
         return out
     if plan is None:
         plan = k1_plan(x.dtype, b, d, h, w, cin, cout)
+    if plan.variant == ("fast" if x.dtype == torch.float32 else "halo_f32"):
+        raise ValueError(f"the {plan.variant} kernel does not take "
+                         f"{x.dtype}")
     if plan.variant != "general" and any(
             t.data_ptr() % 16 for t in (x, kp, bias)):
         plan = plan._replace(variant="general")  # 16-byte copies need it

@@ -61,9 +61,9 @@ DTYPE_TOLS = [("float32", 1e-4, 1e-5), ("bfloat16", 2e-2, 2e-2)]
 SERVING = [(1000, 3, 2, 2, 256, 256), (1000, 6, 4, 4, 256, 128),
            (1000, 12, 8, 8, 128, 64), (512, 12, 32, 32, 128, 64),
            (488, 12, 32, 32, 128, 64)]
-# shapes the f32 FMA kernel keeps: Cin 32 (and others off 64)
-FMA_SHAPES = [(64, 6, 4, 4, 32, 64), (7, 5, 3, 9, 96, 128),
-              (1000, 6, 4, 4, 32, 64)]
+# f32 widths off 64 (Cin in units of 8), which take the halo forward too
+OFF_64_SHAPES = [(64, 6, 4, 4, 32, 64), (7, 5, 3, 9, 96, 128),
+                 (1000, 6, 4, 4, 32, 64), (4, 3, 2, 2, 8, 64)]
 
 
 def _main_variant(dtype):
@@ -148,8 +148,8 @@ def test_upsample2_conv3_spatial_and_fused_shapes_match_plain(
 @pytest.mark.parametrize("dtype,rtol,atol", DTYPE_TOLS)
 def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
                                                 rtol, atol):
-    """The edge cases take the main kernel; the fast kernel at the tile
-    given (f32: the FMA kernel, forced) holds too."""
+    """The edge cases take the main kernel; forced, the bf16 fast kernel at
+    the tile given, and the general kernel in f32, hold too."""
     from prdisagg_torch.ops import upsample_conv
 
     dt = getattr(torch, dtype)
@@ -159,7 +159,10 @@ def test_upsample2_conv3_fast_kernel_edge_cases(cuda, shape, tile, dtype,
     b, d, h, w, _, cout = shape
     fast = upsample_conv.fast_plan(b, d, h, w, cout)
     assert (fast.variant, fast.bm, fast.bn) == ("fast", *tile)
-    assert _check_forward(cuda, shape, dtype, rtol, atol, plan=fast) == "fast"
+    forced = (fast if dtype == "bfloat16"
+              else upsample_conv.general_plan(b, d, h, w, cout))
+    assert _check_forward(cuda, shape, dtype, rtol, atol,
+                          plan=forced) == forced.variant
 
 
 @pytest.mark.parametrize("shape", SERVING)
@@ -208,13 +211,14 @@ def test_upsample2_conv3_halo_f32_replays_in_a_cuda_graph(cuda):
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("shape", FMA_SHAPES)
-def test_upsample2_conv3_f32_fma_kernel_keeps_its_shapes(cuda, shape):
-    """Cin 32 and other widths off 64 keep the f32 FMA kernel."""
+@pytest.mark.parametrize("shape", OFF_64_SHAPES)
+def test_upsample2_conv3_f32_widths_off_64_take_halo_forward(cuda, shape):
+    """Cin 8, 32, 96 and other multiples of 8 off 64 take the f32 halo
+    forward and hold float32's tolerance."""
     from prdisagg_torch.ops import upsample_conv
 
-    assert upsample_conv.k1_plan(torch.float32, *shape).variant == "fast"
-    assert _check_forward(cuda, shape, "float32", 1e-4, 1e-5) == "fast"
+    assert upsample_conv.k1_plan(torch.float32, *shape).variant == "halo_f32"
+    assert _check_forward(cuda, shape, "float32", 1e-4, 1e-5) == "halo_f32"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -476,6 +480,11 @@ def test_upsample2_conv3_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="kp must be"):
         upsample_conv.upsample2_conv3_cuda(
             x, torch.zeros(8, 8, 8, 4, device=cuda), bias)
+    fast = upsample_conv.fast_plan(2, 3, 2, 2, 64)
+    with pytest.raises(ValueError, match="fast kernel does not take"):
+        upsample_conv.upsample2_conv3_cuda(  # bf16 only
+            x, torch.zeros(8, 64, 64, device=cuda),
+            torch.zeros(64, device=cuda), fast)
 
 
 GATHER_CASES = [  # (D, nh, ny, nx, nd, B)

@@ -6,9 +6,9 @@ The CUDA kernels read the folded weights packed K-major, (8 phases, Cout,
 offsets (a+p-1, b+q-1, c+r-1).  Unpacked, the packing must be the JAX
 package's ``_phase_kernels``; a plain implicit GEMM over it must be the TPU
 kernel's function.  The shape chooser must send every main-path shape to the
-fast kernels with a grid that fills the card (f32 with Cin and Cout
-multiples of 64 to the halo forward on 3xTF32 tensor cores), and odd widths
-to the general one.  The halo forward's weight split and its walk over
+dtype's tensor-core kernel with a grid that fills the card (f32 to the halo
+forward on 3xTF32 tensor cores, bf16 to wgmma), and odd widths to the
+general one.  The halo forward's weight split and its walk over
 position blocks, units of 8 input channels and fresh sums are emulated here
 from its constants in the source.
 """
@@ -202,8 +202,7 @@ def test_plan_puts_odd_widths_on_general_kernel(dtype, shape):
 ])
 def test_plan_card_edge_cases_take_fast_kernel(dtype, shape, tile):
     """bf16 takes the fast kernel at the tile given; f32, whose widths are
-    multiples of 64 here, the halo forward, and the FMA kernel's tile rule
-    (fast_plan) is the bf16 one."""
+    multiples of 64 here, the halo forward."""
     plan = tuc.k1_plan(dtype, *shape)
     b, d, h, w, cin, cout = shape
     fast = tuc.fast_plan(b, d, h, w, cout)
@@ -215,18 +214,19 @@ def test_plan_card_edge_cases_take_fast_kernel(dtype, shape, tile):
 
 
 def test_fast_kernel_width_rules():
-    # bf16 slices are 64 deep, f32 slices 32: Cin 32 is fast in f32 only
-    assert tuc.k1_plan(torch.float32, 64, 6, 4, 4, 32, 64).variant == "fast"
+    # f32 takes the halo forward at any Cin in units of 8, bf16 the wgmma
+    # kernel at Cin in slices of 64: Cin 32 is on tensor cores in f32 only
+    for cin in (8, 32, 64, 96, 192):
+        assert tuc.k1_plan(torch.float32, 64, 6, 4, 4, cin, 64).variant == \
+            "halo_f32"
+    assert tuc.k1_plan(torch.float32, 64, 6, 4, 4, 4, 64).variant == \
+        "general"
     assert tuc.k1_plan(torch.bfloat16, 64, 6, 4, 4, 32, 64).variant == \
         "general"
+    assert tuc.k1_plan(torch.bfloat16, 64, 6, 4, 4, 64, 64).variant == "fast"
     # Cout must be a multiple of 64 in both
     for dtype in DTYPES:
         assert tuc.k1_plan(dtype, 64, 6, 4, 4, 128, 96).variant == "general"
-    # f32 Cin 64 and 192 take the halo forward, Cin 96 the FMA kernel
-    for cin in (64, 192):
-        assert tuc.k1_plan(torch.float32, 64, 6, 4, 4, cin, 64).variant == \
-            "halo_f32"
-    assert tuc.k1_plan(torch.float32, 64, 6, 4, 4, 96, 64).variant == "fast"
 
 
 # The f32 halo forward, emulated
@@ -375,6 +375,8 @@ def _emulate_f32_halo(x, kp, bias, plan):
     ((3, 3, 2, 2, 16, 128), None),     # whole samples, a ragged last block
     ((1, 5, 3, 7, 8, 64), 128),        # blocks overhanging D, H and W
     ((2, 6, 4, 4, 24, 64), 192),       # three warpgroups' tile
+    ((2, 6, 4, 4, 32, 64), None),      # Cin 32 and 96: widths off 64
+    ((2, 5, 3, 7, 96, 128), None),
 ])
 def test_emulated_halo_forward_matches_plain(shape, bm):
     """The kernel's walk, emulated from its packed weights, writes every
